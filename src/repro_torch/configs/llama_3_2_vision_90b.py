@@ -1,0 +1,14 @@
+"""llama-3.2-vision-90b [hf:meta-llama/Llama-3.2-11B-Vision; unverified].
+
+Cross-attention image layers every 5th layer; the vision frontend is a STUB
+(``input_specs()`` supplies precomputed patch embeddings).
+"""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama-3.2-vision-90b", family="vlm",
+    n_layers=100, d_model=8192, n_heads=64, n_kv_heads=8, head_dim=128,
+    d_ff=28672, vocab=128256, cross_attn_every=5, n_image_tokens=1601,
+    rope_theta=500000.0,
+    skip_shapes=("long_500k",),
+)
