@@ -2,11 +2,15 @@
 
 The same CLI as ``examples/serve_llm.py``, plus ``--device`` (default
 ``cuda``; pass ``cpu`` to run the plain PyTorch path) and ``--full`` (the
-full configuration instead of ``reduced_config``).  The port has no cache
-engine of its own yet, so this example serves without RAG retrieval.
+full configuration instead of ``reduced_config``).  ``--arch`` takes a
+ported family's config: dense (``qwen3-1.7b``, ...), hybrid
+(``zamba2-1.2b``) or ssm (``mamba2-370m``).  The port has no cache engine of
+its own yet, so this example serves without RAG retrieval.
 
     PYTHONPATH=src python examples/serve_llm_torch.py --device cpu
+    PYTHONPATH=src python examples/serve_llm_torch.py --device cpu --arch zamba2-1.2b
     PYTHONPATH=src python examples/serve_llm_torch.py --full     # on a GPU
+    PYTHONPATH=src python examples/serve_llm_torch.py --full --arch mamba2-370m
 """
 import argparse
 import sys

@@ -6,6 +6,8 @@ CUDA wrapper over ``csrc/*.cu``, with a ``launches`` counter), ``ops.py``
 and the on-card reference).  ``_build.py`` compiles ``csrc/`` at first launch.
 """
 from .flash_attention import decode_attention, flash_attention
-from .rmsnorm import rmsnorm
+from .rmsnorm import gated_rmsnorm, rmsnorm
+from .ssd import ssd, ssd_decode
 
-__all__ = ["decode_attention", "flash_attention", "rmsnorm"]
+__all__ = ["decode_attention", "flash_attention", "gated_rmsnorm", "rmsnorm",
+           "ssd", "ssd_decode"]

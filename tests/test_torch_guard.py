@@ -32,7 +32,8 @@ def test_port_modules_exist():
     for name in ("repro_torch.interop", "repro_torch.kernels._build",
                  "repro_torch.kernels.rmsnorm.kernel",
                  "repro_torch.kernels.flash_attention.kernel",
-                 "repro_torch.models.transformer",
+                 "repro_torch.kernels.ssd.kernel",
+                 "repro_torch.models.ssm", "repro_torch.models.transformer",
                  "repro_torch.serve.engine", "repro_torch.configs"):
         assert name in mods
 

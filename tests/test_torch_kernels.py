@@ -2,6 +2,7 @@
 package's, on the CPU: RMSNorm and flash attention against the JAX oracles
 and the Pallas kernels in interpret mode, decode attention, and the CPU
 dispatch (plain path, no launches, no fallback from the CUDA wrappers).
+The SSD plain versions are held against JAX in tests/test_torch_ssm.py.
 
 Inputs are drawn with numpy from a seed and given to both sides as the same
 values (bf16 inputs are rounded once, in JAX, and carried bit-exactly).
@@ -26,6 +27,7 @@ from repro_torch.kernels.flash_attention import (decode_attention_ref,
                                                  flash_attention_ref)
 from repro_torch.kernels.rmsnorm import (gated_rmsnorm_ref, rmsnorm_cuda,
                                          rmsnorm_ref)
+from repro_torch.kernels.ssd import ssd, ssd_chunk_cuda, ssd_ref
 
 # The JAX side runs jitted: one compile per shape instead of one per op.
 jax_rmsnorm_ref = jax.jit(jax_rms.rmsnorm_ref)
@@ -167,6 +169,18 @@ def test_ops_on_cpu_take_the_plain_path_without_launching():
     assert flash_attention_cuda.launches == 0
 
 
+def test_ssd_on_cpu_takes_the_plain_path_without_launching():
+    ssd_chunk_cuda.launches = 0
+    rng = np.random.default_rng(8)
+    x, B, C = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               for shape in ((2, 40, 3, 16), (2, 40, 16), (2, 40, 16)))
+    a = -torch.from_numpy(rng.random((2, 40, 3)).astype(np.float32)) * 0.1
+    y, st = ssd(x, a, B, C, chunk=32)
+    y_ref, st_ref = ssd_ref(x, a, B, C, chunk=32)
+    assert torch.equal(y, y_ref) and torch.equal(st, st_ref)
+    assert ssd_chunk_cuda.launches == 0
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The wrappers launch or raise: a CPU tensor is never computed there."""
     x = torch.ones(4, 64)
@@ -175,5 +189,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     q = torch.ones(1, 8, 2, 16)
     with pytest.raises(ValueError):
         flash_attention_cuda(q, q, q)
+    xc, ac = torch.ones(1, 2, 16, 2, 16), torch.ones(1, 2, 16, 2)
+    with pytest.raises(ValueError):
+        ssd_chunk_cuda(xc, ac, torch.ones(1, 2, 16, 8), torch.ones(1, 2, 16, 8))
     assert rmsnorm_cuda.launches == 0
     assert flash_attention_cuda.launches == 0
+    assert ssd_chunk_cuda.launches == 0

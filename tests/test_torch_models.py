@@ -26,7 +26,8 @@ from repro_torch.models.params import tree_leaves
 DENSE_ARCHS = ["qwen3-1.7b",      # qk_norm, tied embeddings
                "qwen2.5-14b",     # qkv_bias
                "llama3-405b"]     # neither, untied head
-ALL_DENSE = sorted(a for a, c in CONFIGS.items() if c.family == "dense")
+ALL_PORTED = sorted(a for a, c in CONFIGS.items()
+                    if c.family in tt.PORTED_FAMILIES)
 TOL = {jnp.float32: dict(atol=1e-4, rtol=1e-4),
        jnp.bfloat16: dict(atol=0.15, rtol=0.05)}
 B, S = 2, 16
@@ -156,7 +157,7 @@ def test_decode_past_max_seq_clamps_like_jax(arch):
                                **TOL[jnp.float32])
 
 
-@pytest.mark.parametrize("arch", ALL_DENSE)
+@pytest.mark.parametrize("arch", ALL_PORTED)
 def test_build_specs_on_meta_match_jax(arch):
     """Full-size specs: same names, shapes and dtypes, nothing allocated."""
     jspecs = jax.tree.map(lambda s: (s.shape, np.dtype(s.dtype).name),
@@ -173,7 +174,7 @@ def test_build_specs_on_meta_match_jax(arch):
 
 
 @pytest.mark.parametrize("arch", sorted(a for a, c in CONFIGS.items()
-                                        if c.family != "dense"))
+                                        if c.family not in tt.PORTED_FAMILIES))
 def test_other_families_raise_not_implemented(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.build_specs(reduced_config(arch))
