@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase (the main path)
+    python3 chip_smoke.py --kernels-only  # phases 1-3 only: build and check
+                                          # the kernels, then stop
 
 Phases, each printing one JSON line (``{"phase": ...}``):
 
@@ -28,8 +30,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 zamba2-1.2b: device time by kernel and the device's busy
                 share (not part of the main path).
   7. the ``{"kernels": [...]}`` line: launches on the main path (each
-     model's prefill and serving, counted from 0 per model and summed),
-     errors, times and bounds.
+     model's prefill and serving, counted from 0 per model and summed;
+     flash attention's also by variant, and every prefill flash launch
+     must be the ``wgmma`` one), errors, times and bounds.
 
 The models, in order: qwen3-1.7b (dense; RMSNorm and flash attention),
 zamba2-1.2b (hybrid; all three kernels), mamba2-370m (ssm; RMSNorm and the
@@ -185,7 +188,9 @@ def flash_case(B, Sq, Skv, H, KV, hd, causal, q_offset, dtype, gen, flush,
     ok, err = close_enough(flash_attention_cuda(q, k, v, **kw),
                            flash_attention_ref(q, k, v, **kw),
                            TOL[dtype]["flash_attention"], dtype)
+    from repro_torch.kernels.flash_attention.kernel import plan
     r = {"kernel": "flash_attention", "shape": [B, Sq, Skv, H, KV, hd],
+         "variant": plan(dtype, hd, B, Sq, H).variant,
          "causal": causal, "q_offset": q_offset, "dtype": str(dtype)[6:],
          "ok": ok, "max_abs_err": err, "tol": TOL[dtype]["flash_attention"]}
     if timed:
@@ -324,12 +329,16 @@ def phase_kernels() -> dict:
 # --------------------------------------------------------------- phase 4
 
 def counts() -> dict:
+    """Launches so far: each kernel's, and flash attention's by variant
+    (``flash_attention/wgmma`` and so on)."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
     from repro_torch.kernels.ssd import ssd_chunk_cuda
     return {"rmsnorm": rmsnorm_cuda.launches,
             "flash_attention": flash_attention_cuda.launches,
-            "ssd_chunk": ssd_chunk_cuda.launches}
+            "ssd_chunk": ssd_chunk_cuda.launches,
+            **{f"flash_attention/{k}": n for k, n
+               in flash_attention_cuda.variant_launches.items()}}
 
 
 def reset_counts() -> None:
@@ -338,6 +347,8 @@ def reset_counts() -> None:
     from repro_torch.kernels.ssd import ssd_chunk_cuda
     rmsnorm_cuda.launches = 0
     flash_attention_cuda.launches = 0
+    flash_attention_cuda.variant_launches = dict.fromkeys(
+        flash_attention_cuda.variant_launches, 0)
     ssd_chunk_cuda.launches = 0
 
 
@@ -374,14 +385,17 @@ def small_model_check(arch: str) -> None:
 
 
 def expected_per_forward(cfg) -> dict:
-    """Kernel launches one prefill forward must make."""
+    """Kernel launches one prefill forward must make; every flash launch is
+    the wgmma variant (bf16, hd 64 / 128)."""
     L = cfg.n_layers
     if cfg.family == "dense":
-        norms = L * (2 + 2 * cfg.qk_norm) + 1
-        return {"rmsnorm": norms, "flash_attention": L, "ssd_chunk": 0}
-    n_inv = -(-L // cfg.shared_attn_every) if cfg.family == "hybrid" else 0
-    return {"rmsnorm": L + 2 * n_inv + 1, "flash_attention": n_inv,
-            "ssd_chunk": L}
+        norms, flash, ssd = L * (2 + 2 * cfg.qk_norm) + 1, L, 0
+    else:
+        flash = -(-L // cfg.shared_attn_every) if cfg.family == "hybrid" else 0
+        norms, ssd = L + 2 * flash + 1, L
+    return {"rmsnorm": norms, "flash_attention": flash, "ssd_chunk": ssd,
+            "flash_attention/wgmma": flash, "flash_attention/mma_sync": 0,
+            "flash_attention/fma": 0}
 
 
 def phase_prefill(cfg, params) -> dict:
@@ -629,6 +643,8 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     cases = phase_kernels()
+    if "--kernels-only" in sys.argv[1:]:
+        return 0
     for arch in ARCHS:
         small_model_check(arch)
     paths = {arch: run_model(arch) for arch in ARCHS}
@@ -648,8 +664,9 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "timed_shape": r["shape"], "timed_dtype": r["dtype"],
             "cases_ok": sum(c["ok"] for c in mine), "cases": len(mine),
-            "timed": [{k: c[k] for k in ("shape", "dtype", "ms", "plain_ms",
-                                         "bound_ms", "bound_by", "library_ms")}
+            "timed": [{k: c[k] for k in ("shape", "dtype", "variant", "ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms") if k in c}
                       for c in timed],
             "launches_by_path": {
                 arch: {"path": p["launches"][name],
@@ -658,6 +675,12 @@ def main() -> int:
                        else p["serve"][name]}
                 for arch, p in paths.items()},
         })
+        variants = sorted({k.split("/", 1)[1] for p in paths.values()
+                           for k in p["launches"] if k.startswith(name + "/")})
+        if variants:
+            kernels[-1]["variants"] = {
+                v: sum(p["launches"][f"{name}/{v}"] for p in paths.values())
+                for v in variants}
     print(json.dumps({"kernels": kernels}), flush=True)
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:

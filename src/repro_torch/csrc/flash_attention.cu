@@ -6,20 +6,48 @@
 // kernel computes — softmax(scale * q k^T, masked) v with f32 m / l / acc and
 // the output acc / max(l, 1e-30) — but not block by block: on the TPU the kv
 // grid axis runs in order and carries the running state in VMEM scratch; here
-// one CTA owns one (b, h, 64-row q tile) and loops over 64-row KV tiles itself,
-// keeping m, l and its slice of acc in registers.
+// one CTA owns one (b, h, q tile) and loops over KV tiles itself, keeping m,
+// l and its slice of acc in registers.
 //
 // Bound on the H100: tensor FLOPs (4 * B * H * Sq * Skv * hd, about half of
-// it under the causal mask, against 989 TFLOP/s bf16).  Two kernels:
-//   * bf16 (the serving path): the two products on the tensor cores with
-//     warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate).  Each of 4
-//     warps owns 16 q rows; q stays in registers as A fragments, the scores
-//     stay in registers and become P's A fragments directly (P rounded to
-//     bf16, as FlashAttention-2 does), K and V tiles come from shared
-//     memory (V's fragments through ldmatrix.trans).  No TMA, no wgmma, no double buffering yet: later work.
-//   * f32: plain f32 FMA from shared memory (f32 inputs must not be rounded
-//     to bf16), 16 x 16 threads each owning 4 q rows x 4 KV columns.
-// Both skip the work the mask removes: KV tiles wholly above the causal
+// it under the causal mask, against 989 TFLOP/s bf16).  Three kernels, one
+// per variant; the launch plan (variant, tiles, grid, shared memory) comes
+// from `plan()` in kernels/flash_attention/kernel.py, and nothing falls back
+// from one variant to another:
+//   * wgmma (bf16, hd 64 and 128: every serving shape).  FlashAttention-3 in
+//     outline.  A persistent grid (one CTA per SM) walks the work items (128
+//     q rows of one (b, h)) heaviest first.  A CTA has three warpgroups.
+//     Warpgroup 0 is the producer: its one elected thread TMA-loads each
+//     item's Q tile into one of two Q buffers (so the next item's Q arrives
+//     while the current one runs) and the K and V tiles of 128 keys into a
+//     ring of STAGES slots, with a "full" mbarrier per slot for K and for V,
+//     counted in bytes, and an "empty" one the consumers' 8 warps arrive on.
+//     Warpgroups 1 and 2 are consumers of 64 q rows each.  S = Q K^T is
+//     wgmma m64n128k16 with both operands in shared memory (K-major, 128-byte
+//     swizzle); the online softmax runs on the f32 accumulator in registers
+//     (quad shuffles, ex2 of s * scale * log2(e) - m); P is packed to bf16 in
+//     place, since the accumulator layout of m64nN is the register-A layout
+//     of the next product, and O += P V is wgmma m64n{hd}k16 with V MN-major
+//     (transposed) from shared memory.  setmaxnreg hands the producer's
+//     registers to the consumers (56 / 224).  The mask is applied only from
+//     the first KV tile that crosses the diagonal or reaches Skv.  O / l goes
+//     through the warpgroup's own (no longer read) Q rows to a TMA store,
+//     which clips rows past Sq; the Q buffer is released once the store has
+//     read it.  TMA's zero fill covers a ragged last tile: S is its own
+//     dimension of the 4-D (hd, heads, S, B) tensor maps, so a tile never
+//     reads into the next sequence.  Not here yet: ping-pong between the
+//     consumers and overlap of the softmax with the next Q K^T.
+//     Faults to know: a wrong mbarrier parity hangs the kernel (the producer
+//     waits a slot's "empty" barrier with parity (round & 1) ^ 1, the
+//     consumers the "full" ones with round & 1; hopper.cuh's wait traps after
+//     ~2^26 polls, so a hang becomes a launch error); a wrong descriptor
+//     gives wrong numbers, not a fault (see hopper.cuh for the LBO / SBO of
+//     each operand); registers: 64 (O) + 64 (S) + 32 (P) a thread at hd 128.
+//   * mma_sync (bf16, hd 16 and 32): warp-level mma.sync m16n8k16, 4 warps
+//     of 16 q rows, K and V tiles loaded synchronously into shared memory.
+//   * fma (f32): plain f32 FMA from shared memory (f32 inputs must not be
+//     rounded to bf16), 16 x 16 threads each owning 4 q rows x 4 KV columns.
+// All skip the work the mask removes: KV tiles wholly above the causal
 // diagonal are never loaded or multiplied, and the heaviest q tiles are
 // scheduled first.
 //
@@ -28,13 +56,20 @@
 // kernel's Sq % block_q restriction does not carry over), as are KV rows at or
 // past Skv.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;       // q rows per CTA
-constexpr int kBK = 64;       // KV rows per tile
-constexpr int kThreads = 256; // f32 kernel: 16 x 16 threads
-constexpr int kMmaThreads = 128;  // bf16 kernel: 4 warps x 16 q rows
+// Variant codes passed from Python (kernels/flash_attention/kernel.py: VARIANTS).
+enum Variant : int { kWgmma = 0, kMmaSync = 1, kFma = 2 };
+
+constexpr int kBQ = 64;       // fma and mma_sync: q rows per CTA
+constexpr int kBK = 64;       // fma and mma_sync: KV rows per tile
+constexpr int kThreads = 256; // fma: 16 x 16 threads
+constexpr int kMmaThreads = 128;  // mma_sync: 4 warps x 16 q rows
+constexpr int kWgBQ = 128;        // wgmma: q rows per item (2 consumers x 64)
+constexpr int kWgBN = 128;        // wgmma: keys per KV tile
+constexpr int kWgThreads = 384;   // wgmma: producer + 2 consumer warpgroups
 
 template <int HD>
 struct Smem {
@@ -214,7 +249,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------- bf16 mma
+// ------------------------------------------------- bf16 mma.sync (hd 16, 32)
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
@@ -428,16 +463,310 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+
+// ------------------------------------------------- bf16 wgmma + TMA (hd 64, 128)
+
+template <int HD, int STAGES>
+struct WgSmem {
+  static constexpr int Q_BYTES = kWgBQ * HD * 2;   // one Q tile
+  static constexpr int KV_BYTES = kWgBN * HD * 2;  // one K or one V tile
+  static constexpr int Q = 0;                      // two Q tiles
+  static constexpr int K = Q + 2 * Q_BYTES;
+  static constexpr int V = K + STAGES * KV_BYTES;
+  static constexpr int BARS = V + STAGES * KV_BYTES;
+  // + q_full / q_empty per Q tile, k_full / v_full / empty per slot; + 1024
+  // bytes so the tiles can start on the swizzle's 1024-byte period.
+  static constexpr int BYTES = BARS + (4 + 3 * STAGES) * 8 + 1024;
+};
+
+// 2^x on the MUFU unit (x = -inf gives 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 64) hopper::wgmma_rs_n64(d, a, db);
+  else hopper::wgmma_rs_n128(d, a, db);
+}
+
+// A work item is one (q tile, h, b); item w takes q tile n_qt - 1 - w / (H B)
+// (heaviest first), h = w % H, b = w / H % B.  The grid is persistent: CTA i
+// takes items i, i + gridDim.x, ... so the producer loads the next item's Q
+// (into the other of two Q tiles) and its first K / V tiles while the
+// consumers finish the current one.
+__device__ __forceinline__ void wg_item(int w, int H, int B, int n_qt, int& q0,
+                                        int& h, int& b) {
+  const int hb = H * B;
+  q0 = (n_qt - 1 - w / hb) * kWgBQ;
+  h = w % H;
+  b = w / H % B;
+}
+
+template <int HD, int STAGES>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_o, int B, int Sq,
+                       int Skv, int H, int KV, int causal, int q_offset,
+                       float scale_log2) {
+  using S = WgSmem<HD, STAGES>;
+  static_assert(HD % 64 == 0, "head dim in 64-column chunks");
+  constexpr int CH = HD / 64;  // 64-column (128-byte) chunks of a row
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = sm + S::Q;
+  uint8_t* Ks = sm + S::K;
+  uint8_t* Vs = sm + S::V;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + S::BARS);  // [2]
+  uint64_t* q_empty = q_full + 2;                                 // [2]
+  uint64_t* k_full = q_empty + 2;                                 // [STAGES]
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int n_qt = (Sq + kWgBQ - 1) / kWgBQ;
+  const int n_items = n_qt * H * B;
+  const int group = H / KV;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&q_full[i], 1);
+      hopper::mbar_init(&q_empty[i], 2);  // one arrival per consumer warpgroup
+    }
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // The KV tiles an item needs, and the first that needs the mask (it holds
+  // a key past the item's smallest q position, or at or past Skv): the same
+  // formulas as kv_tiles() in kernels/flash_attention/kernel.py.
+  auto tiles_of = [&](int q0, int& n_tiles, int& mask_from) {
+    const int q_last = min(q0 + kWgBQ, Sq) - 1;
+    const int kv_end = causal ? min(Skv, q_offset + q_last + 1) : Skv;
+    n_tiles = (kv_end + kWgBN - 1) / kWgBN;
+    mask_from = min(causal ? (q_offset + q0 + 1) / kWgBN : n_tiles, Skv / kWgBN);
+  };
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    hopper::setmaxnreg_dec<56>();
+    if (threadIdx.x == 0) {
+      int it = 0;  // KV tiles loaded so far: ring slot it % STAGES
+      for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
+        int q0, h, b, n_tiles, mask_from;
+        wg_item(w, H, B, n_qt, q0, h, b);
+        tiles_of(q0, n_tiles, mask_from);
+        const int kvh = h / group;
+        uint8_t* Qj = Qs + (j & 1) * S::Q_BYTES;
+        hopper::mbar_wait(&q_empty[j & 1], ((j >> 1) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&q_full[j & 1], S::Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+          hopper::tma_load_4d(Qj + c * kWgBQ * 128, &tm_q, &q_full[j & 1], c * 64,
+                              h, q0, b);
+        for (int t = 0; t < n_tiles; ++t, ++it) {
+          const int s = it % STAGES;
+          hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&k_full[s], S::KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < CH; ++c)
+            hopper::tma_load_4d(Ks + s * S::KV_BYTES + c * kWgBN * 128, &tm_k,
+                                &k_full[s], c * 64, kvh, t * kWgBN, b);
+          hopper::mbar_arrive_expect_tx(&v_full[s], S::KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < CH; ++c)
+            hopper::tma_load_4d(Vs + s * S::KV_BYTES + c * kWgBN * 128, &tm_v,
+                                &v_full[s], c * 64, kvh, t * kWgBN, b);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    hopper::setmaxnreg_inc<224>();
+    const int cw = wg - 1;  // this warpgroup's q rows: q0 + 64 cw .. + 63
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
+    int it = 0;
+    for (int w = blockIdx.x, j = 0; w < n_items; w += gridDim.x, ++j) {
+      int q0, h, b, n_tiles, mask_from;
+      wg_item(w, H, B, n_qt, q0, h, b);
+      tiles_of(q0, n_tiles, mask_from);
+      const int qp0 = q_offset + q0 + 64 * cw + 16 * warp + g;  // rows qp0, qp0 + 8
+      uint8_t* Qw = Qs + (j & 1) * S::Q_BYTES + cw * 64 * 128;  // own rows per chunk
+
+      float o[HD / 2];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+      hopper::mbar_wait(&q_full[j & 1], (j >> 1) & 1);
+      for (int t = 0; t < n_tiles; ++t, ++it) {
+        const int s = it % STAGES;
+        const uint32_t parity = (it / STAGES) & 1;
+        const uint8_t* Kt = Ks + s * S::KV_BYTES;
+        const uint8_t* Vt = Vs + s * S::KV_BYTES;
+
+        // S = Q K^T (unscaled), 64 x kWgBN for this warpgroup.
+        float sc[kWgBN / 2];
+        hopper::mbar_wait(&k_full[s], parity);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const int off = (kk & 3) * 32;
+          hopper::wgmma_ss_n128(sc,
+                       hopper::sw128_desc(Qw + (kk >> 2) * kWgBQ * 128 + off, 16, 1024),
+                       hopper::sw128_desc(Kt + (kk >> 2) * kWgBN * 128 + off, 16, 1024),
+                       kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait_all();
+        hopper::fence_regs(sc);
+
+        // Mask (only from the first tile that needs it), then online softmax
+        // for rows qp0 (i = 0) and qp0 + 8 (i = 1).
+        if (t >= mask_from) {
+#pragma unroll
+          for (int jj = 0; jj < kWgBN / 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int kp = t * kWgBN + 8 * jj + 2 * qd + (e & 1);
+              const bool ok = kp < Skv && (!causal || kp <= qp0 + 8 * (e >> 1));
+              if (!ok) sc[4 * jj + e] = -INFINITY;
+            }
+        }
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int jj = 0; jj < kWgBN / 8; ++jj) {
+          mx[0] = fmaxf(mx[0], fmaxf(sc[4 * jj], sc[4 * jj + 1]));
+          mx[1] = fmaxf(mx[1], fmaxf(sc[4 * jj + 2], sc[4 * jj + 3]));
+        }
+        float alpha[2], neg[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float m_new = fmaxf(m[i], quad_max(mx[i]));
+          const float m_use = m_new == -INFINITY ? 0.f : m_new;  // all masked so far
+          alpha[i] = ex2((m[i] - m_use) * scale_log2);
+          neg[i] = m_use * scale_log2;
+          m[i] = m_new;
+        }
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int jj = 0; jj < kWgBN / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            sc[4 * jj + e] = ex2(fmaf(sc[4 * jj + e], scale_log2, -neg[i]));
+            rs[i] += sc[4 * jj + e];
+          }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];  // per-thread part
+#pragma unroll
+        for (int jj = 0; jj < HD / 8; ++jj) {
+          o[4 * jj] *= alpha[0];
+          o[4 * jj + 1] *= alpha[0];
+          o[4 * jj + 2] *= alpha[1];
+          o[4 * jj + 3] *= alpha[1];
+        }
+        uint32_t pa[kWgBN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kWgBN / 16; ++kk) {
+          pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+
+        // O += P V: 16 keys (2048 bytes of V) per instruction.
+        hopper::fence_regs(o);
+        hopper::fence_regs(pa);
+        hopper::mbar_wait(&v_full[s], parity);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgBN / 16; ++kk)
+          wgmma_rs<HD>(o, pa[kk], hopper::sw128_desc(Vt + kk * 2048, kWgBN * 128, 1024));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait_all();
+        hopper::fence_regs(o);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[s]);
+      }
+
+      // O / l in bf16 into this warpgroup's Q rows (swizzled as TMA wrote
+      // them), then one TMA store per 64-column chunk, which clips rows past
+      // Sq; the Q tile is released once the store has read it.
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float den = fmaxf(quad_sum(l[i]), 1e-30f);
+        const int r = 16 * warp + g + 8 * i;
+#pragma unroll
+        for (int jj = 0; jj < HD / 8; ++jj) {
+          uint8_t* dst = Qw + (jj >> 3) * kWgBQ * 128 + r * 128 +
+                         (((jj & 7) ^ (r & 7)) << 4) + qd * 4;
+          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(
+              o[4 * jj + 2 * i] / den, o[4 * jj + 2 * i + 1] / den);
+        }
+      }
+      hopper::fence_async_smem();
+      hopper::named_barrier(1 + cw, 128);
+      if (tid == 0) {
+        if (q0 + 64 * cw < Sq) {
+#pragma unroll
+          for (int c = 0; c < CH; ++c)
+            hopper::tma_store_4d(&tm_o, Qw + c * kWgBQ * 128, c * 64, h,
+                                 q0 + 64 * cw, b);
+          hopper::tma_store_wait();
+        }
+        hopper::mbar_arrive(&q_empty[j & 1]);
+      }
+    }
+  }
+}
+
+template <int HD, int STAGES>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                         int B, int Sq, int Skv, int H, int KV, int causal,
+                         int q_offset, float scale, dim3 grid, int smem,
+                         cudaStream_t stream) {
+  if (smem < WgSmem<HD, STAGES>::BYTES) return cudaErrorInvalidValue;
+  // 4-D maps over (hd, heads, S, B) with the real byte strides.
+  const uint64_t row = HD * 2, q_ld = row * H, kv_ld = row * KV;
+  CUtensorMap tq, tk, tv, to;
+  const bool ok =
+      make_bf16_map_4d(&tq, q, HD, H, Sq, B, row, q_ld, q_ld * Sq, kWgBQ) &&
+      make_bf16_map_4d(&tk, k, HD, KV, Skv, B, row, kv_ld, kv_ld * Skv, kWgBN) &&
+      make_bf16_map_4d(&tv, v, HD, KV, Skv, B, row, kv_ld, kv_ld * Skv, kWgBN) &&
+      make_bf16_map_4d(&to, o, HD, H, Sq, B, row, q_ld, q_ld * Sq, 64);
+  if (!ok) return cudaErrorInvalidValue;
+  auto kern = flash_fwd_wgmma_kernel<HD, STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, to, B, Sq, Skv, H, KV, causal,
+                                           q_offset, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       int B, int Sq, int Skv, int H, int KV, int causal,
-                       int q_offset, float scale, cudaStream_t stream) {
+                       int Sq, int Skv, int H, int KV, int causal, int q_offset,
+                       float scale, dim3 grid, int smem, cudaStream_t stream) {
+  if (smem < (int)MmaSmem<HD>::BYTES) return cudaErrorInvalidValue;
   auto kern = flash_fwd_mma_kernel<HD>;
-  const size_t smem = MmaSmem<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq,
@@ -445,18 +774,15 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- dispatch
-
 template <int HD>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
-                       int B, int Sq, int Skv, int H, int KV, int causal,
-                       int q_offset, float scale, cudaStream_t stream) {
+                       int Sq, int Skv, int H, int KV, int causal, int q_offset,
+                       float scale, dim3 grid, int smem, cudaStream_t stream) {
+  if (smem < (int)Smem<HD>::BYTES) return cudaErrorInvalidValue;
   auto kern = flash_fwd_kernel<float, HD>;
-  const size_t smem = Smem<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, KV,
@@ -464,33 +790,51 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// bf16 runs on the tensor cores; f32 with FMA, so nothing is rounded to bf16.
-template <int HD>
-cudaError_t launch_hd(int dtype, const void* q, const void* k, const void* v,
-                      void* o, int B, int Sq, int Skv, int H, int KV,
-                      int causal, int q_offset, float scale, cudaStream_t s) {
-  if (dtype == kBF16)
-    return launch_mma<HD>(q, k, v, o, B, Sq, Skv, H, KV, causal, q_offset, scale, s);
-  return launch_fma<HD>(q, k, v, o, B, Sq, Skv, H, KV, causal, q_offset, scale, s);
-}
-
 }  // namespace
 
 // q, o: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); contiguous, 16-byte aligned.
-// Returns cudaGetLastError() after the launch (0 on success).
+// The launch plan (variant, block_q, block_kv, stages, grid, dynamic shared
+// memory) is plan()'s in kernels/flash_attention/kernel.py; a plan that no
+// compiled kernel matches is refused.  Returns cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, int B, int Sq, int Skv, int H, int KV,
                               int hd, int dtype, int causal, int q_offset,
-                              float scale, void* stream) {
+                              float scale, int variant, int block_q,
+                              int block_kv, int stages, int grid_x, int grid_y,
+                              int grid_z, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H % KV != 0 || q_offset < 0 ||
-      (dtype != kF32 && dtype != kBF16))
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H % KV != 0 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
-  switch (hd) {
-    case 16: return (int)launch_hd<16>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, q_offset, scale, s);
-    case 32: return (int)launch_hd<32>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, q_offset, scale, s);
-    case 64: return (int)launch_hd<64>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, q_offset, scale, s);
-    case 128: return (int)launch_hd<128>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, q_offset, scale, s);
-    default: return (int)cudaErrorInvalidValue;
+  const dim3 grid(grid_x, grid_y, grid_z);
+  const cudaError_t bad = cudaErrorInvalidValue;
+  switch (variant) {
+    case kWgmma:
+      if (dtype != kBF16 || block_q != kWgBQ || block_kv != kWgBN) return (int)bad;
+      if (hd == 64 && stages == 4)
+        return (int)launch_wgmma<64, 4>(q, k, v, o, B, Sq, Skv, H, KV, causal,
+                                             q_offset, scale, grid, smem, s);
+      if (hd == 128 && stages == 2)
+        return (int)launch_wgmma<128, 2>(q, k, v, o, B, Sq, Skv, H, KV, causal,
+                                              q_offset, scale, grid, smem, s);
+      return (int)bad;
+    case kMmaSync:
+      if (dtype != kBF16 || block_q != kBQ || block_kv != kBK) return (int)bad;
+      if (hd == 16)
+        return (int)launch_mma<16>(q, k, v, o, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
+      if (hd == 32)
+        return (int)launch_mma<32>(q, k, v, o, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
+      return (int)bad;
+    case kFma:
+      if (dtype != kF32 || block_q != kBQ || block_kv != kBK) return (int)bad;
+      switch (hd) {
+        case 16: return (int)launch_fma<16>(q, k, v, o, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
+        case 32: return (int)launch_fma<32>(q, k, v, o, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
+        case 64: return (int)launch_fma<64>(q, k, v, o, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
+        case 128: return (int)launch_fma<128>(q, k, v, o, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
+        default: return (int)bad;
+      }
+    default:
+      return (int)bad;
   }
 }

@@ -30,7 +30,7 @@ SIGNATURES = {
     # name: (argtypes, restype)
     "rmsnorm_fwd": ([_P, _P, _P, _LL, _I, _F, _I, _I, _P], _I),
     "flash_attn_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _F, _P], _I),
+                        _F, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "ssd_chunk_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "kernels_error_string": ([_I], ctypes.c_char_p),
 }

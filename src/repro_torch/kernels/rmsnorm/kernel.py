@@ -2,10 +2,12 @@
 
 Replaces the TPU kernel ``rmsnorm_pallas`` (``repro/kernels/rmsnorm/
 kernel.py``).  On the H100 it is bound by bytes: one read and one write of
-the row (2 * rows * d * itemsize over 3.35 TB/s).  The kernel reads and
-writes 16 bytes a thread where the row allows, reduces x^2 in f32 with warp
-shuffles, one warp per row for d <= 1024 and one CTA per row above; see the
-source for the rest.  ``rmsnorm_cuda.launches`` counts launches.
+the row (2 * rows * d * itemsize over 3.35 TB/s).  Where the row allows
+16-byte vectors and d <= 8192 bf16 (4096 f32), 8 to 32 lanes hold a whole
+row in registers, reduce x^2 in f32 with shuffles and write the result from
+the same registers, over a grid-stride loop that keeps the weight in
+registers; longer rows take one CTA per row.  See the source for the rest.
+``rmsnorm_cuda.launches`` counts launches.
 """
 from __future__ import annotations
 
