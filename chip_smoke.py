@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase (the main path)
     python3 chip_smoke.py --kernels-only  # phases 1-3 only: build and check
                                           # the kernels, then stop
+    python3 chip_smoke.py --profile-only  # phases 1, 2 and 6 only
 
 Phases, each printing one JSON line (``{"phase": ...}``):
 
@@ -26,9 +27,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 max_seq=512)`` answers 8 requests; one decode step with
                 kernels against one with plain versions (mamba2-370m: the
                 same comparison after a few decode steps).
-  6. profile  — one traced prefill and decode step of qwen3-1.7b and of
-                zamba2-1.2b: device time by kernel and the device's busy
-                share (not part of the main path).
+  6. profile  — one traced prefill and decode step of each model: device
+                time by kernel (and summed for each of the port's kernels)
+                and the device's busy share (not part of the main path).
+                ``--profile-only`` runs this phase alone; copied into an
+                older checkout, it profiles that checkout's package.
   7. the ``{"kernels": [...]}`` line: launches on the main path (each
      model's prefill and serving, counted from 0 per model and summed;
      flash attention's also by variant, and every prefill flash launch
@@ -45,6 +48,7 @@ cache engine of its own yet.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -56,10 +60,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 ARCHS = ("qwen3-1.7b", "zamba2-1.2b", "mamba2-370m")
 SERVED = ("qwen3-1.7b", "zamba2-1.2b")          # main path: prefill + serve
-PROFILED = ("qwen3-1.7b", "zamba2-1.2b")
+PROFILED = ARCHS
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,            # dense tensor-core bf16
               torch.float32: 67e12}              # f32 outside tensor cores
+PEAK_TF32 = 495e12                               # dense tensor-core TF32
 BF16_ULP = 2.0 ** -7                             # relative spacing of bf16
 # Kernel tolerances, as in tests/test_kernels.py.
 TOL = {torch.bfloat16: {"rmsnorm": 3e-2, "flash_attention": 2e-2},
@@ -133,7 +138,29 @@ def phase_device() -> dict:
 
 # --------------------------------------------------------------- phase 2
 
-def phase_build() -> None:
+def ptxas_by_kernel(log: str) -> dict:
+    """Registers, spill bytes and static shared memory of each compiled
+    entry function, from ``-Xptxas -v`` output (mangled names)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name and "spill stores" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+            out[name]["spill_bytes"] = int(st) + int(ld)
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["regs"] = int(re.search(r"Used (\d+) registers",
+                                              ln).group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[name]["static_smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def phase_build() -> dict:
+    """Builds and loads the kernels; returns ``ptxas_by_kernel`` of the
+    build log."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     so = _build.build()
@@ -144,6 +171,15 @@ def phase_build() -> None:
              if "registers" in ln]
     emit("build", seconds=seconds, library=str(so.relative_to(ROOT)),
          ptxas=ptxas)
+    return ptxas_by_kernel(log)
+
+
+def ssd_build(build: dict, p: int, n: int) -> dict:
+    """ptxas's numbers for ``ssd_chunk_kernel<p, n>``."""
+    for name, info in build.items():
+        if "ssd_chunk_kernel" in name and f"ILi{p}ELi{n}E" in name:
+            return info
+    return {}
 
 
 # --------------------------------------------------------------- phase 3
@@ -219,7 +255,8 @@ def ssd_work(b, c, l, h, p, n):
     (i, j) pairs the mask keeps: C Bᵀ once per (b, c), since it does not
     depend on the head (2 n P), then per (b, c, h) the masked product with
     x (2 p P) and the end state (2 l n p).  Bytes: x, a, B, C read once;
-    y and the states written once, f32."""
+    y and the states written once, f32.  A 3xTF32 design does three
+    tensor-core products for each of these FLOPs."""
     pairs = l * (l + 1) // 2
     flops = b * c * (2 * n * pairs + h * (2 * p * pairs + 2 * l * n * p))
     nbytes = 4 * b * c * (2 * l * h * p + h * p * n + l * h + 2 * l * n)
@@ -235,17 +272,26 @@ def ssd_inputs(shape_x, shape_a, shape_bc, scale_bc, gen):
             rand(shape_bc) * scale_bc, rand(shape_bc) * scale_bc)
 
 
-def ssd_chunk_case(b, c, l, h, p, n, scale_bc, gen, flush, timed):
+def ssd_chunk_case(b, c, l, h, p, n, scale_bc, gen, flush, timed, build):
     from repro_torch.kernels.ssd import ssd_chunk_cuda, ssd_chunk_ref
+    from repro_torch.kernels.ssd.kernel import plan
     x, a, B, C = ssd_inputs((b, c, l, h, p), (b, c, l, h), (b, c, l, n),
                             scale_bc, gen)
     tol = TOL[torch.float32]["ssd_chunk"]
     got, want = ssd_chunk_cuda(x, a, B, C), ssd_chunk_ref(x, a, B, C)
     oks, errs = zip(*(close_enough(g, w, tol, torch.float32)
                       for g, w in zip(got, want)))
+    from repro_torch.kernels import _build
+    pl, ptxas = plan(b, c, l, h, p, n), ssd_build(build, p, n)
+    # The kernel's own dynamic shared memory; plan() only mirrors it.
+    smem = _build.load().ssd_chunk_smem_bytes(l, p, n)
     r = {"kernel": "ssd_chunk", "shape": [b, c, l, h, p, n],
-         "dtype": "float32", "ok": all(oks), "max_abs_err": max(errs),
-         "max_abs_err_states": errs[1], "tol": tol}
+         "dtype": "float32", "ok": all(oks) and smem == pl.smem_bytes,
+         "max_abs_err": max(errs), "max_abs_err_states": errs[1], "tol": tol,
+         "blocks": pl.blocks, "head_group": pl.head_group,
+         "regs": ptxas.get("regs"), "spill_bytes": ptxas.get("spill_bytes"),
+         "smem": smem + ptxas.get("static_smem", 0),
+         "smem_plan_matches": smem == pl.smem_bytes}
     if timed:
         flops, nbytes = ssd_work(b, c, l, h, p, n)
         t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
@@ -255,7 +301,9 @@ def ssd_chunk_case(b, c, l, h, p, n, scale_bc, gen, flush, timed):
                                   iters=5),
                  library_ms=None,      # no single PyTorch call computes it
                  bound_ms=max(t_ops, t_bytes),
-                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 # The floor of a 3xTF32 tensor-core design.
+                 bound_tc_ms=max(3 * flops / PEAK_TF32 * 1e3, t_bytes))
         r["tflops"] = flops / r["ms"] / 1e9
     return r
 
@@ -276,9 +324,9 @@ def ssd_ops_case(b, s, h, p, n, chunk, gen):
             "max_abs_err_final_state": errs[1], "tol": tol}
 
 
-def phase_kernels() -> dict:
-    """Every case must pass; returns the timed cases per kernel, the main
-    path's first."""
+def phase_kernels(build: dict) -> list:
+    """Every case must pass; returns the cases, each kernel's main-path
+    shape first.  ``build``: ``phase_build``'s ptxas numbers."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -308,14 +356,18 @@ def phase_kernels() -> dict:
             results.append(flash_case(*shape, causal, off, dtype, gen, flush,
                                       dtype in timed))
     # (b, c, l, h, p, n, B/C scale): zamba2 and mamba2 prefill (4 x 1024
-    # tokens), the reduced configs, tests/test_kernels.py's shape, and a
-    # chunk that is not a multiple of the 64-row tile.
+    # tokens), the reduced configs, tests/test_kernels.py's shape, a chunk
+    # that is not a multiple of the 64-row tile, and ragged head groups (5
+    # heads in one group; 9 in groups of 5 and 4).
     for *shape, scale, timed in [(4, 4, 256, 64, 64, 64, 64 ** -0.5, True),
                                  (4, 4, 256, 32, 64, 128, 128 ** -0.5, True),
                                  (2, 2, 32, 8, 16, 16, 1.0, False),
                                  (1, 4, 16, 2, 16, 8, 1.0, False),
-                                 (1, 3, 48, 3, 16, 16, 1.0, False)]:
-        results.append(ssd_chunk_case(*shape, scale, gen, flush, timed))
+                                 (1, 3, 48, 3, 16, 16, 1.0, False),
+                                 (1, 2, 200, 5, 64, 64, 64 ** -0.5, False),
+                                 (2, 1, 256, 9, 64, 128, 128 ** -0.5, False)]:
+        results.append(ssd_chunk_case(*shape, scale, gen, flush, timed,
+                                      build))
     results.append(ssd_ops_case(4, 1024, 64, 64, 64, 256, gen))
     for r in results:
         emit("kernels", **r)
@@ -586,10 +638,14 @@ def phase_profile(cfg, params) -> None:
                 if e.device_type == DeviceType.CUDA]
         device_ms = sum(r[1] for r in rows)
         top = sorted(rows, key=lambda r: -r[1])[:10]
+        # "ssd_" also catches an older checkout's two SSD kernels.
+        ours = {k: [sum(ms for name, ms, _ in rows if k in name),
+                    sum(n for name, _, n in rows if k in name)]
+                for k in ("ssd_", "flash_fwd", "rmsnorm")}
         emit("profile", arch=cfg.name, what=what, wall_ms=wall_ms,
              device_ms=device_ms,
              busy_share=device_ms / wall_ms if wall_ms else None,
-             kernels=len(rows),
+             kernels=len(rows), ports_kernels_ms_launches=ours,
              top=[[name[:80], ms, n] for name, ms, n in top])
 
 
@@ -641,8 +697,15 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     dev = phase_device()
-    phase_build()
-    cases = phase_kernels()
+    if "--profile-only" in sys.argv[1:]:
+        phase_build()
+        for arch in PROFILED:
+            cfg, params = init_model(arch)
+            phase_profile(cfg, params)
+            del params
+            torch.cuda.empty_cache()
+        return 0
+    cases = phase_kernels(phase_build())
     if "--kernels-only" in sys.argv[1:]:
         return 0
     for arch in ARCHS:

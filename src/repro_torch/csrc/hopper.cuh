@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's TMA + wgmma kernels:
 // mbarriers, TMA tensor loads and stores, wgmma shared-memory descriptors for
-// the 128-byte swizzle, the wgmma instructions themselves, warpgroup
-// register hand-over (setmaxnreg), and the host-side tensor-map encoder.
+// the 128-byte swizzle and for none, the wgmma instructions themselves (bf16;
+// TF32 with A in registers), warpgroup register hand-over (setmaxnreg), and
+// the host-side tensor-map encoder.
 //
 // Layout every tile here follows: a tile of R rows by C bf16 columns lands in
 // shared memory as C / 64 chunks, each R rows of 128 bytes (64 bf16), in
@@ -236,6 +237,47 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Shared-memory matrix descriptor without swizzle: the operand is made of
+// core matrices of 8 rows x 16 bytes, each 128 contiguous bytes (row r at
+// r * 16).  K-major operand: lbo = bytes from one core matrix to the next
+// along K, sbo = bytes from one 8-row group to the next along M / N.
+__device__ __forceinline__ uint64_t noswz_desc(const void* smem, uint32_t lbo,
+                                               uint32_t sbo) {
+  const uint64_t addr = smem_u32(smem);
+  return ((addr & 0x3FFFFull) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// D (64 x 64, f32) += A (64 x 8, tf32 in registers) B (8 x 64, tf32); B from
+// shared memory through a descriptor, K-major (TF32 takes no transpose).
+// The A registers hold the layout of mma.m16n8k8's A for each warp's 16 rows.
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// The same with N = 16.
+__device__ __forceinline__ void wgmma_tf32_rs_n16(float (&d)[8],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
 

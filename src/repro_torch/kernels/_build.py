@@ -32,17 +32,18 @@ SIGNATURES = {
     "flash_attn_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _F, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "ssd_chunk_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "ssd_chunk_smem_bytes": ([_I, _I, _I], _LL),
     "kernels_error_string": ([_I], ctypes.c_char_p),
 }
 
 
-def sources():
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC):
+    return sorted(csrc.glob("*.cu"))
 
 
-def source_hash() -> str:
+def source_hash(csrc: Path = CSRC) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cu*")):
+    for path in sorted(csrc.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -59,21 +60,23 @@ def nvcc_path() -> str:
                        "the CUDA kernels are built on the machine with the card")
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libreprotorch_{source_hash()}.so"
+def library_path(csrc: Path = CSRC) -> Path:
+    return BUILD_DIR / f"libreprotorch_{source_hash(csrc)}.so"
 
 
-def build() -> Path:
+def build(csrc: Path = CSRC) -> Path:
     """Compile the sources (in parallel) and link the library, unless a
     library of the same sources exists.  ``build/kernels/build.log`` keeps
-    nvcc's output (``-Xptxas -v``: registers, shared memory, spills)."""
-    so = library_path()
+    nvcc's output (``-Xptxas -v``: registers, shared memory, spills).
+    ``csrc``: another copy of the sources (a version of one kernel to time
+    beside the repo's, as ``examples/ssd_chunk_bench.py`` does)."""
+    so = library_path(csrc)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc, tag = nvcc_path(), f"{source_hash()}.{os.getpid()}"
+    nvcc, tag = nvcc_path(), f"{source_hash(csrc)}.{os.getpid()}"
     jobs = []
-    for src in sources():
+    for src in sources(csrc):
         obj = BUILD_DIR / f"{src.stem}.{tag}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
         jobs.append((src, obj, subprocess.Popen(
