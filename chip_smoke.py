@@ -13,37 +13,48 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 too); fails without CUDA.
   2. build    — the kernels' shared library from ``src/repro_torch/csrc``.
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
-                card, at the serving paths' shapes (RMSNorm and flash
-                attention in bf16 and f32, the SSD chunk kernel in f32; TF32
-                off), with kernel / plain / library times (median of cold-L2
-                runs); and ``ssd`` (chunk kernel + recurrence) against
-                ``ssd_ref`` at the zamba2 prefill shape.
+                card (TF32 off), with kernel / plain / library times (median
+                of cold-L2 runs): RMSNorm and flash attention forward and
+                backward in bf16 and f32 at the serving and training paths'
+                shapes, the SSD chunk kernel in f32; and ``ssd`` (chunk
+                kernel + recurrence) against ``ssd_ref`` at the zamba2
+                prefill shape.
   4. prefill  — per model: a reduced model on the card against the CPU (f32
                 weights), then ``make_prefill`` at full width (random weights,
                 seed 0, bf16) on 4 x 1024 tokens, launches per forward
                 checked, logits held against the plain-kernel forward on the
                 same weights in bf16 and cast to f32 (``kernels_vs_plain``).
   5. serve    — qwen3-1.7b and zamba2-1.2b: ``ServingEngine(batch=4,
-                max_seq=512)`` answers 8 requests; one decode step with
-                kernels against one with plain versions (mamba2-370m: the
-                same comparison after a few decode steps).
-  6. profile  — one traced prefill and decode step of each model: device
+                max_seq=512)`` answers 8 requests, each retrieving 4
+                passages through the port's own IGTCache client; one decode
+                step with kernels against one with plain versions
+                (mamba2-370m: the same comparison after a few decode steps).
+  6. train    — reduced qwen3-1.7b trained 4 steps on the card against the
+                CPU (f32); the launcher (``repro_torch.launch.train``) on the
+                card with a checkpoint and a resume; then qwen3-1.7b at full
+                width: ``make_train_step`` (remat "full", dense loss, AdamW)
+                on 4 x 1024-token batches from the launcher's
+                ``CachedTokenPipeline``, launches per step checked, one
+                step's loss and gradients held against plain versions in
+                bf16 and f32, and one traced step.
+  7. profile  — one traced prefill and decode step of each model: device
                 time by kernel (and summed for each of the port's kernels)
                 and the device's busy share (not part of the main path).
                 ``--profile-only`` runs this phase alone; copied into an
                 older checkout, it profiles that checkout's package.
-  7. the ``{"kernels": [...]}`` line: launches on the main path (each
-     model's prefill and serving, counted from 0 per model and summed;
-     flash attention's also by variant, and every prefill flash launch
-     must be the ``wgmma`` one), errors, times and bounds.
+  8. the ``{"kernels": [...]}`` line: launches on the main path (each
+     model's prefill and serving, and the train steps, each counted from 0
+     and summed; flash attention's also by variant, and every prefill and
+     training flash forward must be the ``wgmma`` one), errors, times and
+     bounds, for the three forward kernels and the two backward ones.
 
 The models, in order: qwen3-1.7b (dense; RMSNorm and flash attention),
-zamba2-1.2b (hybrid; all three kernels), mamba2-370m (ssm; RMSNorm and the
-SSD chunk kernel, prefill only on the main path).
+zamba2-1.2b (hybrid; all three forward kernels), mamba2-370m (ssm; RMSNorm
+and the SSD chunk kernel, prefill only on the main path), then qwen3-1.7b
+training (the forwards and both backwards).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase raises
-and the script exits non-zero without it.  Retrieval is off: the port has no
-cache engine of its own yet.
+and the script exits non-zero without it.
 """
 from __future__ import annotations
 
@@ -66,10 +77,16 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,            # dense tensor-core bf16
               torch.float32: 67e12}              # f32 outside tensor cores
 PEAK_TF32 = 495e12                               # dense tensor-core TF32
 BF16_ULP = 2.0 ** -7                             # relative spacing of bf16
-# Kernel tolerances, as in tests/test_kernels.py.
-TOL = {torch.bfloat16: {"rmsnorm": 3e-2, "flash_attention": 2e-2},
+# Kernel tolerances, as in tests/test_kernels.py.  The backwards take the
+# forward ones scaled to a gradient: bf16 2e-2 plus one bf16 ulp of the
+# value; f32 1e-4 of the leaf's largest magnitude (the products and the
+# atomics sum in other orders than the plain version); dw, a sum over every
+# row, against its norm at the same relative tolerance.
+TOL = {torch.bfloat16: {"rmsnorm": 3e-2, "flash_attention": 2e-2,
+                        "rmsnorm_bwd": 2e-2, "flash_attention_bwd": 2e-2},
        torch.float32: {"rmsnorm": 1e-5, "flash_attention": 5e-5,
-                       "ssd_chunk": 1e-4, "ssd": 1e-4}}
+                       "ssd_chunk": 1e-4, "ssd": 1e-4,
+                       "rmsnorm_bwd": 1e-4, "flash_attention_bwd": 1e-4}}
 LOGITS_ATOL, LOGITS_RTOL = 0.15, 0.05            # tests/test_models.py
 SMALL_F32_TOL = 1e-4                             # card vs CPU, f32 weights
 SOURCES = {
@@ -79,6 +96,12 @@ SOURCES = {
                         "src/repro/kernels/flash_attention/kernel.py:72"),
     "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
                   "src/repro/kernels/ssd/kernel.py:44"),
+    # The TPU kernels have no backward: these are the gradients of the two
+    # above, which the JAX package takes through their plain references.
+    "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm/kernel.py:24"),
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:72"),
 }
 
 
@@ -99,14 +122,20 @@ def close_enough(got, want, atol: float, dtype) -> tuple:
     return ok, float(err.max())
 
 
+SPIN_CYCLES = 2_000_000                          # ~1 ms of the card's clock
+
+
 def time_ms(fn, flush: torch.Tensor, iters: int = 20) -> float:
     """Median device time of ``fn`` over ``iters`` runs, each after a write
-    of ``flush`` (larger than the 50 MB L2) so inputs come from HBM."""
+    of ``flush`` (larger than the 50 MB L2) so inputs come from HBM, then a
+    ~1 ms spin on the card: the host enqueues ``fn`` while the card spins,
+    so a slow host's launch latency does not land between the events."""
     fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s, e = (torch.cuda.Event(enable_timing=True),
                 torch.cuda.Event(enable_timing=True))
         s.record()
@@ -176,10 +205,35 @@ def phase_build() -> dict:
 
 def ssd_build(build: dict, p: int, n: int) -> dict:
     """ptxas's numbers for ``ssd_chunk_kernel<p, n>``."""
+    return kernel_build(build, "ssd_chunk_kernel", f"ILi{p}ELi{n}E")
+
+
+def kernel_build(build: dict, kernel: str, args: str) -> dict:
+    """ptxas's numbers for the entry ``kernel`` whose mangled template
+    arguments start with ``args``."""
     for name, info in build.items():
-        if "ssd_chunk_kernel" in name and f"ILi{p}ELi{n}E" in name:
+        if f"{kernel}{args}" in name:
             return info
     return {}
+
+
+def bwd_build(build: dict, kernel: str, dtype, d: int) -> dict:
+    """ptxas's numbers for the backward kernel a case launches:
+    ``flash_bwd_*_kernel<hd, ...>`` (d = head dim) or
+    ``rmsnorm_bwd_reg_kernel<T, NV, TPR>`` (d = row width), chosen as
+    csrc's launchers choose them."""
+    if kernel == "flash_attention_bwd":
+        if dtype == torch.bfloat16:
+            return kernel_build(build, "flash_bwd_mma_kernel",
+                                f"ILi{d}ELi{32 if d == 128 else 64}E")
+        return kernel_build(build, "flash_bwd_fma_kernel", f"ILi{d}E")
+    nvec = d * (2 if dtype == torch.bfloat16 else 4) // 16
+    nv, tpr = next((nv, tpr) for top, nv, tpr in (
+        (8, 1, 8), (16, 1, 16), (32, 1, 32), (64, 2, 32), (128, 4, 32),
+        (256, 8, 32), (512, 16, 32)) if nvec <= top)
+    t = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
+    return kernel_build(build, "rmsnorm_bwd_reg_kernel",
+                        f"I{t}Li{nv}ELi{tpr}E")
 
 
 # --------------------------------------------------------------- phase 3
@@ -244,6 +298,101 @@ def flash_case(B, Sq, Skv, H, KV, hd, causal, q_offset, dtype, gen, flush,
                  library_ms=(time_ms(sdpa, flush)
                              if causal and q_offset == 0 and Sq == Skv
                              else None),
+                 bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+        r["tflops"] = flops / r["ms"] / 1e9
+    return r
+
+
+def grad_close(got, want, dtype, kind: str) -> tuple:
+    """(ok, max_abs_err) of one gradient leaf at the backward tolerance: bf16
+    ``close_enough`` at 2e-2 (plus one ulp); f32 within 1e-4 of the leaf's
+    largest magnitude."""
+    tol = TOL[dtype][kind]
+    if dtype == torch.float32:
+        tol = tol * max(float(want.abs().max()), 1e-30)
+    return close_enough(got, want, tol, dtype)
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def rmsnorm_bwd_case(rows, d, dtype, gen, flush, timed, build):
+    """``rmsnorm_bwd_cuda`` against ``rmsnorm_bwd_ref`` on the same x, w, dy:
+    dx at the gradient tolerance, dw by its relative L2 error."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_bwd_ref
+    x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+    w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+    dy = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+    (dx, dw), (rx, rw) = rmsnorm_bwd_cuda(x, w, dy), rmsnorm_bwd_ref(x, w, dy)
+    tol = TOL[dtype]["rmsnorm_bwd"]
+    ok_x, err = grad_close(dx, rx, dtype, "rmsnorm_bwd")
+    dw_rel = rel_l2(dw, rw)
+    r = {"kernel": "rmsnorm_bwd", "shape": [rows, d], "dtype": str(dtype)[6:],
+         "ok": ok_x and dw_rel <= tol, "max_abs_err": err,
+         "dw_rel_l2": dw_rel, "tol": tol,
+         **bwd_build(build, "rmsnorm_bwd", dtype, d)}
+    if timed:
+        nbytes = (3 * rows * d + 2 * d) * x.element_size()
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = F.rms_norm(xg, (d,), wg, 1e-5)
+        r.update(ms=time_ms(lambda: rmsnorm_bwd_cuda(x, w, dy), flush),
+                 plain_ms=time_ms(lambda: rmsnorm_bwd_ref(x, w, dy), flush),
+                 library_ms=time_ms(lambda: torch.autograd.grad(
+                     y, (xg, wg), dy, retain_graph=True), flush),
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    return r
+
+
+def flash_bwd_case(B, Sq, Skv, H, KV, hd, causal, q_offset, dtype, gen, flush,
+                   timed, build):
+    """``flash_attention_bwd_cuda`` against ``flash_attention_bwd_ref`` on the
+    same q, k, v, dO and the forward kernel's o and lse."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.kernel import bwd_plan
+    q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, Skv, KV, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, Skv, KV, hd, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dtype)
+    kw = dict(causal=causal, q_offset=q_offset)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    oks, errs = zip(*(grad_close(g, w, dtype, "flash_attention_bwd")
+                      for g, w in zip(got, want)))
+    r = {"kernel": "flash_attention_bwd", "shape": [B, Sq, Skv, H, KV, hd],
+         "variant": bwd_plan(dtype, hd, B, Skv, KV).variant, "causal": causal,
+         "q_offset": q_offset, "dtype": str(dtype)[6:], "ok": all(oks),
+         "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": list(errs),
+         "rel_l2_dq_dk_dv": [rel_l2(g, w) for g, w in zip(got, want)],
+         "tol": TOL[dtype]["flash_attention_bwd"],
+         **bwd_build(build, "flash_attention_bwd", dtype, hd)}
+    del got, want
+    if timed:
+        # Five products against the forward's two.
+        flops = 2.5 * attention_work(B, Sq, Skv, H, hd, causal, q_offset)
+        nbytes = ((4 * q.numel() + 4 * k.numel()) * q.element_size()
+                  + 4 * lse.numel())
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                             enable_gqa=True)
+        dot = do.transpose(1, 2)
+        r.update(ms=time_ms(lambda: flash_attention_bwd_cuda(
+                     q, k, v, o, lse, do, **kw), flush),
+                 plain_ms=time_ms(lambda: flash_attention_bwd_ref(
+                     q, k, v, o, lse, do, **kw), flush, iters=3),
+                 library_ms=(time_ms(lambda: torch.autograd.grad(
+                     out, (qt, kt, vt), dot, retain_graph=True), flush)
+                     if q_offset == 0 and Sq == Skv else None),
                  bound_ms=max(t_ops, t_bytes),
                  bound_by="operations" if t_ops >= t_bytes else "bytes")
         r["tflops"] = flops / r["ms"] / 1e9
@@ -369,6 +518,28 @@ def phase_kernels(build: dict) -> list:
         results.append(ssd_chunk_case(*shape, scale, gen, flush, timed,
                                       build))
     results.append(ssd_ops_case(4, 1024, 64, 64, 64, 256, gen))
+    # Backwards (the train phase's kernels).  RMSNorm (rows, d): the qwen3
+    # train step's norms over 4 x 1024 tokens (d_model, then the q and k
+    # norms), a ragged row count, the reduced config's d_model and head dim.
+    for rows, d, timed in [(4096, 2048, True), (65536, 128, True),
+                           (32768, 128, False), (1000, 2048, False),
+                           (80, 64, False), (640, 16, False)]:
+        for dtype in (bf16, f32):
+            results.append(rmsnorm_bwd_case(rows, d, dtype, gen, flush,
+                                            timed and dtype == bf16, build))
+    # Flash: qwen3's train shape (timed in both types), q_offset, non-causal
+    # over a ragged Skv, hd 64 / 32 with ragged sequences, the reduced hd 16.
+    for shape, causal, off, timed in [
+            ((4, 1024, 1024, 16, 8, 128), True, 0, (bf16, f32)),
+            ((2, 256, 1024, 16, 8, 128), True, 768, ()),
+            ((2, 128, 1601, 16, 8, 128), False, 0, ()),
+            ((2, 200, 200, 8, 2, 64), True, 0, ()),
+            ((1, 130, 130, 4, 4, 32), True, 0, ()),
+            ((2, 40, 40, 4, 2, 16), True, 0, ()),
+            ((2, 16, 48, 4, 2, 16), False, 0, ())]:
+        for dtype in (bf16, f32):
+            results.append(flash_bwd_case(*shape, causal, off, dtype, gen,
+                                          flush, dtype in timed, build))
     for r in results:
         emit("kernels", **r)
     bad = [r for r in results if not r["ok"]]
@@ -380,28 +551,32 @@ def phase_kernels(build: dict) -> list:
 
 # --------------------------------------------------------------- phase 4
 
+def counted():
+    """The kernel wrappers, by the names of the ``kernels`` line."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
+    from repro_torch.kernels.ssd import ssd_chunk_cuda
+    return {"rmsnorm": rmsnorm_cuda, "flash_attention": flash_attention_cuda,
+            "ssd_chunk": ssd_chunk_cuda, "rmsnorm_bwd": rmsnorm_bwd_cuda,
+            "flash_attention_bwd": flash_attention_bwd_cuda}
+
+
 def counts() -> dict:
     """Launches so far: each kernel's, and flash attention's by variant
     (``flash_attention/wgmma`` and so on)."""
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
-    from repro_torch.kernels.ssd import ssd_chunk_cuda
-    return {"rmsnorm": rmsnorm_cuda.launches,
-            "flash_attention": flash_attention_cuda.launches,
-            "ssd_chunk": ssd_chunk_cuda.launches,
+    fns = counted()
+    return {**{k: f.launches for k, f in fns.items()},
             **{f"flash_attention/{k}": n for k, n
-               in flash_attention_cuda.variant_launches.items()}}
+               in fns["flash_attention"].variant_launches.items()}}
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
-    from repro_torch.kernels.ssd import ssd_chunk_cuda
-    rmsnorm_cuda.launches = 0
-    flash_attention_cuda.launches = 0
-    flash_attention_cuda.variant_launches = dict.fromkeys(
-        flash_attention_cuda.variant_launches, 0)
-    ssd_chunk_cuda.launches = 0
+    fns = counted()
+    for f in fns.values():
+        f.launches = 0
+    fa = fns["flash_attention"]
+    fa.variant_launches = dict.fromkeys(fa.variant_launches, 0)
 
 
 def tree_to(params, fn):
@@ -446,6 +621,7 @@ def expected_per_forward(cfg) -> dict:
         flash = -(-L // cfg.shared_attn_every) if cfg.family == "hybrid" else 0
         norms, ssd = L + 2 * flash + 1, L
     return {"rmsnorm": norms, "flash_attention": flash, "ssd_chunk": ssd,
+            "rmsnorm_bwd": 0, "flash_attention_bwd": 0,
             "flash_attention/wgmma": flash, "flash_attention/mma_sync": 0,
             "flash_attention/fma": 0}
 
@@ -527,10 +703,26 @@ def check_prefill(cfg, params, pre) -> None:
 
 # --------------------------------------------------------------- phase 5
 
+def retrieval_client():
+    """The port's own cache client over a knowledge corpus of 500 passages
+    of 64 KB, as examples/serve_llm.py builds the reference's."""
+    from repro_torch.core import CacheConfig, bundle_client
+    from repro_torch.core.types import MB
+    from repro_torch.storage import RemoteStore, make_dataset
+    store = RemoteStore()
+    store.add(make_dataset("knowledge", "flat_files", n_files=500,
+                           small_file_size=64 * 1024))
+    return bundle_client("igtcache", store, 16 * MB,
+                         cfg=CacheConfig(min_share=2 * MB,
+                                         rebalance_quantum=2 * MB))
+
+
 def phase_serve(cfg, params) -> dict:
     from repro_torch.serve.engine import Request, ServingEngine
     n_req, max_new = 8, 16
-    eng = ServingEngine(params, cfg, batch=4, max_seq=512, device="cuda")
+    client = retrieval_client()
+    eng = ServingEngine(params, cfg, batch=4, max_seq=512, device="cuda",
+                        cache_engine=client, knowledge_dataset="knowledge")
     rng = np.random.default_rng(0)
     for rid in range(n_req):
         prompt = rng.integers(0, cfg.vocab, rng.integers(16, 65))
@@ -542,11 +734,16 @@ def phase_serve(cfg, params) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: v - before[k] for k, v in counts().items()}
-    ok = (len(done) == n_req
+    snap = client.snapshot()
+    client.close()
+    retrievals = sum(r.retrieved for r in done)
+    ok = (len(done) == n_req and retrievals == 4 * n_req
           and all(len(r.output) == max_new for r in done))
     return {"engine": eng, "ok": ok, "requests": len(done),
             "tokens": sum(len(r.output) for r in done), "seconds": dt,
-            "steps": eng.steps, "launches": launches}
+            "steps": eng.steps, "launches": launches,
+            "retrievals": retrievals, "cache_reads": snap["hits"] + snap["misses"],
+            "cache_hit_ratio": snap["hit_ratio"]}
 
 
 def clone_state(state) -> dict:
@@ -586,7 +783,9 @@ def check_serve(cfg, params, srv) -> None:
          tokens_per_s=srv["tokens"] / srv["seconds"],
          ms_per_decode_step=srv["seconds"] / max(1, srv["steps"]) * 1e3,
          launches_per_decode_step=per_step, decode_state_mb=state_mb,
-         **cmp, retrieval="off")
+         **cmp, retrieval="on (the port's igtcache client)",
+         retrievals=srv["retrievals"], cache_reads=srv["cache_reads"],
+         cache_hit_ratio=srv["cache_hit_ratio"])
     if not srv["ok"]:
         raise AssertionError(f"{cfg.name} serving left requests unfinished")
 
@@ -607,14 +806,289 @@ def check_decode(cfg, params, steps: int = 8) -> None:
          f"{steps} steps, kernels vs plain", ok=True, **cmp)
 
 
+# --------------------------------------------------------------- phase 6
+
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 3       # timed steps, after one more
+# A full-width step with kernels against the same step with plain versions:
+# loss relative error, and each leaf's gradient by relative L2 error.  In
+# bf16 the gradient bound is the larger of 2e-2 and twice the plain path's
+# own floor, measured in the same run (``plain_floor``): with random weights
+# the 28 layers amplify any last-bit change of the forward's bf16
+# activations into gradient differences of 2-3 %, so a fixed 2e-2 would
+# reject the plain path against itself (examples/train_grad_attribution_
+# torch.py: each kernel alone moves them by about one floor).
+TRAIN_TOL = {torch.bfloat16: {"loss": 1e-2, "grad": 2e-2, "floor_factor": 2},
+             torch.float32: {"loss": 1e-4, "grad": 1e-4}}
+
+
+def small_train_check() -> None:
+    """Reduced qwen3 with f32 weights: 4 steps of ``make_train_step`` on the
+    card (kernels) against the CPU (plain versions), same weights and
+    batches; per-step loss and final params within 1e-4."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_step import make_train_step
+    cfg = reduced_config(TRAIN_ARCH)
+    cpu = tree_to(init_params(cfg, torch.Generator().manual_seed(0)),
+                  lambda t: t.float())
+    run = {"cpu": [cpu, init_state(cpu), []]}
+    gpu = tree_to(cpu, lambda t: t.cuda())
+    run["cuda"] = [gpu, init_state(gpu), []]
+    step = make_train_step(cfg, AdamWConfig(lr=1e-2, warmup_steps=2,
+                                            total_steps=4), remat="full")
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 65)))
+        for dev, r in run.items():
+            batch = {"tokens": toks[:, :-1].to(dev),
+                     "labels": toks[:, 1:].to(dev)}
+            r[0], r[1], m = step(r[0], r[1], batch)
+            r[2].append(float(m["loss"]))
+    loss_err = max(abs(a - b) for a, b in zip(run["cpu"][2], run["cuda"][2]))
+    ok = loss_err <= SMALL_F32_TOL
+    param_err = 0.0
+    for (_, a), (_, b) in zip(tree_leaves(run["cuda"][0]),
+                              tree_leaves(run["cpu"][0])):
+        param_err = max(param_err, float((a.cpu() - b).abs().max()))
+        ok = ok and bool(torch.allclose(a.cpu(), b, atol=SMALL_F32_TOL,
+                                        rtol=SMALL_F32_TOL))
+    emit("train", arch=cfg.name, check="reduced model, 4 steps, card vs "
+         "CPU (f32)", ok=ok, losses=run["cuda"][2],
+         max_loss_err=loss_err, max_param_err=param_err, tol=SMALL_F32_TOL)
+    if not ok:
+        raise AssertionError(f"reduced training on the card differs from the "
+                             f"CPU: loss {loss_err}, params {param_err}")
+
+
+def launcher_check() -> None:
+    """``repro_torch.launch.train.main`` on the card (reduced model): 4 steps
+    with checkpoints, then a resume to step 6 — the pipeline through the
+    port's cache, the step, checkpoint, restore and ``PreemptionGuard``."""
+    import tempfile
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.checkpoint import CheckpointManager
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt") as d:
+        args = ["--arch", TRAIN_ARCH, "--reduced", "--device", "cuda",
+                "--batch", "4", "--seq", "128", "--cache-mb", "64",
+                "--ckpt-dir", d, "--ckpt-every", "2", "--log-every", "2"]
+        t0 = time.perf_counter()
+        rcs = [launch_train.main(args + ["--steps", "4"]),
+               launch_train.main(args + ["--steps", "6", "--resume"])]
+        latest = CheckpointManager(d).latest_step()
+    ok = rcs == [0, 0] and latest == 6
+    emit("train", arch=TRAIN_ARCH, check="launcher, reduced, 4 steps then "
+         "resumed to 6", ok=ok, rcs=rcs, latest_step=latest,
+         seconds=time.perf_counter() - t0)
+    if not ok:
+        raise AssertionError(f"launcher run failed: rcs {rcs}, latest "
+                             f"checkpoint {latest}")
+
+
+def expected_per_train_step(cfg) -> dict:
+    """Kernel launches of one dense train step under remat="full": every
+    layer's forward runs twice (the step, then the recompute), the final
+    norm once; one backward each."""
+    L = cfg.n_layers
+    norms = L * (2 + 2 * cfg.qk_norm)
+    return {"rmsnorm": 2 * norms + 1, "flash_attention": 2 * L,
+            "ssd_chunk": 0, "rmsnorm_bwd": norms + 1,
+            "flash_attention_bwd": L, "flash_attention/wgmma": 2 * L,
+            "flash_attention/mma_sync": 0, "flash_attention/fma": 0}
+
+
+def phase_train(cfg, params) -> dict:
+    """The main path: ``make_train_step`` (remat="full", dense loss, AdamW)
+    on batches of TRAIN_B x TRAIN_S tokens from the launcher's
+    ``CachedTokenPipeline`` over the port's cache, one warm-up step and
+    TRAIN_STEPS timed ones; launches per step checked."""
+    from repro_torch.launch.train import build_pipeline, to_device
+    from repro_torch.storage import RemoteStore
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_step import make_train_step
+    steps = TRAIN_STEPS + 1
+    pipe, client = build_pipeline(RemoteStore(), cfg.vocab, batch=TRAIN_B,
+                                  seq=TRAIN_S, steps=steps, cache_mb=256,
+                                  cache_bundle="igtcache")
+    opt_state = init_state(params)
+    step = make_train_step(cfg, AdamWConfig(total_steps=steps), remat="full")
+    it = pipe.batches(epochs=1000)
+    before = counts()
+    batch = to_device(next(it), "cuda")
+    params, opt_state, m = step(params, opt_state, batch)  # warm-up step
+    losses = [float(m["loss"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data_s = 0.0                         # host time drawing the next batch
+    for _ in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        batch = to_device(next(it), "cuda")
+        data_s += time.perf_counter() - t1
+        params, opt_state, m = step(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    per_step = {k: (v - before[k]) / steps for k, v in counts().items()}
+    stats = pipe.stats
+    pipe.close()
+    client.close()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if per_step != expected_per_train_step(cfg):
+        raise AssertionError(f"{cfg.name} train step launched {per_step}, "
+                             f"expected {expected_per_train_step(cfg)}")
+    del opt_state
+    return {"batch": batch, "ms": ms, "losses": losses,
+            "data_ms": data_s / TRAIN_STEPS * 1e3,
+            "tokens_per_s": TRAIN_B * TRAIN_S / ms * 1e3,
+            "launches": per_step,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "cache_hit_ratio": stats.hit_ratio, "cache_hits": stats.cache_hits,
+            "cache_misses": stats.cache_misses,
+            "prefetch_completed": stats.prefetch_completed}
+
+
+def train_step_flops(cfg, B, S) -> float:
+    """FLOPs of one train step under remat="full": the weight products 6 N T
+    plus the recomputed forward 2 N T (N the matrix parameters, the tied
+    head counted once), and attention's two products over the causal pairs,
+    forward twice and backward (2.5x) once."""
+    d, L = cfg.d_model, cfg.n_layers
+    qkv = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd
+    per_layer = qkv + cfg.n_heads * cfg.hd * d + 3 * d * cfg.d_ff
+    T = B * S
+    dense = 8 * L * per_layer * T + 6 * d * cfg.vocab * T
+    attn = attention_work(B, S, S, cfg.n_heads, cfg.hd, True, 0) * L
+    return dense + (2 + 2.5) * attn
+
+
+def grad_gap(got, want) -> tuple:
+    """(loss relative error, {leaf: relative L2 error}) of two
+    ``make_value_and_grad`` results."""
+    from repro_torch.models.params import tree_leaves
+    ref = dict(tree_leaves(want[1]))
+    errs = {"/".join(path): rel_l2(g, ref[path])
+            for path, g in tree_leaves(got[1])}
+    return float((got[0] - want[0]).abs() / want[0].abs()), errs
+
+
+def plain_floor(cfg, params, batch):
+    """The plain path with the forward's online softmax over 256-key blocks
+    instead of 1024: only the order of f32 sums changes."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.train.train_step import make_value_and_grad
+    ref = fa_ops.flash_attention_ref
+    fa_ops.flash_attention_ref = (
+        lambda *a, **kw: ref(*a, **{**kw, "block_kv": 256}))
+    try:
+        return make_value_and_grad(cfg, remat="full", force_ref=True)(
+            params, batch)
+    finally:
+        fa_ops.flash_attention_ref = ref
+
+
+def check_train(cfg, params, tr) -> None:
+    """One step's loss and gradients with kernels against the same step with
+    plain versions (``force_ref``), from the same weights and batch: in bf16
+    and with the weights cast to f32 (TRAIN_TOL)."""
+    from repro_torch.train.train_step import make_value_and_grad
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        p = params if dtype == torch.bfloat16 else tree_to(
+            params, lambda t: t.float())
+        kern = make_value_and_grad(cfg, remat="full")(p, tr["batch"])
+        plain = make_value_and_grad(cfg, remat="full", force_ref=True)(
+            p, tr["batch"])
+        loss_rel, errs = grad_gap(kern, plain)
+        worst = max(errs, key=errs.get)
+        tol = dict(TRAIN_TOL[dtype])
+        r = {"loss_kernels": float(kern[0]), "loss_plain": float(plain[0]),
+             "loss_rel_err": loss_rel, "worst_grad_rel_l2": errs[worst],
+             "worst_leaf": worst, "embed_grad_rel_l2": errs["embed"],
+             "median_grad_rel_l2": float(np.median(list(errs.values())))}
+        del kern
+        if "floor_factor" in tol:
+            floor_loss, floor = grad_gap(plain_floor(cfg, p, tr["batch"]),
+                                         plain)
+            r.update(floor_worst_grad_rel_l2=max(floor.values()),
+                     floor_median_grad_rel_l2=float(np.median(
+                         list(floor.values()))),
+                     floor_loss_rel_err=floor_loss)
+            tol["grad"] = max(tol["grad"], tol.pop("floor_factor")
+                              * r["floor_worst_grad_rel_l2"])
+        r["ok"] = loss_rel <= tol["loss"] and errs[worst] <= tol["grad"]
+        r["tol"] = tol
+        out[str(dtype)[6:]] = r
+        del p, plain
+        torch.cuda.empty_cache()
+    flops = train_step_flops(cfg, TRAIN_B, TRAIN_S)
+    emit("train", arch=cfg.name, batch=TRAIN_B, seq=TRAIN_S, remat="full",
+         loss="dense", ms_per_step=tr["ms"], tokens_per_s=tr["tokens_per_s"],
+         data_ms_per_step=tr["data_ms"],
+         step_tflop=flops / 1e12,
+         achieved_tflops=flops / tr["ms"] / 1e9,
+         bound_ms_bf16_peak=flops / PEAK_FLOPS[torch.bfloat16] * 1e3,
+         losses=tr["losses"], peak_mem_gb=tr["peak_mem_gb"],
+         launches_per_step=tr["launches"],
+         cache_hit_ratio=tr["cache_hit_ratio"],
+         cache_hits=tr["cache_hits"], cache_misses=tr["cache_misses"],
+         prefetch_completed=tr["prefetch_completed"],
+         kernels_vs_plain=out)
+    bad = [k for k, v in out.items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"{cfg.name} train step with kernels differs "
+                             f"from plain versions in {bad}: {out}")
+
+
+def profile_train(cfg, params, batch) -> None:
+    """One traced full-width train step (not on the main path's counts),
+    then its two halves traced apart: loss and grads, and the AdamW
+    update."""
+    from repro_torch.train.optimizer import (AdamWConfig, apply_updates,
+                                             init_state)
+    from repro_torch.train.train_step import (make_train_step,
+                                              make_value_and_grad)
+    opt_cfg = AdamWConfig()
+    opt_state = init_state(params)
+    step = make_train_step(cfg, opt_cfg, remat="full")
+
+    def run():
+        step(params, opt_state, batch)
+    run()
+    torch.cuda.synchronize()
+    profile_once(cfg.name, "train_step", run, top_n=15)
+    value_and_grad = make_value_and_grad(cfg, remat="full")
+    profile_once(cfg.name, "train_step/loss_and_grads",
+                 lambda: value_and_grad(params, batch))
+    _, grads = value_and_grad(params, batch)
+    profile_once(cfg.name, "train_step/adamw",
+                 lambda: apply_updates(params, grads, opt_state, opt_cfg))
+    del opt_state, grads
+
+
+def run_train() -> dict:
+    """The train path, counted from 0 as each model's serving path is;
+    then its checks and profile."""
+    cfg, params = init_model(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                       # the train path starts here
+    tr = phase_train(cfg, params)
+    launches = counts()                  # ... and ends here
+    check_train(cfg, params, tr)
+    profile_train(cfg, params, tr["batch"])
+    del params, tr["batch"]
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_train_step": tr["launches"]}
+
+
 # --------------------------------------------------------------- phase 7
 
 def phase_profile(cfg, params) -> None:
     """Where the time goes: one traced prefill and one traced decode step
     (torch.profiler), device time by kernel and the device's busy share of
     the host's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.transformer import init_decode_state
     from repro_torch.serve.serve_step import make_prefill, make_serve_step
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -627,26 +1101,43 @@ def phase_profile(cfg, params) -> None:
                      ("decode_step", lambda: step(params, state, step_toks))):
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        device_ms = sum(r[1] for r in rows)
-        top = sorted(rows, key=lambda r: -r[1])[:10]
-        # "ssd_" also catches an older checkout's two SSD kernels.
-        ours = {k: [sum(ms for name, ms, _ in rows if k in name),
-                    sum(n for name, _, n in rows if k in name)]
-                for k in ("ssd_", "flash_fwd", "rmsnorm")}
-        emit("profile", arch=cfg.name, what=what, wall_ms=wall_ms,
-             device_ms=device_ms,
-             busy_share=device_ms / wall_ms if wall_ms else None,
-             kernels=len(rows), ports_kernels_ms_launches=ours,
-             top=[[name[:80], ms, n] for name, ms, n in top])
+        profile_once(cfg.name, what, fn)
+
+
+def profile_once(arch: str, what: str, fn, top_n: int = 10) -> None:
+    """One traced run of ``fn`` (already warm): device time by kernel, the
+    port's kernels summed by name, and the device's busy share of the
+    host's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    device_ms = sum(r[1] for r in rows)
+    top = sorted(rows, key=lambda r: -r[1])[:top_n]
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda r: -r[1])[:5]
+    # By substring: "ssd_" also catches an older checkout's two SSD kernels;
+    # "rmsnorm" is every RMSNorm kernel, backward ("rmsnorm_bwd", and its
+    # dw column sums "rmsnorm_dw") included; "flash_bwd" includes the D pass.
+    ours = {k: [sum(ms for name, ms, _ in rows if k in name),
+                sum(n for name, _, n in rows if k in name)]
+            for k in ("ssd_", "flash_fwd", "flash_bwd", "rmsnorm",
+                      "rmsnorm_bwd", "rmsnorm_dw")}
+    emit("profile", arch=arch, what=what, wall_ms=wall_ms,
+         device_ms=device_ms,
+         busy_share=device_ms / wall_ms if wall_ms else None,
+         kernels=len(rows), ports_kernels_ms_launches=ours,
+         top=[[name[:80], ms, n] for name, ms, n in top],
+         host_top=[[name[:60], ms, n] for name, ms, n in host])
 
 
 # --------------------------------------------------------------- main
@@ -710,7 +1201,10 @@ def main() -> int:
         return 0
     for arch in ARCHS:
         small_model_check(arch)
+    small_train_check()
+    launcher_check()
     paths = {arch: run_model(arch) for arch in ARCHS}
+    paths["train"] = run_train()
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -732,10 +1226,13 @@ def main() -> int:
                                          "library_ms") if k in c}
                       for c in timed],
             "launches_by_path": {
-                arch: {"path": p["launches"][name],
-                       "per_prefill": p["per_prefill"][name],
-                       "serve": None if p["serve"] is None
-                       else p["serve"][name]}
+                arch: ({"path": p["launches"][name],
+                        "per_train_step": p["per_train_step"][name]}
+                       if arch == "train" else
+                       {"path": p["launches"][name],
+                        "per_prefill": p["per_prefill"][name],
+                        "serve": None if p["serve"] is None
+                        else p["serve"][name]})
                 for arch, p in paths.items()},
         })
         variants = sorted({k.split("/", 1)[1] for p in paths.values()

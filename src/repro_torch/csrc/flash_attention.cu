@@ -1,5 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a): online softmax, GQA, causal
-// with q_offset, any Sq and Skv.
+// Flash-attention forward and backward for Hopper (sm_90a): online softmax,
+// GQA, causal with q_offset, any Sq and Skv.  The backward is described
+// where it starts, below the forward's three variants.
 //
 // Replaces the TPU kernel `flash_attention_pallas` / `_flash_kernel`
 // (src/repro/kernels/flash_attention/kernel.py).  It computes what that
@@ -100,8 +101,9 @@ __device__ __forceinline__ float half_sum(float v) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
-                 int H, int KV, int causal, int q_offset, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Skv, int H, int KV,
+                 int causal, int q_offset, float scale) {
   using S = Smem<HD>;
   constexpr int VN = 16 / sizeof(T);   // elements per 16-byte load
   constexpr int CPT = HD / 16;         // output columns per thread
@@ -245,6 +247,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < CPT; ++n)
         ob[r * q_ld + tx + 16 * n] = from_f<T>(acc[i][n] / den);
+      // m is in scaled units here (the q tile was scaled).
+      if (lse != nullptr && tx == 0)
+        lse[((long long)b * H + h) * Sq + r] = m[i] + logf(den);
     }
   }
 }
@@ -312,8 +317,9 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H,
-                     int KV, int causal, int q_offset, float scale) {
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int Sq, int Skv, int H, int KV, int causal, int q_offset,
+                     float scale) {
   using S = MmaSmem<HD>;
   constexpr int VN = 8;            // bf16 per 16-byte load
   constexpr int KSTEPS = HD / 16;  // k-steps of S = Q K^T
@@ -459,6 +465,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
             __floats2bfloat162_rn(acc[n][2 * i] / den, acc[n][2 * i + 1] / den);
         *reinterpret_cast<__nv_bfloat162*>(&ob[r * q_ld + n * 8 + 2 * t]) = val;
       }
+      if (lse != nullptr && t == 0)  // m is in scaled units here
+        lse[((long long)b * H + h) * Sq + r] = m[i] + logf(den);
     }
   }
 }
@@ -511,8 +519,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
-                       const __grid_constant__ CUtensorMap tm_o, int B, int Sq,
-                       int Skv, int H, int KV, int causal, int q_offset,
+                       const __grid_constant__ CUtensorMap tm_o,
+                       float* __restrict__ lse, int B, int Sq, int Skv, int H,
+                       int KV, int causal, int q_offset, float scale,
                        float scale_log2) {
   using S = WgSmem<HD, STAGES>;
   static_assert(HD % 64 == 0, "head dim in 64-column chunks");
@@ -705,11 +714,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       // O / l in bf16 into this warpgroup's Q rows (swizzled as TMA wrote
       // them), then one TMA store per 64-column chunk, which clips rows past
-      // Sq; the Q tile is released once the store has read it.
+      // Sq; the Q tile is released once the store has read it.  Where asked,
+      // one lane of each quad (which holds the row's m and l) writes the
+      // row's log-sum-exp of the scaled scores (m is unscaled here).
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const float den = fmaxf(quad_sum(l[i]), 1e-30f);
         const int r = 16 * warp + g + 8 * i;
+        if (lse != nullptr && qd == 0 && q0 + 64 * cw + r < Sq)
+          lse[((long long)b * H + h) * Sq + q0 + 64 * cw + r] =
+              m[i] * scale + logf(den);
 #pragma unroll
         for (int jj = 0; jj < HD / 8; ++jj) {
           uint8_t* dst = Qw + (jj >> 3) * kWgBQ * 128 + r * 128 +
@@ -736,7 +750,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 template <int HD, int STAGES>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                         int B, int Sq, int Skv, int H, int KV, int causal,
+                         float* lse, int B, int Sq, int Skv, int H, int KV,
+                         int causal,
                          int q_offset, float scale, dim3 grid, int smem,
                          cudaStream_t stream) {
   if (smem < WgSmem<HD, STAGES>::BYTES) return cudaErrorInvalidValue;
@@ -753,14 +768,16 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kern<<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, to, B, Sq, Skv, H, KV, causal,
-                                           q_offset, scale * 1.4426950408889634f);
+  kern<<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, to, lse, B, Sq, Skv, H, KV,
+                                           causal, q_offset, scale,
+                                           scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       int Sq, int Skv, int H, int KV, int causal, int q_offset,
+                       float* lse, int Sq, int Skv, int H, int KV, int causal,
+                       int q_offset,
                        float scale, dim3 grid, int smem, cudaStream_t stream) {
   if (smem < (int)MmaSmem<HD>::BYTES) return cudaErrorInvalidValue;
   auto kern = flash_fwd_mma_kernel<HD>;
@@ -769,14 +786,15 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   kern<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq,
-      Skv, H, KV, causal, q_offset, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      Sq, Skv, H, KV, causal, q_offset, scale);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
-                       int Sq, int Skv, int H, int KV, int causal, int q_offset,
+                       float* lse, int Sq, int Skv, int H, int KV, int causal,
+                       int q_offset,
                        float scale, dim3 grid, int smem, cudaStream_t stream) {
   if (smem < (int)Smem<HD>::BYTES) return cudaErrorInvalidValue;
   auto kern = flash_fwd_kernel<float, HD>;
@@ -785,20 +803,530 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, KV,
-      causal, q_offset, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Skv, H,
+      KV, causal, q_offset, scale);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ backward
+//
+// FlashAttention-2's backward in its simplest right form.  The JAX package
+// has no backward kernel (its CPU path differentiates flash_attention_ref);
+// this computes what that gradient computes, from the forward's row
+// log-sum-exp instead of a second online softmax:
+//   D = rowsum(dO * O),  P = exp(scale * Q K^T - lse)  (masked),
+//   dV = P^T dO,  dS = P * (dO V^T - D),  dQ = scale * dS K,  dK = scale * dS^T Q.
+// One CTA per (64-key block, KV head, b), heaviest (earliest) key blocks
+// first; it holds its K and V tiles in shared memory and loops over the
+// group's H / KV q heads and over the q blocks that the causal mask keeps,
+// so dK and dV (summed over the GQA group) accumulate in f32 registers and
+// are written once, with no atomics.  dQ gathers from every key block: each
+// CTA adds its share with f32 atomicAdd into a zeroed f32 buffer, which the
+// wrapper casts (the sum order, and so dq's last bits, vary between runs).
+// Bound on the H100: tensor FLOPs, 2.5x the forward's (five products over
+// the pairs the mask keeps, against the forward's two).  Two variants:
+//   * mma_sync (bf16): 4 warps, each owning 16 keys; S^T = K Q^T and
+//     dP^T = V dO^T with the keys as the m16n8k16 rows, P^T and dS^T packed
+//     to bf16 straight from the accumulators as the A operand of dV += P^T dO
+//     and dK += dS^T Q (B by ldmatrix.trans), then dS through shared memory
+//     (as [q][key]) for dQ = dS K.  q blocks of 64 rows (32 at hd 128, to
+//     keep the dK / dV accumulators and both score tiles in registers).
+//   * fma (f32): 16 x 16 threads, each owning 4 keys x 4 q of the scores
+//     and 4 keys x hd/16 columns of dK / dV; nothing is rounded to bf16.
+// wgmma and TMA are later work.
+
+constexpr int kBwdBK = 64;           // keys per CTA (both variants)
+constexpr int kBwdMmaThreads = 128;  // mma_sync: 4 warps x 16 keys
+constexpr int kBwdFmaThreads = 256;  // fma: 16 x 16 threads
+constexpr int kBwdFmaBQ = 64;        // fma: q rows per block
+
+// D[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d] in f32: one warp per
+// (b, i, h) row of the (B, Sq, H, hd) tensors; D is (B, H, Sq).
+template <typename T>
+__global__ void flash_bwd_dot_kernel(const T* __restrict__ o,
+                                     const T* __restrict__ dout,
+                                     float* __restrict__ D, long long rows,
+                                     int Sq, int H, int hd) {
+  const long long row =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // whole warp leaves together
+  const int lane = threadIdx.x & 31;
+  const T* op = o + row * hd;
+  const T* dp = dout + row * hd;
+  float acc = 0.f;
+  for (int d = lane; d < hd; d += 32) acc += to_f(op[d]) * to_f(dp[d]);
+  acc = warp_sum(acc);
+  if (lane == 0) {
+    const long long bi = row / H;
+    const long long b = bi / Sq;
+    D[(b * H + row % H) * Sq + bi % Sq] = acc;
+  }
+}
+
+template <int HD, int BQ>
+struct BwdMmaSmem {
+  // bf16 row strides: rows stay 16-byte aligned for ldmatrix, and the 8 rows
+  // a fragment read touches fall in distinct banks.
+  static constexpr int LD = HD + 8;         // K, V, Q, dO tiles [row][d]
+  static constexpr int LDS = kBwdBK + 8;    // dS tile [q][key]
+  static constexpr int KS = 0;
+  static constexpr int VS = KS + kBwdBK * LD;
+  static constexpr int QS = VS + kBwdBK * LD;
+  static constexpr int DOS = QS + BQ * LD;
+  static constexpr int DSS = DOS + BQ * LD;
+  static constexpr int ELEMS = DSS + BQ * LDS;
+  static constexpr size_t STATS = ELEMS * sizeof(__nv_bfloat16);  // lse, D
+  static constexpr size_t BYTES = STATS + 2 * BQ * sizeof(float);
+};
+
+// A fragment (16 rows x 16 columns, row-major) of a [row][col] bf16 tile:
+// rows r and r + 8, columns c and c + 8 (r = row0 + g, c = col0 + 2t).
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const __nv_bfloat16* tile,
+                                       int ld, int r, int c) {
+  a[0] = ld32(tile + r * ld + c);
+  a[1] = ld32(tile + (r + 8) * ld + c);
+  a[2] = ld32(tile + r * ld + c + 8);
+  a[3] = ld32(tile + (r + 8) * ld + c + 8);
+}
+
+// Fragment layouts of mma.m16n8k16 as above (g = lane / 4, t = lane % 4).
+template <int HD, int BQ>
+__global__ void __launch_bounds__(kBwdMmaThreads)
+flash_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ Dd,
+                     float* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H,
+                     int KV, int causal, int q_offset, float scale) {
+  using S = BwdMmaSmem<HD, BQ>;
+  constexpr int VN = 8;             // bf16 per 16-byte load
+  constexpr int KSTEPS = HD / 16;   // k-steps of the products over d
+  constexpr int NT_Q = BQ / 8;      // n-tiles of S^T / dP^T (8 q each)
+  constexpr int NT_D = HD / 8;      // n-tiles of dK / dV / dQ (8 columns each)
+  constexpr int RG = BQ / 16;       // dQ: 16-row groups of the q block
+  constexpr int NT_W = NT_D / (4 / RG);  // dQ: n-tiles per warp
+  static_assert(RG == 2 || RG == 4, "q block of 32 or 64 rows");
+  extern __shared__ __align__(16) uint8_t bwd_smem[];
+  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(bwd_smem);
+  __nv_bfloat16* Ks = sm + S::KS;
+  __nv_bfloat16* Vs = sm + S::VS;
+  __nv_bfloat16* Qs = sm + S::QS;
+  __nv_bfloat16* dOs = sm + S::DOS;
+  __nv_bfloat16* dSs = sm + S::DSS;
+  float* lse_s = reinterpret_cast<float*>(bwd_smem + S::STATS);
+  float* D_s = lse_s + BQ;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * kBwdBK, kvh = blockIdx.y, b = blockIdx.z;
+  const int group = H / KV;
+  const long long q_ld = (long long)H * HD;
+  const long long kv_ld = (long long)KV * HD;
+  const long long kv_base = (long long)b * Skv * kv_ld + (long long)kvh * HD;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+
+  // This CTA's K and V tiles; rows past Skv are zero.
+  for (int e = tid; e < kBwdBK * HD / VN; e += kBwdMmaThreads) {
+    const int c = e / (HD / VN), d0 = (e % (HD / VN)) * VN;
+    uint4 kr = zero, vr = zero;
+    if (k0 + c < Skv) {
+      const long long off = kv_base + (k0 + c) * kv_ld + d0;
+      kr = *reinterpret_cast<const uint4*>(k + off);
+      vr = *reinterpret_cast<const uint4*>(v + off);
+    }
+    *reinterpret_cast<uint4*>(&Ks[c * S::LD + d0]) = kr;
+    *reinterpret_cast<uint4*>(&Vs[c * S::LD + d0]) = vr;
+  }
+
+  float dka[NT_D][4], dva[NT_D][4];
+#pragma unroll
+  for (int n = 0; n < NT_D; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  const int kr0 = warp * 16 + g;              // this thread's keys: kr0, kr0 + 8
+  const int kp[2] = {k0 + kr0, k0 + kr0 + 8};
+
+  // q rows that see a key of this block: from k0 - q_offset under the mask.
+  const int r_first = causal ? max(0, k0 - q_offset) : 0;
+  const int n_qb = (Sq + BQ - 1) / BQ;
+
+  for (int gi = 0; gi < group; ++gi) {
+    const int h = kvh * group + gi;
+    const long long q_base = (long long)b * Sq * q_ld + (long long)h * HD;
+    const float* lse_h = lse + ((long long)b * H + h) * Sq;
+    const float* D_h = Dd + ((long long)b * H + h) * Sq;
+    for (int qb = r_first / BQ; qb < n_qb; ++qb) {
+      const int q0 = qb * BQ;
+      __syncthreads();  // the last block's readers are done (and K, V visible)
+      for (int e = tid; e < BQ * HD / VN; e += kBwdMmaThreads) {
+        const int r = e / (HD / VN), d0 = (e % (HD / VN)) * VN;
+        uint4 qr = zero, dr = zero;
+        if (q0 + r < Sq) {
+          const long long off = q_base + (q0 + r) * q_ld + d0;
+          qr = *reinterpret_cast<const uint4*>(q + off);
+          dr = *reinterpret_cast<const uint4*>(dout + off);
+        }
+        *reinterpret_cast<uint4*>(&Qs[r * S::LD + d0]) = qr;
+        *reinterpret_cast<uint4*>(&dOs[r * S::LD + d0]) = dr;
+      }
+      for (int r = tid; r < BQ; r += kBwdMmaThreads) {
+        lse_s[r] = q0 + r < Sq ? lse_h[q0 + r] : 0.f;
+        D_s[r] = q0 + r < Sq ? D_h[q0 + r] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ q per warp.
+      float st[NT_Q][4], dp[NT_Q][4];
+#pragma unroll
+      for (int j = 0; j < NT_Q; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t ka[4], va[4];
+        a_frag(ka, Ks, S::LD, kr0, kk * 16 + 2 * t);
+        a_frag(va, Vs, S::LD, kr0, kk * 16 + 2 * t);
+#pragma unroll
+        for (int j = 0; j < NT_Q; ++j) {
+          const __nv_bfloat16* qr = &Qs[(j * 8 + g) * S::LD + kk * 16 + 2 * t];
+          const __nv_bfloat16* dr = &dOs[(j * 8 + g) * S::LD + kk * 16 + 2 * t];
+          mma_bf16(st[j], ka, ld32(qr), ld32(qr + 8));
+          mma_bf16(dp[j], va, ld32(dr), ld32(dr + 8));
+        }
+      }
+
+      // P^T (masked), then dS^T = P^T (dP^T - D) in f32.
+      float pt[NT_Q][4];
+#pragma unroll
+      for (int j = 0; j < NT_Q; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = j * 8 + 2 * t + (e & 1), key = kp[e >> 1];
+          const bool ok = key < Skv && q0 + qi < Sq &&
+                          (!causal || key <= q_offset + q0 + qi);
+          pt[j][e] = ok ? expf(st[j][e] * scale - lse_s[qi]) : 0.f;
+          st[j][e] = pt[j][e] * (dp[j][e] - D_s[qi]);
+        }
+
+      // dV += P^T dO and dK += dS^T Q: A from the registers, B by
+      // ldmatrix.trans from the [q][d] tiles.
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        uint32_t pa[4], sa[4];
+        pa[0] = pack_bf16(pt[2 * kk][0], pt[2 * kk][1]);
+        pa[1] = pack_bf16(pt[2 * kk][2], pt[2 * kk][3]);
+        pa[2] = pack_bf16(pt[2 * kk + 1][0], pt[2 * kk + 1][1]);
+        pa[3] = pack_bf16(pt[2 * kk + 1][2], pt[2 * kk + 1][3]);
+        sa[0] = pack_bf16(st[2 * kk][0], st[2 * kk][1]);
+        sa[1] = pack_bf16(st[2 * kk][2], st[2 * kk][3]);
+        sa[2] = pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
+        sa[3] = pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
+        const int row = (kk * 16 + (lane & 15)) * S::LD;
+#pragma unroll
+        for (int n = 0; n < NT_D; ++n) {
+          uint32_t b0, b1;
+          ldmatrix_x2_trans(&dOs[row + n * 8], b0, b1);
+          mma_bf16(dva[n], pa, b0, b1);
+          ldmatrix_x2_trans(&Qs[row + n * 8], b0, b1);
+          mma_bf16(dka[n], sa, b0, b1);
+        }
+      }
+
+      // dS to shared memory as [q][key] (bf16), then dQ += scale dS K.
+#pragma unroll
+      for (int j = 0; j < NT_Q; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dSs[(j * 8 + 2 * t + (e & 1)) * S::LDS + kr0 + 8 * (e >> 1)] =
+              __float2bfloat16_rn(st[j][e]);
+      __syncthreads();
+      const int qr = (warp % RG) * 16, nt0 = (warp / RG) * NT_W;
+      float* dq_h = dq + q_base;
+#pragma unroll
+      for (int n = nt0; n < nt0 + NT_W; ++n) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < kBwdBK / 16; ++kk) {
+          uint32_t a[4], b0, b1;
+          a_frag(a, dSs, S::LDS, qr + g, kk * 16 + 2 * t);
+          ldmatrix_x2_trans(&Ks[(kk * 16 + (lane & 15)) * S::LD + n * 8], b0, b1);
+          mma_bf16(acc, a, b0, b1);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = q0 + qr + g + 8 * i;
+          if (r < Sq) {
+            float* dst = dq_h + r * q_ld + n * 8 + 2 * t;
+            atomicAdd(dst, scale * acc[2 * i]);
+            atomicAdd(dst + 1, scale * acc[2 * i + 1]);
+          }
+        }
+      }
+    }
+  }
+
+  // dK (scaled) and dV, summed over the group: written once.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (kp[i] >= Skv) continue;
+    const long long off = kv_base + kp[i] * kv_ld + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NT_D; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(&dk[off + n * 8]) = __floats2bfloat162_rn(
+          scale * dka[n][2 * i], scale * dka[n][2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(&dv[off + n * 8]) =
+          __floats2bfloat162_rn(dva[n][2 * i], dva[n][2 * i + 1]);
+    }
+  }
+}
+
+template <int HD>
+struct BwdFmaSmem {
+  static constexpr int LD = HD + 1;          // K, V, Q, dO [row][d]: odd stride
+  static constexpr int LDP = kBwdFmaBQ + 1;  // P, then dS, [key][q]
+  static constexpr int KS = 0;
+  static constexpr int VS = KS + kBwdBK * LD;
+  static constexpr int QS = VS + kBwdBK * LD;
+  static constexpr int DOS = QS + kBwdFmaBQ * LD;
+  static constexpr int PS = DOS + kBwdFmaBQ * LD;
+  static constexpr int LSE = PS + kBwdBK * LDP;
+  static constexpr int DD = LSE + kBwdFmaBQ;
+  static constexpr int FLOATS = DD + kBwdFmaBQ;
+  static constexpr size_t BYTES = FLOATS * sizeof(float);
+};
+
+// f32: thread (ty, tx) owns keys ty*4+i and q rows tx+16j of the scores,
+// keys ty*4+i and columns tx+16n of dK / dV, q rows ty*4+i and columns
+// tx+16n of its dQ share.
+template <int HD>
+__global__ void __launch_bounds__(kBwdFmaThreads)
+flash_bwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ Dd,
+                     float* __restrict__ dq, float* __restrict__ dk,
+                     float* __restrict__ dv, int Sq, int Skv, int H, int KV,
+                     int causal, int q_offset, float scale) {
+  using S = BwdFmaSmem<HD>;
+  constexpr int BQ = kBwdFmaBQ;
+  constexpr int CPT = HD / 16;  // columns per thread
+  extern __shared__ __align__(16) float bwd_smem_f[];
+  float* Ks = bwd_smem_f + S::KS;
+  float* Vs = bwd_smem_f + S::VS;
+  float* Qs = bwd_smem_f + S::QS;
+  float* dOs = bwd_smem_f + S::DOS;
+  float* Ps = bwd_smem_f + S::PS;
+  float* lse_s = bwd_smem_f + S::LSE;
+  float* D_s = bwd_smem_f + S::DD;
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int k0 = blockIdx.x * kBwdBK, kvh = blockIdx.y, b = blockIdx.z;
+  const int group = H / KV;
+  const long long q_ld = (long long)H * HD;
+  const long long kv_ld = (long long)KV * HD;
+  const long long kv_base = (long long)b * Skv * kv_ld + (long long)kvh * HD;
+
+  for (int e = tid; e < kBwdBK * HD; e += kBwdFmaThreads) {
+    const int c = e / HD, d = e % HD;
+    const bool in = k0 + c < Skv;
+    Ks[c * S::LD + d] = in ? k[kv_base + (k0 + c) * kv_ld + d] : 0.f;
+    Vs[c * S::LD + d] = in ? v[kv_base + (k0 + c) * kv_ld + d] : 0.f;
+  }
+
+  float dka[4][CPT], dva[4][CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < CPT; ++n) dka[i][n] = dva[i][n] = 0.f;
+
+  const int r_first = causal ? max(0, k0 - q_offset) : 0;
+  const int n_qb = (Sq + BQ - 1) / BQ;
+  for (int gi = 0; gi < group; ++gi) {
+    const int h = kvh * group + gi;
+    const long long q_base = (long long)b * Sq * q_ld + (long long)h * HD;
+    const float* lse_h = lse + ((long long)b * H + h) * Sq;
+    const float* D_h = Dd + ((long long)b * H + h) * Sq;
+    for (int qb = r_first / BQ; qb < n_qb; ++qb) {
+      const int q0 = qb * BQ;
+      __syncthreads();
+      for (int e = tid; e < BQ * HD; e += kBwdFmaThreads) {
+        const int r = e / HD, d = e % HD;
+        const bool in = q0 + r < Sq;
+        Qs[r * S::LD + d] = in ? q[q_base + (q0 + r) * q_ld + d] : 0.f;
+        dOs[r * S::LD + d] = in ? dout[q_base + (q0 + r) * q_ld + d] : 0.f;
+      }
+      for (int r = tid; r < BQ; r += kBwdFmaThreads) {
+        lse_s[r] = q0 + r < Sq ? lse_h[q0 + r] : 0.f;
+        D_s[r] = q0 + r < Sq ? D_h[q0 + r] : 0.f;
+      }
+      __syncthreads();
+
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < HD; ++d) {
+        float kv[4], vv[4], qv[4], ov[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          kv[i] = Ks[(ty * 4 + i) * S::LD + d];
+          vv[i] = Vs[(ty * 4 + i) * S::LD + d];
+          qv[i] = Qs[(tx + 16 * i) * S::LD + d];
+          ov[i] = dOs[(tx + 16 * i) * S::LD + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] += kv[i] * qv[j];
+            dp[i][j] += vv[i] * ov[j];
+          }
+      }
+      // P (masked) to shared memory; dS kept in s.
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = k0 + ty * 4 + i, qi = tx + 16 * j;
+          const bool ok = key < Skv && q0 + qi < Sq &&
+                          (!causal || key <= q_offset + q0 + qi);
+          const float p = ok ? expf(s[i][j] * scale - lse_s[qi]) : 0.f;
+          Ps[(ty * 4 + i) * S::LDP + qi] = p;
+          s[i][j] = p * (dp[i][j] - D_s[qi]);
+        }
+      __syncthreads();
+      for (int qi = 0; qi < BQ; ++qi) {  // dV += P dO
+        float pv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * S::LDP + qi];
+#pragma unroll
+        for (int n = 0; n < CPT; ++n) {
+          const float o = dOs[qi * S::LD + tx + 16 * n];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dva[i][n] += pv[i] * o;
+        }
+      }
+      __syncthreads();  // P is read; dS takes its place
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) Ps[(ty * 4 + i) * S::LDP + tx + 16 * j] = s[i][j];
+      __syncthreads();
+      for (int qi = 0; qi < BQ; ++qi) {  // dK += dS Q
+        float sv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sv[i] = Ps[(ty * 4 + i) * S::LDP + qi];
+#pragma unroll
+        for (int n = 0; n < CPT; ++n) {
+          const float qv = Qs[qi * S::LD + tx + 16 * n];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dka[i][n] += sv[i] * qv;
+        }
+      }
+      float acc[4][CPT];  // dQ share: q rows ty*4+i, columns tx+16n
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int n = 0; n < CPT; ++n) acc[i][n] = 0.f;
+      for (int c = 0; c < kBwdBK; ++c) {
+        float sv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sv[i] = Ps[c * S::LDP + ty * 4 + i];
+#pragma unroll
+        for (int n = 0; n < CPT; ++n) {
+          const float kv = Ks[c * S::LD + tx + 16 * n];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i][n] += sv[i] * kv;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = q0 + ty * 4 + i;
+        if (r >= Sq) continue;
+#pragma unroll
+        for (int n = 0; n < CPT; ++n)
+          atomicAdd(dq + q_base + r * q_ld + tx + 16 * n, scale * acc[i][n]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ty * 4 + i;
+    if (key >= Skv) continue;
+#pragma unroll
+    for (int n = 0; n < CPT; ++n) {
+      dk[kv_base + key * kv_ld + tx + 16 * n] = scale * dka[i][n];
+      dv[kv_base + key * kv_ld + tx + 16 * n] = dva[i][n];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd_dot(const void* o, const void* dout, float* D, int B,
+                           int Sq, int H, int hd, cudaStream_t stream) {
+  constexpr int kThreads = 256;  // 8 rows per CTA
+  const long long rows = (long long)B * Sq * H;
+  const unsigned grid = (unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32));
+  flash_bwd_dot_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), D, rows, Sq, H, hd);
+  return cudaGetLastError();
+}
+
+template <int HD, int BQ>
+cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse, const float* D,
+                           float* dq, void* dk, void* dv, int Sq, int Skv, int H,
+                           int KV, int causal, int q_offset, float scale,
+                           dim3 grid, int smem, cudaStream_t stream) {
+  if (smem < (int)BwdMmaSmem<HD, BQ>::BYTES) return cudaErrorInvalidValue;
+  auto kern = flash_bwd_mma_kernel<HD, BQ>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  using bf = __nv_bfloat16;
+  kern<<<grid, kBwdMmaThreads, smem, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k),
+      static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, D, dq,
+      static_cast<bf*>(dk), static_cast<bf*>(dv), Sq, Skv, H, KV, causal,
+      q_offset, scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_bwd_fma(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse, const float* D,
+                           float* dq, void* dk, void* dv, int Sq, int Skv, int H,
+                           int KV, int causal, int q_offset, float scale,
+                           dim3 grid, int smem, cudaStream_t stream) {
+  if (smem < (int)BwdFmaSmem<HD>::BYTES) return cudaErrorInvalidValue;
+  auto kern = flash_bwd_fma_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, kBwdFmaThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, D, dq,
+      static_cast<float*>(dk), static_cast<float*>(dv), Sq, Skv, H, KV, causal,
+      q_offset, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, o: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); contiguous, 16-byte aligned.
+// lse: null, or (B, H, Sq) f32 that receives each row's log-sum-exp of the
+// scaled, masked scores (the backward's input; serving passes null).
 // The launch plan (variant, block_q, block_kv, stages, grid, dynamic shared
 // memory) is plan()'s in kernels/flash_attention/kernel.py; a plan that no
 // compiled kernel matches is refused.  Returns cudaGetLastError() after the
 // launch (0 on success).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* o, int B, int Sq, int Skv, int H, int KV,
+                              void* o, float* lse, int B, int Sq, int Skv,
+                              int H, int KV,
                               int hd, int dtype, int causal, int q_offset,
                               float scale, int variant, int block_q,
                               int block_kv, int stages, int grid_x, int grid_y,
@@ -812,26 +1340,87 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
     case kWgmma:
       if (dtype != kBF16 || block_q != kWgBQ || block_kv != kWgBN) return (int)bad;
       if (hd == 64 && stages == 4)
-        return (int)launch_wgmma<64, 4>(q, k, v, o, B, Sq, Skv, H, KV, causal,
+        return (int)launch_wgmma<64, 4>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal,
                                              q_offset, scale, grid, smem, s);
       if (hd == 128 && stages == 2)
-        return (int)launch_wgmma<128, 2>(q, k, v, o, B, Sq, Skv, H, KV, causal,
+        return (int)launch_wgmma<128, 2>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal,
                                               q_offset, scale, grid, smem, s);
       return (int)bad;
     case kMmaSync:
       if (dtype != kBF16 || block_q != kBQ || block_kv != kBK) return (int)bad;
       if (hd == 16)
-        return (int)launch_mma<16>(q, k, v, o, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
+        return (int)launch_mma<16>(q, k, v, o, lse, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
       if (hd == 32)
-        return (int)launch_mma<32>(q, k, v, o, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
+        return (int)launch_mma<32>(q, k, v, o, lse, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
       return (int)bad;
     case kFma:
       if (dtype != kF32 || block_q != kBQ || block_kv != kBK) return (int)bad;
       switch (hd) {
-        case 16: return (int)launch_fma<16>(q, k, v, o, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
-        case 32: return (int)launch_fma<32>(q, k, v, o, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
-        case 64: return (int)launch_fma<64>(q, k, v, o, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
-        case 128: return (int)launch_fma<128>(q, k, v, o, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
+        case 16: return (int)launch_fma<16>(q, k, v, o, lse, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
+        case 32: return (int)launch_fma<32>(q, k, v, o, lse, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
+        case 64: return (int)launch_fma<64>(q, k, v, o, lse, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
+        case 128: return (int)launch_fma<128>(q, k, v, o, lse, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
+        default: return (int)bad;
+      }
+    default:
+      return (int)bad;
+  }
+}
+
+// Backward of flash_attn_fwd.  q, o, dout: (B, Sq, H, hd); k, v, dk, dv:
+// (B, Skv, KV, hd), contiguous, of one dtype, 16-byte aligned; lse: the
+// forward's (B, H, Sq) f32; D: (B, H, Sq) f32 scratch; dq: (B, Sq, H, hd) f32,
+// zeroed by the caller (the CTAs add into it).  Two launches on `stream`: D
+// = rowsum(dout * o), then the main kernel.  The plan (variant, block_q,
+// threads, grid, dynamic shared memory) is bwd_plan()'s in
+// kernels/flash_attention/kernel.py; a plan no compiled kernel matches is
+// refused.  Returns cudaGetLastError() after the launches (0 on success).
+extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
+                              const void* o, const void* dout, const float* lse,
+                              float* D, float* dq, void* dk, void* dv, int B,
+                              int Sq, int Skv, int H, int KV, int hd, int dtype,
+                              int causal, int q_offset, float scale,
+                              int variant, int block_q, int threads, int grid_x,
+                              int grid_y, int grid_z, int smem, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t bad = cudaErrorInvalidValue;
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H % KV != 0 || q_offset < 0)
+    return (int)bad;
+  if (grid_x != (Skv + kBwdBK - 1) / kBwdBK || grid_y != KV || grid_z != B)
+    return (int)bad;
+  const dim3 grid(grid_x, grid_y, grid_z);
+  cudaError_t err;
+  switch (variant) {
+    case kMmaSync:
+      if (dtype != kBF16 || threads != kBwdMmaThreads) return (int)bad;
+      if ((err = launch_bwd_dot<__nv_bfloat16>(o, dout, D, B, Sq, H, hd, s)) != cudaSuccess)
+        return (int)err;
+#define BWD_MMA(HD_, BQ_)                                                        \
+  if (hd == HD_ && block_q == BQ_)                                              \
+    return (int)launch_bwd_mma<HD_, BQ_>(q, k, v, dout, lse, D, dq, dk, dv, Sq, \
+                                         Skv, H, KV, causal, q_offset, scale,   \
+                                         grid, smem, s);
+      BWD_MMA(16, 64)
+      BWD_MMA(32, 64)
+      BWD_MMA(64, 64)
+      BWD_MMA(128, 32)
+#undef BWD_MMA
+      return (int)bad;
+    case kFma:
+      if (dtype != kF32 || threads != kBwdFmaThreads || block_q != kBwdFmaBQ)
+        return (int)bad;
+      if ((err = launch_bwd_dot<float>(o, dout, D, B, Sq, H, hd, s)) != cudaSuccess)
+        return (int)err;
+      switch (hd) {
+#define BWD_FMA(HD_)                                                             \
+  case HD_:                                                                     \
+    return (int)launch_bwd_fma<HD_>(q, k, v, dout, lse, D, dq, dk, dv, Sq, Skv, \
+                                    H, KV, causal, q_offset, scale, grid, smem, s);
+        BWD_FMA(16)
+        BWD_FMA(32)
+        BWD_FMA(64)
+        BWD_FMA(128)
+#undef BWD_FMA
         default: return (int)bad;
       }
     default:

@@ -1,4 +1,5 @@
-// Row RMSNorm forward for Hopper (sm_90a).
+// Row RMSNorm forward and backward for Hopper (sm_90a).  The backward is
+// described where it starts, below the forward.
 //
 // Replaces the TPU kernel `rmsnorm_pallas` / `_rmsnorm_kernel`
 // (src/repro/kernels/rmsnorm/kernel.py).  y = x * rsqrt(mean(x^2) + eps) * w,
@@ -258,6 +259,173 @@ cudaError_t launch(const void* x, const void* w, void* y, long long rows,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ backward
+//
+// The JAX package has no backward kernel (its CPU path differentiates
+// rmsnorm_ref); this computes that gradient in f32:
+//   r = 1 / sqrt(mean(x^2) + eps),  x^ = x r,  g = dy w,
+//   dx = r (g - x^ mean(g x^)),     dw = sum over rows of dy x^.
+// Bound on the H100: bytes (x and dy read once, dx written once, plus dw).
+// The forward's register-row pattern: TPR lanes hold a row of x and of dy in
+// registers (16-byte loads, evict-first), reduce x^2 and g x with shuffles
+// and write dx from the same registers, over a grid-stride loop; each lane
+// keeps its columns' share of dw in f32 registers across its rows.  At the
+// end the CTA's lanes add their shares into one row in shared memory, which
+// goes to dw_part[blockIdx.x]; a second small kernel sums the CTAs' rows per
+// column (32 columns a CTA) and casts to w's type.  Rows must allow 16-byte
+// vectors and hold at most 512 of them (d <= 4096 bf16, 2048 f32); the
+// wrapper refuses others.
+
+template <typename T, int NV, int TPR>
+__global__ void __launch_bounds__(kRegThreads)
+rmsnorm_bwd_reg_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                       const T* __restrict__ dy, T* __restrict__ dx,
+                       float* __restrict__ dw_part, long long rows, int d,
+                       float eps) {
+  constexpr int N = 16 / sizeof(T);
+  constexpr int GROUPS = 32 / TPR;
+  extern __shared__ float dw_row[];  // d floats
+  const int lane = threadIdx.x & 31, sub = lane % TPR;
+  const int nvec = d / N;
+  const uint4* wv = reinterpret_cast<const uint4*>(w);
+  for (int i = threadIdx.x; i < d; i += kRegThreads) dw_row[i] = 0.f;
+  float dwa[NV][N];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) dwa[i][j] = 0.f;
+
+  const long long warps = (long long)gridDim.x * (kRegThreads / 32);
+  const long long warp0 = (long long)blockIdx.x * (kRegThreads / 32) + (threadIdx.x >> 5);
+  for (long long base = warp0 * GROUPS; base < rows; base += warps * GROUPS) {
+    const long long row = base + lane / TPR;
+    const uint4* xv = reinterpret_cast<const uint4*>(x + row * d);
+    const uint4* gv = reinterpret_cast<const uint4*>(dy + row * d);
+    uint4 xr[NV], gr[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = sub + i * TPR;
+      const bool in = row < rows && c < nvec;
+      xr[i] = in ? __ldcs(xv + c) : make_uint4(0, 0, 0, 0);
+      gr[i] = in ? __ldcs(gv + c) : make_uint4(0, 0, 0, 0);
+    }
+    float ss = 0.f, gx = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = sub + i * TPR;
+      float fx[N], fg[N], fw[N];
+      unpack16<T>(xr[i], fx);
+      unpack16<T>(gr[i], fg);
+      unpack16<T>(c < nvec ? wv[c] : make_uint4(0, 0, 0, 0), fw);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        ss += fx[j] * fx[j];
+        gx += fg[j] * fw[j] * fx[j];
+      }
+    }
+#pragma unroll
+    for (int o = TPR / 2; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      gx += __shfl_xor_sync(0xffffffffu, gx, o);
+    }
+    if (row >= rows) continue;
+    const float r = inv_rms(ss, d, eps);
+    const float mean_gxh = r * gx / (float)d;  // mean(g x^)
+    T* dxr = dx + row * d;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = sub + i * TPR;
+      if (c >= nvec) continue;
+      float fx[N], fg[N], fw[N];
+      unpack16<T>(xr[i], fx);
+      unpack16<T>(gr[i], fg);
+      unpack16<T>(wv[c], fw);
+      uint4 out;
+      T* e = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float xh = fx[j] * r;
+        e[j] = from_f<T>(r * (fg[j] * fw[j] - xh * mean_gxh));
+        dwa[i][j] += fg[j] * xh;
+      }
+      reinterpret_cast<uint4*>(dxr)[c] = out;
+    }
+  }
+  __syncthreads();  // dw_row is zeroed
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = sub + i * TPR;
+    if (c >= nvec) continue;
+#pragma unroll
+    for (int j = 0; j < N; ++j) atomicAdd(&dw_row[c * N + j], dwa[i][j]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < d; i += kRegThreads)
+    dw_part[(long long)blockIdx.x * d + i] = dw_row[i];
+}
+
+// dw[c] = sum over the CTAs' rows of dw_part[:, c], cast to w's type: a CTA
+// takes 32 columns, its 8 warps stride over the rows (coalesced 128-byte
+// reads), and shared memory sums the warps.
+constexpr int kReduceRowsPar = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kReduceRowsPar)
+rmsnorm_dw_reduce_kernel(const float* __restrict__ dw_part, int parts, int d,
+                         T* __restrict__ dw) {
+  __shared__ float acc[kReduceRowsPar][33];
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  float s = 0.f;
+  if (c < d)
+    for (int p = threadIdx.y; p < parts; p += kReduceRowsPar)
+      s += dw_part[(long long)p * d + c];
+  acc[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < d) {
+#pragma unroll
+    for (int y = 1; y < kReduceRowsPar; ++y) s += acc[y][threadIdx.x];
+    dw[c] = from_f<T>(s);
+  }
+}
+
+template <typename T, int NV, int TPR>
+cudaError_t launch_bwd_reg(const T* x, const T* w, const T* dy, T* dx, T* dw,
+                           float* dw_part, int parts, long long rows, int d,
+                           float eps, cudaStream_t stream) {
+  auto kern = rmsnorm_bwd_reg_kernel<T, NV, TPR>;
+  const size_t smem = (size_t)d * sizeof(float);
+  kern<<<parts, kRegThreads, smem, stream>>>(x, w, dy, dx, dw_part, rows, d, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_dw_reduce_kernel<T><<<(d + 31) / 32, dim3(32, kReduceRowsPar), 0, stream>>>(
+      dw_part, parts, d, dw);
+  return cudaGetLastError();
+}
+
+// Lanes per row and vectors per lane, as the forward's launch_vec_rows.
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx,
+                       void* dw, float* dw_part, int parts, long long rows,
+                       int d, float eps, cudaStream_t s) {
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  const T* gp = static_cast<const T*>(dy);
+  T* dxp = static_cast<T*>(dx);
+  T* dwp = static_cast<T*>(dw);
+  const int nvec = d / int(16 / sizeof(T));
+#define BWD(NV_, TPR_) \
+  launch_bwd_reg<T, NV_, TPR_>(xp, wp, gp, dxp, dwp, dw_part, parts, rows, d, eps, s)
+  if (nvec <= 8) return BWD(1, 8);
+  if (nvec <= 16) return BWD(1, 16);
+  if (nvec <= 32) return BWD(1, 32);
+  if (nvec <= 64) return BWD(2, 32);
+  if (nvec <= 128) return BWD(4, 32);
+  if (nvec <= 256) return BWD(8, 32);
+  if (nvec <= 512) return BWD(16, 32);
+#undef BWD
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // x, w, y: device pointers; x and y are (rows, d) row-major, w is (d,).
@@ -274,5 +442,24 @@ extern "C" int rmsnorm_fwd(const void* x, const void* w, void* y,
   if (dtype == kBF16)
     return (int)(vec ? launch<__nv_bfloat16, true>(x, w, y, rows, d, eps, s)
                      : launch<__nv_bfloat16, false>(x, w, y, rows, d, eps, s));
+  return (int)cudaErrorInvalidValue;
+}
+
+// Backward of rmsnorm_fwd.  x, dy, dx: (rows, d) row-major; w, dw: (d,); all
+// of dtype, 16-byte aligned, d * sizeof(T) % 16 == 0 and at most 512 vectors
+// a row.  dw_part: (parts, d) f32 scratch, one row per CTA; `parts` CTAs
+// (rmsnorm_bwd_parts() in kernels/rmsnorm/kernel.py).  Two launches on
+// `stream`.  Returns cudaGetLastError() after them (0 on success).
+extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy,
+                           void* dx, void* dw, float* dw_part, int parts,
+                           long long rows, int d, float eps, int dtype,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || d <= 0 || parts <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype == kF32 && d % 4 == 0)
+    return (int)launch_bwd<float>(x, w, dy, dx, dw, dw_part, parts, rows, d, eps, s);
+  if (dtype == kBF16 && d % 8 == 0)
+    return (int)launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw, dw_part, parts, rows, d,
+                                          eps, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -29,8 +29,10 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     # name: (argtypes, restype)
     "rmsnorm_fwd": ([_P, _P, _P, _LL, _I, _F, _I, _I, _P], _I),
-    "flash_attn_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _F, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    "rmsnorm_bwd": ([_P, _P, _P, _P, _P, _P, _I, _LL, _I, _F, _I, _P], _I),
+    "flash_attn_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    "flash_attn_bwd": ([_P] * 10 + [_I] * 9 + [_F] + [_I] * 7 + [_P], _I),
     "ssd_chunk_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "ssd_chunk_smem_bytes": ([_I, _I, _I], _LL),
     "kernels_error_string": ([_I], ctypes.c_char_p),
@@ -125,6 +127,13 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.cache
+def sm_count(device_index) -> int:
+    """Streaming multiprocessors of the CUDA device ``device_index``."""
+    return torch.cuda.get_device_properties(
+        device_index or 0).multi_processor_count
 
 
 def aligned16(*tensors: torch.Tensor) -> bool:

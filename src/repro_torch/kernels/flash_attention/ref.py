@@ -3,8 +3,10 @@
 Same arithmetic as ``repro.kernels.flash_attention.ref``: an exact online
 softmax over KV blocks (f32 m/l/acc), KV padded to a block multiple and masked
 by the valid length, ``q_offset`` for chunked prefill.  It is the CPU path and
-the reference the CUDA kernel is held against.  ``decode_attention_ref`` stays
-plain torch on every device: the JAX package has no kernel for it.
+the reference the CUDA kernel is held against; ``flash_attention_bwd_ref`` is
+its gradient, written out (the reference to the CUDA backward).
+``decode_attention_ref`` stays plain torch on every device: the JAX package
+has no kernel for it.
 """
 from __future__ import annotations
 
@@ -20,10 +22,13 @@ NEG_INF = -1e30
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, q_offset: int = 0,
                         block_kv: int = 1024,
-                        softmax_scale: Optional[float] = None) -> torch.Tensor:
+                        softmax_scale: Optional[float] = None,
+                        return_lse: bool = False):
     """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) with H % KV == 0.
 
-    Returns (B, Sq, H, hd) in q.dtype; accumulation in f32.
+    Returns (B, Sq, H, hd) in q.dtype; accumulation in f32.  With
+    ``return_lse`` also each row's log-sum-exp of the scaled, masked scores,
+    (B, H, Sq) f32 — what the CUDA forward writes for the backward.
     """
     B, Sq, H, hd = q.shape
     _, Skv, KV, _ = k.shape
@@ -67,7 +72,49 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o = o * alpha[..., None] + torch.einsum("bkgqc,bckd->bkgqd", p, vblk)
         m = m_new
     o = o / torch.clamp(l[..., None], min=1e-30)
-    return o.reshape(B, H, Sq, hd).permute(0, 2, 1, 3).to(q.dtype)
+    o = o.reshape(B, H, Sq, hd).permute(0, 2, 1, 3).to(q.dtype)
+    if return_lse:
+        return o, (m + torch.log(torch.clamp(l, min=1e-30))).reshape(B, H, Sq)
+    return o
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            q_offset: int = 0,
+                            scale: Optional[float] = None):
+    """Gradients (dq, dk, dv) of ``flash_attention_ref`` at ``do``, from its
+    output ``o`` and row log-sum-exp ``lse`` (B, H, Sq), with explicit
+    formulas in f32: D = rowsum(dO * O), P = exp(scale Q K^T - lse) (masked),
+    dV = P^T dO, dS = P (dO V^T - D), dQ = scale dS K, dK = scale dS^T Q;
+    dK and dV summed over each GQA group of H / KV heads.  Each gradient in
+    its input's dtype."""
+    B, Sq, H, hd = q.shape
+    _, Skv, KV, _ = k.shape
+    groups = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+
+    def heads(t):                                  # (B, S, n, hd) -> (B, n, S, hd)
+        return t.float().permute(0, 2, 1, 3)
+    qf = heads(q).reshape(B, KV, groups, Sq, hd)
+    of = heads(o).reshape(B, KV, groups, Sq, hd)
+    dof = heads(do).reshape(B, KV, groups, Sq, hd)
+    kf, vf = heads(k), heads(v)                    # (B, KV, Skv, hd)
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qf, kf) * scale
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Skv, device=q.device)
+    mask = (q_pos[:, None] >= k_pos[None, :]) if causal else torch.ones(
+        Sq, Skv, dtype=torch.bool, device=q.device)
+    p = torch.where(mask, torch.exp(s - lse.reshape(B, KV, groups, Sq, 1)),
+                    0.0)
+    D = (dof * of).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgqc,bkgqd->bkcd", p, dof)
+    ds = p * (torch.einsum("bkgqd,bkcd->bkgqc", dof, vf) - D)
+    dq = torch.einsum("bkgqc,bkcd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqc,bkgqd->bkcd", ds, qf) * scale
+
+    def back(t, dtype):                            # (B, n, S, hd) -> (B, S, n, hd)
+        return t.permute(0, 2, 1, 3).to(dtype)
+    return (back(dq.reshape(B, H, Sq, hd), q.dtype), back(dk, k.dtype),
+            back(dv, v.dtype))
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

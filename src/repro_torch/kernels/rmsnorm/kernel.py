@@ -1,4 +1,4 @@
-"""CUDA RMSNorm forward (``csrc/rmsnorm.cu``) bound to PyTorch.
+"""CUDA RMSNorm forward and backward (``csrc/rmsnorm.cu``) bound to PyTorch.
 
 Replaces the TPU kernel ``rmsnorm_pallas`` (``repro/kernels/rmsnorm/
 kernel.py``).  On the H100 it is bound by bytes: one read and one write of
@@ -16,6 +16,8 @@ import torch
 from .. import _build
 
 MAX_D = 16384
+MAX_BWD_VECS = 512      # 16-byte vectors a row: d <= 4096 bf16, 2048 f32
+BWD_THREADS = 256
 
 
 def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor,
@@ -48,3 +50,62 @@ def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor,
 
 
 rmsnorm_cuda.launches = 0
+
+
+def rmsnorm_bwd_parts(rows: int, d: int, itemsize: int, sms: int = 132) -> int:
+    """CTAs (and f32 rows of dw partials) of one backward launch: as many as
+    the rows fill, at most two an SM.  A row takes 8, 16 or 32 lanes, as
+    ``launch_bwd`` in csrc/rmsnorm.cu picks them."""
+    nvec = d * itemsize // 16
+    lanes = 8 if nvec <= 8 else (16 if nvec <= 16 else 32)
+    rows_per_cta = BWD_THREADS // 32 * (32 // lanes)
+    return max(1, min(-(-rows // rows_per_cta), 2 * sms))
+
+
+def rmsnorm_bwd_cuda(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                     eps: float = 1e-5):
+    """(dx, dw) of ``rmsnorm_cuda`` at ``dy``: dx like x, dw like weight."""
+    if not (x.is_cuda and weight.device == x.device and dy.device == x.device):
+        raise ValueError("rmsnorm_bwd_cuda: x, weight and dy must be on one "
+                         f"CUDA device (got {x.device}, {weight.device}, "
+                         f"{dy.device})")
+    if (x.dtype not in _build.DTYPE_CODES
+            or not x.dtype == weight.dtype == dy.dtype):
+        raise TypeError("rmsnorm_bwd_cuda: x, weight and dy must all be "
+                        f"float32 or bfloat16 (got {x.dtype}, {weight.dtype}, "
+                        f"{dy.dtype})")
+    d = x.shape[-1]
+    if weight.shape != (d,) or dy.shape != x.shape:
+        raise ValueError(f"rmsnorm_bwd_cuda: weight {tuple(weight.shape)}, dy "
+                         f"{tuple(dy.shape)} vs x {tuple(x.shape)}")
+    nbytes = d * x.element_size()
+    if nbytes % 16 or nbytes // 16 > MAX_BWD_VECS:
+        raise ValueError(f"rmsnorm_bwd_cuda: a row of {d} x {x.dtype} must be "
+                         f"a multiple of 16 bytes and at most {MAX_BWD_VECS} "
+                         "of them")
+    if not (x.is_contiguous() and weight.is_contiguous()
+            and dy.is_contiguous()):
+        raise ValueError("rmsnorm_bwd_cuda: x, weight and dy must be "
+                         "contiguous")
+    dx = torch.empty_like(x)
+    dw = torch.empty_like(weight)
+    rows = x.numel() // d
+    if rows == 0:
+        return dx, dw.zero_()
+    if not _build.aligned16(x, weight, dy, dx, dw):
+        raise ValueError("rmsnorm_bwd_cuda: tensors must be 16-byte aligned")
+    parts = rmsnorm_bwd_parts(rows, d, x.element_size(),
+                              _build.sm_count(x.device.index))
+    dw_part = torch.empty((parts, d), dtype=torch.float32, device=x.device)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.rmsnorm_bwd(x.data_ptr(), weight.data_ptr(), dy.data_ptr(),
+                              dx.data_ptr(), dw.data_ptr(), dw_part.data_ptr(),
+                              parts, rows, d, float(eps),
+                              _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
+    _build.check(lib, err, "rmsnorm_bwd")
+    rmsnorm_bwd_cuda.launches += 1
+    return dx, dw
+
+
+rmsnorm_bwd_cuda.launches = 0

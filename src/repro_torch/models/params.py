@@ -55,6 +55,18 @@ def tree_leaves(tree, prefix=()):
         yield from tree_leaves(tree[k], prefix + (k,))
 
 
+def tree_unflatten(pairs) -> dict:
+    """The nested dict of ``(path, leaf)`` pairs (``tree_leaves``'s
+    inverse)."""
+    out: dict = {}
+    for path, leaf in pairs:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
 def tree_abstract(specs):
     return tree_map(
         lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), specs)
@@ -66,21 +78,17 @@ def tree_init(specs, generator: torch.Generator, device=None):
     Leaves are drawn in JAX's flatten order from one generator, so the values
     depend only on the seed and the device's generator (not on JAX's)."""
     device = torch.device(device) if device is not None else generator.device
-    out = {}
-    for path, spec in tree_leaves(specs):
+
+    def init(spec):
         if spec.init == "zeros":
-            arr = torch.zeros(spec.shape, dtype=spec.dtype, device=device)
-        elif spec.init == "ones":
-            arr = torch.ones(spec.shape, dtype=spec.dtype, device=device)
-        else:
-            fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
-            std = spec.scale / math.sqrt(max(1, fan_in))
-            arr = (torch.randn(spec.shape, generator=generator,
-                               dtype=torch.float32, device=device)
-                   .mul_(std).to(spec.dtype))
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = arr
-    return out
+            return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        std = spec.scale / math.sqrt(max(1, fan_in))
+        return (torch.randn(spec.shape, generator=generator,
+                            dtype=torch.float32, device=device)
+                .mul_(std).to(spec.dtype))
+    return tree_unflatten((path, init(spec))
+                          for path, spec in tree_leaves(specs))
 

@@ -5,10 +5,11 @@ Counterpart of ``repro.serve.engine``: the same fixed decode batch whose
 finished slots are refilled from the queue, the same shared scalar ``pos``
 (a refilled slot decodes at the batch's position, over the previous
 request's KV entries), and the same ``numpy.random.default_rng(seed)`` zipf
-passage draws.  The retrieval client is duck-typed — the engine uses only
-``client.meta.datasets[name].files`` (items with ``.path`` and ``.size``) and
-``client.read(path, offset, length, now)`` — because the port has no cache
-engine of its own yet.
+passage draws.  The retrieval client is the port's own cache client
+(``repro_torch.core``: ``open_cache`` or ``bundle_client``); the engine uses
+only ``client.meta.datasets[name].files`` (items with ``.path`` and
+``.size``) and ``client.read(path, offset, length, now)``, so any object with
+those serves (the parity tests hand it the JAX package's client too).
 """
 from __future__ import annotations
 

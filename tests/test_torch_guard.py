@@ -34,7 +34,17 @@ def test_port_modules_exist():
                  "repro_torch.kernels.flash_attention.kernel",
                  "repro_torch.kernels.ssd.kernel",
                  "repro_torch.models.ssm", "repro_torch.models.transformer",
-                 "repro_torch.serve.engine", "repro_torch.configs"):
+                 "repro_torch.serve.engine", "repro_torch.configs",
+                 "repro_torch.train.optimizer",
+                 "repro_torch.train.train_step",
+                 "repro_torch.train.checkpoint", "repro_torch.train.fault",
+                 "repro_torch.data.pipeline", "repro_torch.launch.train",
+                 *(f"repro_torch.core.{m}" for m in (
+                     "types", "ks", "pattern", "access_stream_tree", "meta",
+                     "prefetch", "eviction", "allocation", "sketch", "cache",
+                     "igtcache", "sharded", "faults", "client", "baselines")),
+                 *(f"repro_torch.storage.{m}" for m in (
+                     "api", "datasets", "object_store", "local_fs"))):
         assert name in mods
 
 
@@ -75,12 +85,14 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
     from repro_torch import resolve_device
     from repro_torch.configs import reduced_config
     from repro_torch.serve.engine import ServingEngine
+    from repro_torch.launch import train as launch_train
     from repro_torch.serve.serve_step import make_prefill, make_serve_step
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced_config("qwen3-1.7b")
     params = {"embed": torch.zeros(cfg.vocab, cfg.d_model)}
     for call in (lambda: ServingEngine(params, cfg),
                  lambda: make_prefill(cfg), lambda: make_serve_step(cfg),
+                 lambda: launch_train.main(["--reduced", "--steps", "1"]),
                  lambda: resolve_device("cuda")):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

@@ -1,7 +1,10 @@
 """The port's ``ServingEngine`` against the JAX package's, on the CPU: the
 same weights (reduced qwen3-1.7b, f32), seed and requests, each engine with
 its own identically built retrieval cache (the JAX package's ``open_cache``
-over a ``knowledge`` flat-files store, as in examples/serve_llm.py).
+over a ``knowledge`` flat-files store, as in examples/serve_llm.py).  One
+more run gives the port's engine the port's own cache client
+(``repro_torch.core.open_cache``): its retrieval counts and cache hit ratio
+must equal the JAX engine's with the JAX client.
 
 Greedy tokens must be equal.  So that an inequality means a real divergence
 and not a near-tie, every step asserts that each row's top-1 / top-2 logit
@@ -30,6 +33,10 @@ from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServingEngine as JaxServingEngine
 from repro.storage import RemoteStore, make_dataset
 from repro_torch.configs import reduced_config
+from repro_torch.core import CacheConfig as TorchCacheConfig
+from repro_torch.core import open_cache as torch_open_cache
+from repro_torch.storage import RemoteStore as TorchRemoteStore
+from repro_torch.storage import make_dataset as torch_make_dataset
 from repro_torch.interop import params_from_jax
 from repro_torch.serve import engine as torch_engine_module
 from repro_torch.serve.engine import Request, ServingEngine
@@ -46,6 +53,16 @@ def _cache():
     return open_cache(store, 16 * MB,
                       cfg=CacheConfig(min_share=2 * MB,
                                       rebalance_quantum=2 * MB))
+
+
+def _port_cache():
+    """``_cache`` built from the port's own engine copy."""
+    store = TorchRemoteStore()
+    store.add(torch_make_dataset("knowledge", "flat_files", n_files=200,
+                                 small_file_size=64 * 1024))
+    return torch_open_cache(store, 16 * MB,
+                            cfg=TorchCacheConfig(min_share=2 * MB,
+                                                 rebalance_quantum=2 * MB))
 
 
 def _prompts(vocab):
@@ -82,16 +99,16 @@ def serve_both():
     prompts = _prompts(jcfg.vocab)
     out = {}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_engine_module, "time", _fake_time())
-        mp.setattr(torch_engine_module, "time", _fake_time())
-        for name in ("jax", "torch"):
+        for name in ("jax", "torch", "torch_own_cache"):
+            mp.setattr(jax_engine_module, "time", _fake_time())
+            mp.setattr(torch_engine_module, "time", _fake_time())
             out[name] = _serve(name, jcfg, jparams, tparams, prompts)
     return out
 
 
 def _serve(name, jcfg, jparams, tparams, prompts):
     """One engine over its own cache; returns what the tests compare."""
-    cache = _cache()
+    cache = _port_cache() if name == "torch_own_cache" else _cache()
     if name == "jax":
         eng = JaxServingEngine(jparams, jcfg, batch=BATCH, max_seq=MAX_SEQ,
                                cache_engine=cache,
@@ -156,3 +173,17 @@ def test_shared_pos_runs_like_the_reference(served):
                                np.asarray(j.state["k"], np.float32),
                                atol=LOGITS_TOL, rtol=LOGITS_TOL)
 
+
+
+def test_port_cache_client_serves_like_the_reference(served):
+    """The port's engine over the port's own cache client: the same
+    retrieval counts and hit ratio as the JAX engine over the JAX client,
+    and the same tokens as the port's engine over the JAX client."""
+    j, t = served["jax"], served["torch_own_cache"]
+    assert ([r.retrieved for r in t["done"]]
+            == [r.retrieved for r in j["done"]])
+    assert sum(r.retrieved for r in t["done"]) == 4 * N_REQ
+    assert t["reads"] == j["reads"] > 0
+    assert t["hit_ratio"] == j["hit_ratio"] > 0
+    assert ([r.output for r in t["done"]]
+            == [r.output for r in served["torch"]["done"]])
