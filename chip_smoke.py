@@ -4,7 +4,8 @@
     python3 chip_smoke.py                 # every phase (the main path)
     python3 chip_smoke.py --kernels-only  # phases 1-3 only: build and check
                                           # the kernels, then stop
-    python3 chip_smoke.py --profile-only  # phases 1, 2 and 6 only
+    python3 chip_smoke.py --profile-only  # phases 1, 2 and 7, and the traced
+                                          # train step of phase 6
 
 Phases, each printing one JSON line (``{"phase": ...}``):
 
@@ -40,13 +41,15 @@ Phases, each printing one JSON line (``{"phase": ...}``):
   7. profile  — one traced prefill and decode step of each model: device
                 time by kernel (and summed for each of the port's kernels)
                 and the device's busy share (not part of the main path).
-                ``--profile-only`` runs this phase alone; copied into an
-                older checkout, it profiles that checkout's package.
+                ``--profile-only`` runs this phase and the traced train
+                step (on a random batch) alone; copied into an older
+                checkout, it profiles that checkout's package.
   8. the ``{"kernels": [...]}`` line: launches on the main path (each
      model's prefill and serving, and the train steps, each counted from 0
-     and summed; flash attention's also by variant, and every prefill and
-     training flash forward must be the ``wgmma`` one), errors, times and
-     bounds, for the three forward kernels and the two backward ones.
+     and summed; flash attention's forward and backward also by variant,
+     and every prefill and training flash launch must be the ``wgmma``
+     one), errors, times and bounds, for the three forward kernels and the
+     two backward ones.
 
 The models, in order: qwen3-1.7b (dense; RMSNorm and flash attention),
 zamba2-1.2b (hybrid; all three forward kernels), mamba2-370m (ssm; RMSNorm
@@ -220,20 +223,22 @@ def kernel_build(build: dict, kernel: str, args: str) -> dict:
 def bwd_build(build: dict, kernel: str, dtype, d: int) -> dict:
     """ptxas's numbers for the backward kernel a case launches:
     ``flash_bwd_*_kernel<hd, ...>`` (d = head dim) or
-    ``rmsnorm_bwd_reg_kernel<T, NV, TPR>`` (d = row width), chosen as
-    csrc's launchers choose them."""
+    ``rmsnorm_bwd_kernel<T, V, TPR>`` (d = row width), chosen as the plans
+    (``bwd_plan``, ``rmsnorm_bwd_plan``) choose them."""
     if kernel == "flash_attention_bwd":
-        if dtype == torch.bfloat16:
-            return kernel_build(build, "flash_bwd_mma_kernel",
-                                f"ILi{d}ELi{32 if d == 128 else 64}E")
-        return kernel_build(build, "flash_bwd_fma_kernel", f"ILi{d}E")
-    nvec = d * (2 if dtype == torch.bfloat16 else 4) // 16
-    nv, tpr = next((nv, tpr) for top, nv, tpr in (
-        (8, 1, 8), (16, 1, 16), (32, 1, 32), (64, 2, 32), (128, 4, 32),
-        (256, 8, 32), (512, 16, 32)) if nvec <= top)
+        from repro_torch.kernels.flash_attention.kernel import bwd_plan
+        p = bwd_plan(dtype, d, 1, 128, 1)
+        name, args = {
+            "wgmma": ("flash_bwd_wgmma_kernel", f"ILi{d}ELi{p.stages}E"),
+            "mma_sync": ("flash_bwd_mma_kernel", f"ILi{d}E"),
+            "fma": ("flash_bwd_fma_kernel", f"ILi{d}E")}[p.variant]
+        return kernel_build(build, name, args)
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_plan
+    size = 2 if dtype == torch.bfloat16 else 4
+    p = rmsnorm_bwd_plan(1, d, size)
     t = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
-    return kernel_build(build, "rmsnorm_bwd_reg_kernel",
-                        f"I{t}Li{nv}ELi{tpr}E")
+    return kernel_build(build, "rmsnorm_bwd_kernel",
+                        f"I{t}Li{p.vecs}ELi{p.lanes}E")
 
 
 # --------------------------------------------------------------- phase 3
@@ -366,13 +371,16 @@ def flash_bwd_case(B, Sq, Skv, H, KV, hd, causal, q_offset, dtype, gen, flush,
     want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     oks, errs = zip(*(grad_close(g, w, dtype, "flash_attention_bwd")
                       for g, w in zip(got, want)))
+    p = bwd_plan(dtype, hd, B, Skv, KV, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    ptxas = bwd_build(build, "flash_attention_bwd", dtype, hd)
     r = {"kernel": "flash_attention_bwd", "shape": [B, Sq, Skv, H, KV, hd],
-         "variant": bwd_plan(dtype, hd, B, Skv, KV).variant, "causal": causal,
+         "variant": p.variant, "grid": list(p.grid),
+         "smem": p.smem_bytes + ptxas.get("static_smem", 0), "causal": causal,
          "q_offset": q_offset, "dtype": str(dtype)[6:], "ok": all(oks),
          "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": list(errs),
          "rel_l2_dq_dk_dv": [rel_l2(g, w) for g, w in zip(got, want)],
-         "tol": TOL[dtype]["flash_attention_bwd"],
-         **bwd_build(build, "flash_attention_bwd", dtype, hd)}
+         "tol": TOL[dtype]["flash_attention_bwd"], **ptxas}
     del got, want
     if timed:
         # Five products against the forward's two.
@@ -527,10 +535,12 @@ def phase_kernels(build: dict) -> list:
         for dtype in (bf16, f32):
             results.append(rmsnorm_bwd_case(rows, d, dtype, gen, flush,
                                             timed and dtype == bf16, build))
-    # Flash: qwen3's train shape (timed in both types), q_offset, non-causal
-    # over a ragged Skv, hd 64 / 32 with ragged sequences, the reduced hd 16.
+    # Flash: qwen3's train shape (timed in both types), zamba2's attention
+    # (hd 64, timed in bf16), q_offset, non-causal over a ragged Skv, hd 64 /
+    # 32 with ragged sequences, the reduced hd 16.
     for shape, causal, off, timed in [
             ((4, 1024, 1024, 16, 8, 128), True, 0, (bf16, f32)),
+            ((4, 1024, 1024, 32, 32, 64), True, 0, (bf16,)),  # zamba2 shared
             ((2, 256, 1024, 16, 8, 128), True, 768, ()),
             ((2, 128, 1601, 16, 8, 128), False, 0, ()),
             ((2, 200, 200, 8, 2, 64), True, 0, ()),
@@ -562,21 +572,26 @@ def counted():
             "flash_attention_bwd": flash_attention_bwd_cuda}
 
 
+VARIANT_COUNTED = ("flash_attention", "flash_attention_bwd")
+
+
 def counts() -> dict:
-    """Launches so far: each kernel's, and flash attention's by variant
-    (``flash_attention/wgmma`` and so on)."""
+    """Launches so far: each kernel's, and flash attention's forward and
+    backward by variant (``flash_attention/wgmma``,
+    ``flash_attention_bwd/wgmma`` and so on)."""
     fns = counted()
     return {**{k: f.launches for k, f in fns.items()},
-            **{f"flash_attention/{k}": n for k, n
-               in fns["flash_attention"].variant_launches.items()}}
+            **{f"{name}/{k}": n for name in VARIANT_COUNTED
+               for k, n in fns[name].variant_launches.items()}}
 
 
 def reset_counts() -> None:
     fns = counted()
     for f in fns.values():
         f.launches = 0
-    fa = fns["flash_attention"]
-    fa.variant_launches = dict.fromkeys(fa.variant_launches, 0)
+    for name in VARIANT_COUNTED:
+        fns[name].variant_launches = dict.fromkeys(
+            fns[name].variant_launches, 0)
 
 
 def tree_to(params, fn):
@@ -623,7 +638,8 @@ def expected_per_forward(cfg) -> dict:
     return {"rmsnorm": norms, "flash_attention": flash, "ssd_chunk": ssd,
             "rmsnorm_bwd": 0, "flash_attention_bwd": 0,
             "flash_attention/wgmma": flash, "flash_attention/mma_sync": 0,
-            "flash_attention/fma": 0}
+            "flash_attention/fma": 0, "flash_attention_bwd/wgmma": 0,
+            "flash_attention_bwd/mma_sync": 0, "flash_attention_bwd/fma": 0}
 
 
 def phase_prefill(cfg, params) -> dict:
@@ -890,13 +906,16 @@ def launcher_check() -> None:
 def expected_per_train_step(cfg) -> dict:
     """Kernel launches of one dense train step under remat="full": every
     layer's forward runs twice (the step, then the recompute), the final
-    norm once; one backward each."""
+    norm once; one backward each.  Every flash launch, forward and
+    backward, is the ``wgmma`` variant (bf16, hd 128)."""
     L = cfg.n_layers
     norms = L * (2 + 2 * cfg.qk_norm)
     return {"rmsnorm": 2 * norms + 1, "flash_attention": 2 * L,
             "ssd_chunk": 0, "rmsnorm_bwd": norms + 1,
             "flash_attention_bwd": L, "flash_attention/wgmma": 2 * L,
-            "flash_attention/mma_sync": 0, "flash_attention/fma": 0}
+            "flash_attention/mma_sync": 0, "flash_attention/fma": 0,
+            "flash_attention_bwd/wgmma": L, "flash_attention_bwd/mma_sync": 0,
+            "flash_attention_bwd/fma": 0}
 
 
 def phase_train(cfg, params) -> dict:
@@ -1040,6 +1059,15 @@ def check_train(cfg, params, tr) -> None:
     if bad:
         raise AssertionError(f"{cfg.name} train step with kernels differs "
                              f"from plain versions in {bad}: {out}")
+
+
+def random_batch(cfg) -> dict:
+    """A TRAIN_B x TRAIN_S batch of random tokens (seed 0) on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S + 1), generator=gen,
+                         device="cuda")
+    return {"tokens": toks[:, :-1].contiguous(),
+            "labels": toks[:, 1:].contiguous()}
 
 
 def profile_train(cfg, params, batch) -> None:
@@ -1195,6 +1223,8 @@ def main() -> int:
             phase_profile(cfg, params)
             del params
             torch.cuda.empty_cache()
+        cfg, params = init_model(TRAIN_ARCH)
+        profile_train(cfg, params, random_batch(cfg))
         return 0
     cases = phase_kernels(phase_build())
     if "--kernels-only" in sys.argv[1:]:

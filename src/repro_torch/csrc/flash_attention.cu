@@ -810,42 +810,50 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
 
 // ------------------------------------------------------------------ backward
 //
-// FlashAttention-2's backward in its simplest right form.  The JAX package
+// The backward (FlashAttention-2's equations).  The JAX package
 // has no backward kernel (its CPU path differentiates flash_attention_ref);
 // this computes what that gradient computes, from the forward's row
 // log-sum-exp instead of a second online softmax:
 //   D = rowsum(dO * O),  P = exp(scale * Q K^T - lse)  (masked),
 //   dV = P^T dO,  dS = P * (dO V^T - D),  dQ = scale * dS K,  dK = scale * dS^T Q.
-// One CTA per (64-key block, KV head, b), heaviest (earliest) key blocks
-// first; it holds its K and V tiles in shared memory and loops over the
-// group's H / KV q heads and over the q blocks that the causal mask keeps,
-// so dK and dV (summed over the GQA group) accumulate in f32 registers and
-// are written once, with no atomics.  dQ gathers from every key block: each
-// CTA adds its share with f32 atomicAdd into a zeroed f32 buffer, which the
-// wrapper casts (the sum order, and so dq's last bits, vary between runs).
-// Bound on the H100: tensor FLOPs, 2.5x the forward's (five products over
-// the pairs the mask keeps, against the forward's two).  Two variants:
-//   * mma_sync (bf16): 4 warps, each owning 16 keys; S^T = K Q^T and
-//     dP^T = V dO^T with the keys as the m16n8k16 rows, P^T and dS^T packed
-//     to bf16 straight from the accumulators as the A operand of dV += P^T dO
-//     and dK += dS^T Q (B by ldmatrix.trans), then dS through shared memory
-//     (as [q][key]) for dQ = dS K.  q blocks of 64 rows (32 at hd 128, to
-//     keep the dK / dV accumulators and both score tiles in registers).
-//   * fma (f32): 16 x 16 threads, each owning 4 keys x 4 q of the scores
-//     and 4 keys x hd/16 columns of dK / dV; nothing is rounded to bf16.
-// wgmma and TMA are later work.
+// For each key block and KV head it loops over the group's H / KV q heads
+// and over the q blocks that the causal mask keeps, so dK and dV (summed
+// over the GQA group) accumulate in f32 registers and are written once,
+// with no atomics.  dQ gathers from every key block into an f32 buffer that
+// the D pass zeroes, which the wrapper casts (the sum order, and so dq's
+// last bits, vary between runs).  Bound on the H100: tensor FLOPs, 2.5x the
+// forward's (five products over the pairs the mask keeps, against the
+// forward's two).  Three variants:
+//   * wgmma (bf16, hd 64 and 128: every training shape): TMA + wgmma +
+//     an mbarrier ring, described where it starts, below.
+//   * mma_sync (bf16, hd 16 and 32): one CTA per (64-key block, KV head,
+//     b), 4 warps each owning 16 keys; S^T = K Q^T and dP^T = V dO^T with
+//     the keys as the m16n8k16 rows, P^T and dS^T packed to bf16 straight
+//     from the accumulators as the A operand of dV += P^T dO and dK += dS^T
+//     Q (B by ldmatrix.trans), then dS through shared memory (as [q][key])
+//     for dQ = dS K, added with f32 atomicAdd.  q blocks of 64 rows.
+//   * fma (f32): the same CTAs, 16 x 16 threads, each owning 4 keys x 4 q
+//     of the scores and 4 keys x hd/16 columns of dK / dV; nothing is
+//     rounded to bf16.
 
-constexpr int kBwdBK = 64;           // keys per CTA (both variants)
+constexpr int kBwdBK = 64;           // keys per CTA (mma_sync and fma)
 constexpr int kBwdMmaThreads = 128;  // mma_sync: 4 warps x 16 keys
+constexpr int kBwdMmaBQ = 64;        // mma_sync: q rows per block
 constexpr int kBwdFmaThreads = 256;  // fma: 16 x 16 threads
 constexpr int kBwdFmaBQ = 64;        // fma: q rows per block
 
 // D[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d] in f32: one warp per
-// (b, i, h) row of the (B, Sq, H, hd) tensors; D is (B, H, Sq).
+// (b, i, h) row of the (B, Sq, H, hd) tensors; D is (B, H, Sq).  The same
+// warp zeroes the row of the f32 dQ buffer (B, Sq, H, hd) that the main
+// kernel then adds into, so the caller need not clear it.  (Vector loads
+// with several rows a warp ran the pass in 23 us instead of 35 at zamba2's
+// shape, but their other order of the f32 sum moved the reduced f32
+// training check on the card past its 1e-4.)
 template <typename T>
 __global__ void flash_bwd_dot_kernel(const T* __restrict__ o,
                                      const T* __restrict__ dout,
-                                     float* __restrict__ D, long long rows,
+                                     float* __restrict__ D,
+                                     float* __restrict__ dq, long long rows,
                                      int Sq, int H, int hd) {
   const long long row =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
@@ -854,7 +862,10 @@ __global__ void flash_bwd_dot_kernel(const T* __restrict__ o,
   const T* op = o + row * hd;
   const T* dp = dout + row * hd;
   float acc = 0.f;
-  for (int d = lane; d < hd; d += 32) acc += to_f(op[d]) * to_f(dp[d]);
+  for (int d = lane; d < hd; d += 32) {
+    acc += to_f(op[d]) * to_f(dp[d]);
+    dq[row * hd + d] = 0.f;
+  }
   acc = warp_sum(acc);
   if (lane == 0) {
     const long long bi = row / H;
@@ -863,8 +874,9 @@ __global__ void flash_bwd_dot_kernel(const T* __restrict__ o,
   }
 }
 
-template <int HD, int BQ>
+template <int HD>
 struct BwdMmaSmem {
+  static constexpr int BQ = kBwdMmaBQ;
   // bf16 row strides: rows stay 16-byte aligned for ldmatrix, and the 8 rows
   // a fragment read touches fall in distinct banks.
   static constexpr int LD = HD + 8;         // K, V, Q, dO tiles [row][d]
@@ -890,7 +902,7 @@ __device__ __forceinline__ void a_frag(uint32_t (&a)[4], const __nv_bfloat16* ti
 }
 
 // Fragment layouts of mma.m16n8k16 as above (g = lane / 4, t = lane % 4).
-template <int HD, int BQ>
+template <int HD>
 __global__ void __launch_bounds__(kBwdMmaThreads)
 flash_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -900,14 +912,12 @@ flash_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      float* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
                      __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H,
                      int KV, int causal, int q_offset, float scale) {
-  using S = BwdMmaSmem<HD, BQ>;
+  using S = BwdMmaSmem<HD>;
+  constexpr int BQ = kBwdMmaBQ;
   constexpr int VN = 8;             // bf16 per 16-byte load
   constexpr int KSTEPS = HD / 16;   // k-steps of the products over d
   constexpr int NT_Q = BQ / 8;      // n-tiles of S^T / dP^T (8 q each)
   constexpr int NT_D = HD / 8;      // n-tiles of dK / dV / dQ (8 columns each)
-  constexpr int RG = BQ / 16;       // dQ: 16-row groups of the q block
-  constexpr int NT_W = NT_D / (4 / RG);  // dQ: n-tiles per warp
-  static_assert(RG == 2 || RG == 4, "q block of 32 or 64 rows");
   extern __shared__ __align__(16) uint8_t bwd_smem[];
   __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(bwd_smem);
   __nv_bfloat16* Ks = sm + S::KS;
@@ -1042,10 +1052,10 @@ flash_bwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
           dSs[(j * 8 + 2 * t + (e & 1)) * S::LDS + kr0 + 8 * (e >> 1)] =
               __float2bfloat16_rn(st[j][e]);
       __syncthreads();
-      const int qr = (warp % RG) * 16, nt0 = (warp / RG) * NT_W;
+      const int qr = warp * 16;  // this warp's 16 q rows of dQ
       float* dq_h = dq + q_base;
 #pragma unroll
-      for (int n = nt0; n < nt0 + NT_W; ++n) {
+      for (int n = 0; n < NT_D; ++n) {
         float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int kk = 0; kk < kBwdBK / 16; ++kk) {
@@ -1265,25 +1275,591 @@ flash_bwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------- bf16 wgmma + TMA backward (hd 64, 128)
+//
+// FlashAttention-3's backward in outline.  A work item is one (128-key
+// block, KV head, b); a persistent grid (one CTA per SM) walks the items
+// heaviest (earliest) key block first, in a snake order: CTA i takes item i
+// of round 0, item 2G - 1 - i of round 1, ... (G CTAs), so the heavy and
+// light key blocks of the causal triangle pair up across rounds.  A CTA has
+// three warpgroups.
+//   * Producer (warpgroup 0, one warp).  Lane 0 TMA-loads the item's K and
+//     V tiles (128 keys, 128-byte swizzle) once, then streams the Q and dO
+//     tiles (64 q rows) of every q block the causal mask keeps, for every q
+//     head of the GQA group, through a ring of STAGES slots; the warp's 32
+//     lanes copy the rows' lse and D beside them by cp.async (zeros past
+//     Sq, where Q and dO are zero too).  A slot's "full" barrier takes the
+//     32 lanes' copy arrivals, lane 0's arrival and the TMA bytes; its
+//     "empty" one the consumers' 8 warps.
+//   * Consumers (warpgroups 1 and 2), each owning 64 of the 128 keys:
+//       S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16, keys as M, both
+//       operands K-major in shared memory),
+//       P^T = exp2(S^T scale log2e - lse log2e) (masked only on a q block
+//       that crosses the diagonal or Skv), packed to bf16,
+//       dS^T = P^T (dP^T - D) with P^T as rounded to bf16 (the operand dV
+//       sees), packed to bf16;
+//     P^T and dS^T go to shared memory as [q][key] tiles (stmatrix.trans,
+//     128-byte swizzle; dS in two buffers, so that a warpgroup writes the
+//     next while the other still reads this one), and
+//       dV += P^T dO and dK += dS^T Q are shared-memory wgmmas with both
+//       operands MN-major (transposed), by 64-column chunks of dK / dV;
+//       after a named barrier, dQ = scale dS K (A = dS K-major, B = K
+//       MN-major) gives each warpgroup a 64 x 64 f32 tile: at hd 128 its
+//       half of the columns over all 128 keys, at hd 64 all columns over
+//       its own 64 keys.
+//     The tile goes through shared memory to one TMA reduce-add per 32
+//     columns (cp.reduce.async.bulk.tensor .add.f32) into the f32 dQ
+//     buffer, which the D pass zeroed and whose tensor map clips rows past
+//     Sq; no atomics per element.  dK and dV stay in f32 registers across
+//     the whole group and are written once, scaled, when the item ends.
+// Registers: setmaxnreg hands the producer's to the consumers (40 / 232),
+// which hold dK and dV (64 + 64 at hd 128, in 32-register chunks) and one
+// 32-register tile at a time: at hd 128 dP^T is issued only once P^T has
+// left the registers, and P^T comes back from its tile for dS^T (with both
+// tiles in flight beside dK and dV, ptxas serializes the wgmmas and
+// spills).  hd 64 keeps S^T and dP^T in flight together.
+// Faults to know: the ring's parities (producer waits "empty" with
+// ((it / STAGES) & 1) ^ 1, consumers "full" with (it / STAGES) & 1; the K/V
+// pair with the item count's parity, likewise), the full barrier's 33
+// arrivals (32 cp.async ones, and lane 0's, which carries the expected
+// TMA bytes), and the dQ tile, which a warpgroup rewrites only after
+// its thread 0 has waited for the previous reduce to read it (before the dS
+// barrier).
+
+constexpr int kBwdWgBN = 128;      // keys per work item (2 consumers x 64)
+constexpr int kBwdWgBQ = 64;       // q rows per ring slot
+constexpr int kBwdWgThreads = 384; // producer + 2 consumer warpgroups
+
+template <int HD, int STAGES>
+struct BwdWgSmem {
+  static constexpr int KV_BYTES = kBwdWgBN * HD * 2;        // one K or V tile
+  // K / V buffers: two at hd 64, so that the next item's tiles load while
+  // this one runs (a CTA takes ~8 items at zamba2's shape); one at hd 128,
+  // where shared memory has no room for a second.
+  static constexpr int KVB = HD == 64 ? 2 : 1;
+  static constexpr int QT_BYTES = kBwdWgBQ * HD * 2;        // one Q or dO tile
+  static constexpr int DS_BYTES = kBwdWgBQ * kBwdWgBN * 2;  // dS [q][key] bf16
+  static constexpr int DQ_BYTES = kBwdWgBQ * 64 * 4;        // a consumer's dQ tile
+  static constexpr int K = 0;
+  static constexpr int V = K + KVB * KV_BYTES;              // [KVB] each
+  static constexpr int Q = V + KVB * KV_BYTES;              // [STAGES]
+  static constexpr int DO = Q + STAGES * QT_BYTES;          // [STAGES]
+  static constexpr int DS = DO + STAGES * QT_BYTES;         // [2]
+  static constexpr int PS = DS + 2 * DS_BYTES;              // P^T [q][key]
+  static constexpr int DQ = PS + DS_BYTES;                  // [2 consumers]
+  static constexpr int LSE = DQ + 2 * DQ_BYTES;             // [STAGES][64] f32
+  static constexpr int DD = LSE + STAGES * kBwdWgBQ * 4;    // [STAGES][64] f32
+  static constexpr int BARS = DD + STAGES * kBwdWgBQ * 4;
+  // full / empty per slot, kv_full / kv_empty per K / V buffer; + 1024 bytes
+  // so the tiles can start on the swizzle's 1024-byte period.
+  static constexpr int BYTES = BARS + (2 * STAGES + 2 * KVB) * 8 + 1024;
+};
+
+// Item of round r for CTA `cta` of `grid` (the snake order above).
+__device__ __forceinline__ int bwd_item(int cta, int r, int grid) {
+  return r * grid + ((r & 1) ? grid - 1 - cta : cta);
+}
+
+// D (64 x 64) = A B over HD (both K-major, 128-byte swizzle; a k16 step is
+// 32 bytes along a 128-byte row, 4 steps a 64-column chunk of CA or CB
+// bytes), issued and committed as one group.
+template <int HD, int CA, int CB>
+__device__ __forceinline__ void bwd_ss_k_major(float (&d)[32], uint64_t da, uint64_t db) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    hopper::wgmma_ss_n64<0>(d, da + ((kk >> 2) * CA + (kk & 3) * 32) / 16,
+                            db + ((kk >> 2) * CB + (kk & 3) * 32) / 16, kk > 0);
+  hopper::wgmma_commit();
+}
+
+// A descriptor the compiler must treat as new on every call, so that the
+// k-step descriptors derived from it (base + byte offset / 16) are formed
+// where they are used rather than hoisted out of the loop and held in
+// registers.
+__device__ __forceinline__ uint64_t opaque(uint64_t d) {
+  asm volatile("" : "+l"(d));
+  return d;
+}
+
+// 4-byte asynchronous copy to shared memory; zeros when !in.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+// Arrive on `bar` once this thread's earlier cp.async copies have landed
+// (the arrival counts toward the barrier's expected count).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   hopper::smem_u32(bar))
+               : "memory");
+}
+
+// Four 8 x 8 bf16 matrices to shared memory, transposed: lane 8 m + r names
+// the address of row r of stored matrix m, and each thread's register m
+// holds rows 2 (t % 4), + 1 of column t / 4 of it (an accumulator pair).
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               ::"r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+// The inverse: four 8 x 8 bf16 matrices from shared memory, transposed.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// The dynamic shared memory, aligned to the 128-byte swizzle's 1024-byte
+// period; the compiler cannot reuse a base formed before a setmaxnreg.
+__device__ __forceinline__ uint8_t* bwd_wg_smem(uint8_t* raw) {
+  uint32_t off = (1024 - (hopper::smem_u32(raw) & 1023)) & 1023;
+  asm volatile("" : "+r"(off));
+  return raw + off;
+}
+
+// What both roles of flash_bwd_wgmma_kernel derive from the shared memory
+// and the shapes.
+template <int HD, int STAGES>
+struct BwdView {
+  uint8_t* sm;
+  float *lse_s, *D_s;                        // [STAGES][64] f32 each
+  uint64_t *full, *empty, *kv_full, *kv_empty;
+  int n_items, n_qb, B, Sq, KV, causal, q_offset;
+  __device__ __forceinline__ BwdView(uint8_t* raw, int B_, int Sq_, int Skv, int KV_,
+                                     int causal_, int q_offset_)
+      : sm(bwd_wg_smem(raw)), B(B_), Sq(Sq_), KV(KV_), causal(causal_),
+        q_offset(q_offset_) {
+    using S = BwdWgSmem<HD, STAGES>;
+    lse_s = reinterpret_cast<float*>(sm + S::LSE);
+    D_s = reinterpret_cast<float*>(sm + S::DD);
+    full = reinterpret_cast<uint64_t*>(sm + S::BARS);
+    empty = full + STAGES;
+    kv_full = empty + STAGES;                     // [KVB]
+    kv_empty = kv_full + BwdWgSmem<HD, STAGES>::KVB;  // [KVB]
+    n_items = (Skv + kBwdWgBN - 1) / kBwdWgBN * KV * B;
+    n_qb = (Sq + kBwdWgBQ - 1) / kBwdWgBQ;
+  }
+  // Item w: key block w / (KV B) (heaviest first), KV head w % KV, b = w /
+  // KV % B; the q blocks it visits start at the first one holding a row
+  // below Sq that sees the block's first key (bwd_q_blocks() in
+  // kernels/flash_attention/kernel.py).
+  __device__ __forceinline__ void item(int w, int& k0, int& kvh, int& b,
+                                       int& qb_first) const {
+    k0 = w / (KV * B) * kBwdWgBN;
+    kvh = w % KV;
+    b = w / KV % B;
+    const int first_row = causal ? max(0, k0 - q_offset) : 0;
+    qb_first = first_row < Sq ? first_row / kBwdWgBQ : n_qb;
+  }
+};
+
+__device__ __forceinline__ int opaque_int(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+template <int HD, int STAGES>
+__global__ void __launch_bounds__(kBwdWgThreads, 1)
+flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const __grid_constant__ CUtensorMap tm_dq,
+                       const float* __restrict__ lse, const float* __restrict__ Dd,
+                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                       int B, int Sq, int Skv, int H, int KV, int causal,
+                       int q_offset, float scale, float scale_log2) {
+  using S = BwdWgSmem<HD, STAGES>;
+  static_assert(HD == 64 || HD == 128, "head dim 64 or 128");
+  constexpr int CH = HD / 64;                 // 64-column chunks of a row
+  constexpr int KV_CHUNK = kBwdWgBN * 128;    // bytes of a K / V column chunk
+  constexpr int QT_CHUNK = kBwdWgBQ * 128;    // bytes of a Q / dO column chunk
+  extern __shared__ uint8_t smem_raw[];
+  if (threadIdx.x == 0) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(bwd_wg_smem(smem_raw) + S::BARS);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      // full: the producer warp's 32 copy arrivals and lane 0's expect-tx
+      // one; empty: one arrival per consumer warp.
+      hopper::mbar_init(&bars[s], 33);
+      hopper::mbar_init(&bars[STAGES + s], 8);
+    }
+#pragma unroll
+    for (int i = 0; i < S::KVB; ++i) {
+      hopper::mbar_init(&bars[2 * STAGES + i], 1);           // kv_full
+      hopper::mbar_init(&bars[2 * STAGES + S::KVB + i], 8);  // kv_empty
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // The two roles each start with their setmaxnreg, and form what they use
+  // after it (BwdView hides the shared-memory base from the compiler): a
+  // value live across setmaxnreg is spilled by ptxas, and code after a
+  // setmaxnreg that two roles share gets the launch bound's registers.
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------------ producer
+    hopper::setmaxnreg_dec<40>();
+    const BwdView<HD, STAGES> vw(smem_raw, B, Sq, Skv, KV, causal, q_offset);
+    uint8_t* sm = vw.sm;
+    float* lse_s = vw.lse_s;
+    float* D_s = vw.D_s;
+    uint64_t *full = vw.full, *empty = vw.empty, *kv_full = vw.kv_full,
+             *kv_empty = vw.kv_empty;
+    const int n_items = vw.n_items, n_qb = vw.n_qb, group = H / KV;
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      int it = 0;  // q blocks streamed so far: ring slot it % STAGES
+      for (int r = 0;; ++r) {
+        const int w = bwd_item(blockIdx.x, r, gridDim.x);
+        if (w >= n_items) break;
+        int k0, kvh, b, qb_first;
+        vw.item(w, k0, kvh, b, qb_first);
+        if (lane == 0) {
+          // Item r uses K / V buffer r % KVB, its (r / KVB)-th use.
+          const int kb = r % S::KVB;
+          hopper::mbar_wait(&kv_empty[kb], ((r / S::KVB) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&kv_full[kb], 2 * S::KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < CH; ++c) {
+            hopper::tma_load_4d(sm + S::K + kb * S::KV_BYTES + c * KV_CHUNK, &tm_k,
+                                &kv_full[kb], c * 64,
+                                kvh, k0, b);
+            hopper::tma_load_4d(sm + S::V + kb * S::KV_BYTES + c * KV_CHUNK, &tm_v,
+                                &kv_full[kb], c * 64,
+                                kvh, k0, b);
+          }
+        }
+        for (int gi = 0; gi < group; ++gi) {
+          const int h = kvh * group + gi;
+          const float* lse_h = lse + ((long long)b * H + h) * Sq;
+          const float* D_h = Dd + ((long long)b * H + h) * Sq;
+          for (int qb = qb_first; qb < n_qb; ++qb, ++it) {
+            const int s = it % STAGES, q0 = qb * kBwdWgBQ;
+            hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+            // The rows' lse and D by cp.async (zeros past Sq), counted on
+            // the slot's barrier: no lane waits for a global load.
+#pragma unroll
+            for (int i = 0; i < kBwdWgBQ / 32; ++i) {
+              const int rr = lane + 32 * i, q = min(q0 + rr, Sq - 1);
+              cp_async4(lse_s + s * kBwdWgBQ + rr, lse_h + q, q0 + rr < Sq);
+              cp_async4(D_s + s * kBwdWgBQ + rr, D_h + q, q0 + rr < Sq);
+            }
+            cp_async_arrive(&full[s]);
+            if (lane == 0) {
+              hopper::mbar_arrive_expect_tx(&full[s], 2 * S::QT_BYTES);
+#pragma unroll
+              for (int c = 0; c < CH; ++c) {
+                hopper::tma_load_4d(sm + S::Q + s * S::QT_BYTES + c * QT_CHUNK,
+                                    &tm_q, &full[s], c * 64, h, q0, b);
+                hopper::tma_load_4d(sm + S::DO + s * S::QT_BYTES + c * QT_CHUNK,
+                                    &tm_do, &full[s], c * 64, h, q0, b);
+              }
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+  {
+    // ------------------------------------------------------------ consumers
+    hopper::setmaxnreg_inc<232>();
+    const BwdView<HD, STAGES> vw(smem_raw, B, Sq, Skv, KV, causal, q_offset);
+    uint8_t* sm = vw.sm;
+    float* lse_s = vw.lse_s;
+    float* D_s = vw.D_s;
+    uint64_t *full = vw.full, *empty = vw.empty, *kv_full = vw.kv_full,
+             *kv_empty = vw.kv_empty;
+    const int n_items = vw.n_items, n_qb = vw.n_qb, group = H / KV;
+    const int wg = threadIdx.x / 128;
+    const int cw = wg - 1;  // this warpgroup's keys: k0 + 64 cw .. + 63
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
+    uint8_t* dQw = sm + S::DQ + cw * S::DQ_BYTES;
+    uint8_t* Pw = sm + S::PS;
+    // Named barriers: 1 = both consumers (dS at hd 128), 2 + cw = own.
+    const int ds_bar = HD == 128 ? 1 : 2 + cw, ds_count = HD == 128 ? 256 : 128;
+    int it = 0;
+    for (int r = 0;; ++r) {
+      const int w = bwd_item(blockIdx.x, r, gridDim.x);
+      if (w >= n_items) break;
+      int k0, kvh, b, qb_first;
+      vw.item(w, k0, kvh, b, qb_first);
+      const int kw0 = k0 + 64 * cw;
+      // dK and dV by 64-column chunk: 32-register accumulators are what
+      // ptxas can place beside the others (as 64-register ones at hd 128
+      // it could not, and serialized the wgmmas and spilled).
+      float dka[CH][32], dva[CH][32];
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dka[c][i] = dva[c][i] = 0.f;
+      const int kb = r % S::KVB;
+      hopper::mbar_wait(&kv_full[kb], (r / S::KVB) & 1);
+      // Descriptors of this warpgroup's K and V rows (K-major), and of the
+      // K tile as dQ's B operand (MN-major): at hd 128 its column chunk cw
+      // over all 128 keys, at hd 64 its own 64 keys.
+      const uint8_t* Kb = sm + S::K + kb * S::KV_BYTES;
+      const uint64_t k_desc = hopper::sw128_desc(Kb + cw * 64 * 128, 16, 1024);
+      const uint64_t v_desc =
+          hopper::sw128_desc(sm + S::V + kb * S::KV_BYTES + cw * 64 * 128, 16, 1024);
+      const uint64_t kq_desc = hopper::sw128_desc(
+          Kb + (HD == 128 ? cw * KV_CHUNK : cw * 64 * 128), KV_CHUNK, 1024);
+
+      for (int gi = 0; gi < group; ++gi) {
+        const int h = kvh * group + gi;
+        for (int qb = qb_first; qb < n_qb; ++qb, ++it) {
+          const int s = it % STAGES, q0 = qb * kBwdWgBQ;
+          const uint8_t* Qt = sm + S::Q + s * S::QT_BYTES;
+          const uint8_t* dOt = sm + S::DO + s * S::QT_BYTES;
+          uint8_t* dSb = sm + S::DS + (it & 1) * S::DS_BYTES;
+
+          // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 q each, both
+          // operands K-major from shared memory.  At hd 64 both run at once;
+          // at hd 128 dP^T is issued only once P^T has left the registers,
+          // so that its accumulator can take S^T's: beside dK and dV (128
+          // registers) the two at once leave ptxas too few registers for
+          // the wgmma pipeline (it serializes the wgmmas and spills).
+          float st[32], dp[32];
+          const uint64_t kd = opaque(k_desc), vd = opaque(v_desc);
+          const uint64_t qd_ = hopper::sw128_desc(Qt, 16, 1024);
+          const uint64_t dod = hopper::sw128_desc(dOt, 16, 1024);
+          hopper::mbar_wait(&full[s], (it / STAGES) & 1);
+          bwd_ss_k_major<HD, KV_CHUNK, QT_CHUNK>(st, kd, qd_);
+          if constexpr (HD == 64) bwd_ss_k_major<HD, KV_CHUNK, QT_CHUNK>(dp, vd, dod);
+          hopper::wgmma_wait<HD == 64 ? 1 : 0>();
+          hopper::fence_regs(st);
+
+          // P^T for keys kw0 + 16 warp + g (+ 8) and q columns 8 j + 2 qd
+          // (+ 1); the mask only where a pair of the tile may be dropped.
+          // Rows past Sq have lse 0 (and Q, dO zero), so P^T is 1 there but
+          // dP^T, dS^T and their dV share are 0.
+          const float* lse_q = lse_s + s * kBwdWgBQ;
+          const float* D_q = D_s + s * kBwdWgBQ;
+          const bool masked = kw0 + 64 > Skv || (causal && q_offset + q0 < kw0 + 63);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 l2 = *reinterpret_cast<const float2*>(lse_q + 8 * j + 2 * qd);
+            const float nl0 = -1.4426950408889634f * l2.x;
+            const float nl1 = -1.4426950408889634f * l2.y;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float x = st[4 * j + e];
+              if (masked) {
+                const int key = kw0 + 16 * warp + g + 8 * (e >> 1);
+                const int qp = q_offset + q0 + 8 * j + 2 * qd + (e & 1);
+                if (key >= Skv || (causal && key > qp)) x = -INFINITY;
+              }
+              st[4 * j + e] = ex2(fmaf(x, scale_log2, (e & 1) ? nl1 : nl0));
+            }
+          }
+          uint32_t pa[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              pa[kk][i] = pack_bf16(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1]);
+
+          // P^T and then dS^T go to shared memory as [q][key] tiles by
+          // stmatrix: the warp's 16 keys x 16 q of step kk are four 8 x 8
+          // matrices (keys 8 (m % 2), q 8 (m / 2) + r in row r); row q of
+          // chunk cw holds key 64 cw + 16 warp + 8 (m % 2) .. + 7 in its
+          // 16-byte unit 2 warp + m % 2, swizzled by q % 8 = r.  One address
+          // a lane, 2048 bytes (16 rows) a step.
+          const int lm = opaque_int(lane >> 3), lr = lane & 7;
+          const uint32_t st_off = cw * (kBwdWgBQ * 128) + (8 * (lm >> 1) + lr) * 128 +
+                                  (((2 * warp + (lm & 1)) ^ lr) << 4);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            stmatrix_x4_trans(hopper::smem_u32(Pw) + st_off + kk * 2048, pa[kk]);
+          hopper::fence_async_smem();
+          if constexpr (HD == 128) bwd_ss_k_major<HD, KV_CHUNK, QT_CHUNK>(dp, vd, dod);
+          hopper::named_barrier(2 + cw, 128);
+
+          // dV += P^T dO: A = P^T (MN-major: 16 q rows = 2048 bytes a step),
+          // B = dO (MN-major), both from shared memory.
+          const uint64_t dot = hopper::sw128_desc(dOt, QT_CHUNK, 1024);
+          const uint64_t qt = hopper::sw128_desc(Qt, QT_CHUNK, 1024);
+          const uint64_t pd = hopper::sw128_desc(Pw + cw * (kBwdWgBQ * 128), QT_CHUNK, 1024);
+#pragma unroll
+          for (int c = 0; c < CH; ++c) hopper::fence_regs(dva[c]);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int c = 0; c < CH; ++c)
+              hopper::wgmma_ss_n64<1, 1>(dva[c], pd + kk * 2048 / 16,
+                                         dot + (c * QT_CHUNK + kk * 2048) / 16, 1);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<1>();  // dP^T (dV may still run)
+          hopper::fence_regs(dp);
+
+          // dS^T = P^T (dP^T - D), with P^T as rounded to bf16 for dV.  At
+          // hd 128 P^T comes back from its tile (ldmatrix, the inverse of the
+          // stmatrix above), so that it does not hold 16 registers while
+          // dP^T runs.
+          if constexpr (HD == 128) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              ldmatrix_x4_trans(hopper::smem_u32(Pw) + st_off + kk * 2048, pa[kk]);
+          }
+          uint32_t sa[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int j = 2 * kk + (i >> 1), c = 8 * kk + 2 * i;
+              const float2 d2 = *reinterpret_cast<const float2*>(D_q + 8 * j + 2 * qd);
+              const float p0 = __uint_as_float(pa[kk][i] << 16);  // low half
+              const float p1 = __uint_as_float(pa[kk][i] & 0xffff0000u);
+              sa[kk][i] = pack_bf16(p0 * (dp[c] - d2.x), p1 * (dp[c + 1] - d2.y));
+            }
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            stmatrix_x4_trans(hopper::smem_u32(dSb) + st_off + kk * 2048, sa[kk]);
+          hopper::fence_async_smem();
+          if (tid == 0) hopper::bulk_wait_read();  // the last dQ tile is read
+          hopper::named_barrier(ds_bar, ds_count);
+
+          // dK += dS^T Q (as dV), and dQ = dS K for this warpgroup's 64 x 64
+          // tile: A = dS (K-major, keys along the row), B = K (MN-major, 16
+          // keys = 2048 bytes a step).
+          const uint64_t sd = hopper::sw128_desc(dSb + cw * (kBwdWgBQ * 128), QT_CHUNK, 1024);
+#pragma unroll
+          for (int c = 0; c < CH; ++c) hopper::fence_regs(dka[c]);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int c = 0; c < CH; ++c)
+              hopper::wgmma_ss_n64<1, 1>(dka[c], sd + kk * 2048 / 16,
+                                         qt + (c * QT_CHUNK + kk * 2048) / 16, 1);
+          hopper::wgmma_commit();
+          float dq[32];
+          const uint64_t dsd = hopper::sw128_desc(
+              dSb + (HD == 128 ? 0 : cw * (kBwdWgBQ * 128)), 16, 1024);
+          const uint64_t kqd = opaque(kq_desc);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < (HD == 128 ? 8 : 4); ++kk)
+            hopper::wgmma_ss_n64<1>(
+                dq, dsd + ((kk >> 2) * (kBwdWgBQ * 128) + (kk & 3) * 32) / 16,
+                kqd + kk * 2048 / 16, kk > 0);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(dq);
+#pragma unroll
+          for (int c = 0; c < CH; ++c) {
+            hopper::fence_regs(dva[c]);
+            hopper::fence_regs(dka[c]);
+          }
+          __syncwarp();
+          if (lane == 0) hopper::mbar_arrive(&empty[s]);  // Q, dO, lse, D read
+
+          // dQ (scaled) into the warpgroup's f32 tile: two chunks of 32
+          // columns, 64 rows of 128 bytes, 128-byte swizzle; then one TMA
+          // reduce-add per chunk.  Row 16 warp + g + 8 hi has row % 8 = g;
+          // column 8 j + 2 qd sits in unit 2 (j % 4) + qd / 2 of chunk j / 4,
+          // swizzled to (2 (j % 4)) ^ (qd / 2 ^ g).
+          {
+            const int y = opaque_int((qd >> 1) ^ g);
+            uint8_t* dq_t = dQw + (16 * warp + g) * 128 + (qd & 1) * 8;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int hi = 0; hi < 2; ++hi)
+                *reinterpret_cast<float2*>(dq_t + (j >> 2) * (kBwdWgBQ * 128) + hi * 1024 +
+                                           (((2 * (j & 3)) ^ y) << 4)) =
+                    make_float2(scale * dq[4 * j + 2 * hi], scale * dq[4 * j + 2 * hi + 1]);
+          }
+          hopper::fence_async_smem();
+          hopper::named_barrier(4 + cw, 128);
+          if (tid == 0) {
+            const int col0 = HD == 128 ? 64 * cw : 0;
+            hopper::tma_reduce_add_4d(&tm_dq, dQw, col0, h, q0, b);
+            hopper::tma_reduce_add_4d(&tm_dq, dQw + kBwdWgBQ * 128, col0 + 32, h, q0, b);
+            hopper::bulk_commit();
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&kv_empty[kb]);
+
+      // dK (scaled) and dV, summed over the group: written once.
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int key = kw0 + 16 * warp + g + 8 * hi;
+        if (key >= Skv) continue;
+        const long long off = (((long long)b * Skv + key) * KV + kvh) * HD + 2 * qd;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          const int c = j >> 3, e = 4 * (j & 7) + 2 * hi;
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) = __floats2bfloat162_rn(
+              scale * dka[c][e], scale * dka[c][e + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
+              __floats2bfloat162_rn(dva[c][e], dva[c][e + 1]);
+        }
+      }
+    }
+    if (tid == 0) hopper::bulk_wait_all();  // the reduces are done
+  }
+}
+
+template <int HD, int STAGES>
+cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse, const float* D,
+                             float* dq, void* dk, void* dv, int B, int Sq, int Skv,
+                             int H, int KV, int causal, int q_offset, float scale,
+                             int grid_x, int smem, cudaStream_t stream) {
+  if (smem < BwdWgSmem<HD, STAGES>::BYTES) return cudaErrorInvalidValue;
+  // 4-D maps over (hd, heads, S, B) with the real byte strides.
+  const uint64_t row = HD * 2, q_ld = row * H, kv_ld = row * KV;
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  const bool ok =
+      make_bf16_map_4d(&tq, q, HD, H, Sq, B, row, q_ld, q_ld * Sq, kBwdWgBQ) &&
+      make_bf16_map_4d(&tdo, dout, HD, H, Sq, B, row, q_ld, q_ld * Sq, kBwdWgBQ) &&
+      make_bf16_map_4d(&tk, k, HD, KV, Skv, B, row, kv_ld, kv_ld * Skv, kBwdWgBN) &&
+      make_bf16_map_4d(&tv, v, HD, KV, Skv, B, row, kv_ld, kv_ld * Skv, kBwdWgBN) &&
+      make_f32_map_4d(&tdq, dq, HD, H, Sq, B, 2 * row, 2 * q_ld, 2 * q_ld * Sq,
+                      kBwdWgBQ);
+  if (!ok) return cudaErrorInvalidValue;
+  auto kern = flash_bwd_wgmma_kernel<HD, STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  using bf = __nv_bfloat16;
+  kern<<<grid_x, kBwdWgThreads, smem, stream>>>(
+      tq, tk, tv, tdo, tdq, lse, D, static_cast<bf*>(dk), static_cast<bf*>(dv), B,
+      Sq, Skv, H, KV, causal, q_offset, scale, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
 template <typename T>
-cudaError_t launch_bwd_dot(const void* o, const void* dout, float* D, int B,
-                           int Sq, int H, int hd, cudaStream_t stream) {
+cudaError_t launch_bwd_dot(const void* o, const void* dout, float* D, float* dq,
+                           int B, int Sq, int H, int hd, cudaStream_t stream) {
   constexpr int kThreads = 256;  // 8 rows per CTA
   const long long rows = (long long)B * Sq * H;
   const unsigned grid = (unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32));
   flash_bwd_dot_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), D, rows, Sq, H, hd);
+      static_cast<const T*>(o), static_cast<const T*>(dout), D, dq, rows, Sq, H,
+      hd);
   return cudaGetLastError();
 }
 
-template <int HD, int BQ>
+template <int HD>
 cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v,
                            const void* dout, const float* lse, const float* D,
                            float* dq, void* dk, void* dv, int Sq, int Skv, int H,
                            int KV, int causal, int q_offset, float scale,
                            dim3 grid, int smem, cudaStream_t stream) {
-  if (smem < (int)BwdMmaSmem<HD, BQ>::BYTES) return cudaErrorInvalidValue;
-  auto kern = flash_bwd_mma_kernel<HD, BQ>;
+  if (smem < (int)BwdMmaSmem<HD>::BYTES) return cudaErrorInvalidValue;
+  auto kern = flash_bwd_mma_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -1369,47 +1945,69 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
 
 // Backward of flash_attn_fwd.  q, o, dout: (B, Sq, H, hd); k, v, dk, dv:
 // (B, Skv, KV, hd), contiguous, of one dtype, 16-byte aligned; lse: the
-// forward's (B, H, Sq) f32; D: (B, H, Sq) f32 scratch; dq: (B, Sq, H, hd) f32,
-// zeroed by the caller (the CTAs add into it).  Two launches on `stream`: D
-// = rowsum(dout * o), then the main kernel.  The plan (variant, block_q,
-// threads, grid, dynamic shared memory) is bwd_plan()'s in
-// kernels/flash_attention/kernel.py; a plan no compiled kernel matches is
-// refused.  Returns cudaGetLastError() after the launches (0 on success).
+// forward's (B, H, Sq) f32; D: (B, H, Sq) f32 scratch; dq: (B, Sq, H, hd) f32
+// scratch (the D pass zeroes it, the main kernel adds into it).  Two
+// launches on `stream`: D = rowsum(dout * o), then the main kernel.  The
+// plan (variant, block_q, stages, threads, grid, dynamic shared memory) is
+// bwd_plan()'s in kernels/flash_attention/kernel.py; a plan no compiled
+// kernel matches is refused.  Returns cudaGetLastError() after the launches
+// (0 on success).
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* dout, const float* lse,
                               float* D, float* dq, void* dk, void* dv, int B,
                               int Sq, int Skv, int H, int KV, int hd, int dtype,
                               int causal, int q_offset, float scale,
-                              int variant, int block_q, int threads, int grid_x,
-                              int grid_y, int grid_z, int smem, void* stream) {
+                              int variant, int block_q, int stages, int threads,
+                              int grid_x, int grid_y, int grid_z, int smem,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t bad = cudaErrorInvalidValue;
   if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || H % KV != 0 || q_offset < 0)
     return (int)bad;
-  if (grid_x != (Skv + kBwdBK - 1) / kBwdBK || grid_y != KV || grid_z != B)
+  if (variant == kWgmma) {
+    // A persistent grid over the (128-key block, KV head, b) items.
+    const long long items = (long long)((Skv + kBwdWgBN - 1) / kBwdWgBN) * KV * B;
+    if (dtype != kBF16 || block_q != kBwdWgBQ || threads != kBwdWgThreads ||
+        grid_x < 1 || grid_x > items || grid_y != 1 || grid_z != 1 ||
+        !((hd == 64 && stages == 4) || (hd == 128 && stages == 2)))
+      return (int)bad;
+    cudaError_t err = launch_bwd_dot<__nv_bfloat16>(o, dout, D, dq, B, Sq, H, hd, s);
+    if (err != cudaSuccess) return (int)err;
+    if (hd == 64 && stages == 4)
+      return (int)launch_bwd_wgmma<64, 4>(q, k, v, dout, lse, D, dq, dk, dv, B, Sq,
+                                          Skv, H, KV, causal, q_offset, scale,
+                                          grid_x, smem, s);
+    if (hd == 128 && stages == 2)
+      return (int)launch_bwd_wgmma<128, 2>(q, k, v, dout, lse, D, dq, dk, dv, B, Sq,
+                                           Skv, H, KV, causal, q_offset, scale,
+                                           grid_x, smem, s);
+    return (int)bad;
+  }
+  if (grid_x != (Skv + kBwdBK - 1) / kBwdBK || grid_y != KV || grid_z != B ||
+      stages != 1)
     return (int)bad;
   const dim3 grid(grid_x, grid_y, grid_z);
   cudaError_t err;
   switch (variant) {
     case kMmaSync:
-      if (dtype != kBF16 || threads != kBwdMmaThreads) return (int)bad;
-      if ((err = launch_bwd_dot<__nv_bfloat16>(o, dout, D, B, Sq, H, hd, s)) != cudaSuccess)
+      if (dtype != kBF16 || threads != kBwdMmaThreads || block_q != kBwdMmaBQ ||
+          (hd != 16 && hd != 32))
+        return (int)bad;
+      if ((err = launch_bwd_dot<__nv_bfloat16>(o, dout, D, dq, B, Sq, H, hd, s)) !=
+          cudaSuccess)
         return (int)err;
-#define BWD_MMA(HD_, BQ_)                                                        \
-  if (hd == HD_ && block_q == BQ_)                                              \
-    return (int)launch_bwd_mma<HD_, BQ_>(q, k, v, dout, lse, D, dq, dk, dv, Sq, \
-                                         Skv, H, KV, causal, q_offset, scale,   \
-                                         grid, smem, s);
-      BWD_MMA(16, 64)
-      BWD_MMA(32, 64)
-      BWD_MMA(64, 64)
-      BWD_MMA(128, 32)
+#define BWD_MMA(HD_)                                                             \
+  if (hd == HD_)                                                                \
+    return (int)launch_bwd_mma<HD_>(q, k, v, dout, lse, D, dq, dk, dv, Sq, Skv, \
+                                    H, KV, causal, q_offset, scale, grid, smem, s);
+      BWD_MMA(16)
+      BWD_MMA(32)
 #undef BWD_MMA
       return (int)bad;
     case kFma:
       if (dtype != kF32 || threads != kBwdFmaThreads || block_q != kBwdFmaBQ)
         return (int)bad;
-      if ((err = launch_bwd_dot<float>(o, dout, D, B, Sq, H, hd, s)) != cudaSuccess)
+      if ((err = launch_bwd_dot<float>(o, dout, D, dq, B, Sq, H, hd, s)) != cudaSuccess)
         return (int)err;
       switch (hd) {
 #define BWD_FMA(HD_)                                                             \

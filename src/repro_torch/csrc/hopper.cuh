@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's TMA + wgmma kernels:
-// mbarriers, TMA tensor loads and stores, wgmma shared-memory descriptors for
-// the 128-byte swizzle and for none, the wgmma instructions themselves (bf16;
-// TF32 with A in registers), warpgroup register hand-over (setmaxnreg), and
-// the host-side tensor-map encoder.
+// mbarriers, TMA tensor loads, stores and f32 reduce-adds, wgmma
+// shared-memory descriptors for the 128-byte swizzle and for none, the wgmma
+// instructions themselves (bf16 with A in registers or in shared memory,
+// either operand transposed; TF32 with A in registers), warpgroup register
+// hand-over (setmaxnreg), and the host-side tensor-map encoders.
 //
 // Layout every tile here follows: a tile of R rows by C bf16 columns lands in
 // shared memory as C / 64 chunks, each R rows of 128 bytes (64 bf16), in
@@ -50,21 +51,25 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 // Wait until the phase of parity `parity` has completed.  A fresh barrier is
 // in phase 0, and the phase "before" it (parity 1) counts as completed, so a
 // producer's first wait on an empty slot (parity 1) passes at once.  A wait
-// that never ends (a parity or byte-count bug) traps after ~2^26 polls, so
-// the launch fails with an error instead of hanging the card.
+// that never ends (a parity or byte-count bug) traps after 2^26 polls, so
+// the launch fails with an error instead of hanging the card.  The loop and
+// the trap are one asm block: a C++ __trap() in the loop makes ptxas keep
+// the registers of a wgmma consumer within the kernel's launch bound (the
+// setmaxnreg budget goes unused, and accumulators spill).
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0, polls = 0;
-  do {
-    if (++polls == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\n"
+      "mov.u32 n, 0;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE_%=;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.lt.u32 p, n, 67108864;\n"
+      "@p bra WAIT_%=;\n"
+      "trap;\n"
+      "DONE_%=:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 // ------------------------------------------------------------ TMA
@@ -99,6 +104,29 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
 __device__ __forceinline__ void tma_store_wait() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// 4-D tiled reduce-add of a shared-memory box into global memory (the
+// element type, here f32, comes from the map); elements outside the tensor
+// are not touched.  Commits the operation as one bulk group.
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map, const void* src,
+                                                  int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Every bulk group this thread committed has finished reading shared memory
+// (.read), or has completed altogether (its writes are done).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // Generic-proxy writes to shared memory become visible to TMA / wgmma.
@@ -145,6 +173,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N of this warpgroup's committed groups are pending
+// (groups complete in the order they were committed).
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Pin an accumulator's registers at this point of the program, so that the
@@ -193,6 +226,26 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, f32) (+)= A (64 x 16) B (16 x 64); A and B from shared memory
+// through descriptors; A K-major (TRANS_A = 0) or MN-major (TRANS_A = 1, as
+// P^T from a [q][key] tile); B K-major (TRANS_B = 0, as Q in K Q^T) or
+// MN-major (TRANS_B = 1, as K in dS K: lbo = bytes from one 64-column chunk
+// to the next, unused at N = 64; sbo = 1024).
+template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // D (64 x 64, f32) += A (64 x 16, bf16 pairs in registers) B (16 x 64);
@@ -323,6 +376,23 @@ inline bool make_bf16_map_4d(CUtensorMap* map, const void* base, uint64_t d0,
   const cuuint32_t box[4] = {64, 1, rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D f32 tensor map like make_bf16_map_4d's, with a box of (32, 1, rows,
+// 1): 32 f32 are one 128-byte swizzle row.
+inline bool make_f32_map_4d(CUtensorMap* map, const void* base, uint64_t d0,
+                            uint64_t d1, uint64_t d2, uint64_t d3, uint64_t s1,
+                            uint64_t s2, uint64_t s3, uint32_t rows) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {d0, d1, d2, d3};
+  const cuuint64_t strides[3] = {s1, s2, s3};
+  const cuuint32_t box[4] = {32, 1, rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base),
                 dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -265,58 +265,110 @@ cudaError_t launch(const void* x, const void* w, void* y, long long rows,
 // rmsnorm_ref); this computes that gradient in f32:
 //   r = 1 / sqrt(mean(x^2) + eps),  x^ = x r,  g = dy w,
 //   dx = r (g - x^ mean(g x^)),     dw = sum over rows of dy x^.
-// Bound on the H100: bytes (x and dy read once, dx written once, plus dw).
-// The forward's register-row pattern: TPR lanes hold a row of x and of dy in
-// registers (16-byte loads, evict-first), reduce x^2 and g x with shuffles
-// and write dx from the same registers, over a grid-stride loop; each lane
-// keeps its columns' share of dw in f32 registers across its rows.  At the
-// end the CTA's lanes add their shares into one row in shared memory, which
-// goes to dw_part[blockIdx.x]; a second small kernel sums the CTAs' rows per
-// column (32 columns a CTA) and casts to w's type.  Rows must allow 16-byte
-// vectors and hold at most 512 of them (d <= 4096 bf16, 2048 f32); the
-// wrapper refuses others.
+// Bound on the H100: bytes (x and dy read once, dx written once, plus w and
+// dw).  A row takes TPR threads (8 to 256) of V 16-byte vectors each (V = 2
+// from 64 vectors a row up: at d = 2048 bf16, 128 threads), so a thread
+// holds only its vectors of x, dy and w and its columns' f32 dw share: at
+// most 64 registers, so that four CTAs of 256 threads fit an SM
+// (__launch_bounds__), and the grid is exactly those resident CTAs (one
+// wave), each row group striding over the rows.  The next row's x and dy go
+// by cp.async into a shared-memory double buffer while the current one is
+// reduced and written (a ring of three or four measured slower); each thread
+// copies only the vectors it reads itself, so waiting on its own copies is
+// enough (no barrier).  The row sums (x^2,
+// g x) reduce with shuffles, and across a row group's warps through shared
+// memory and a named barrier.  w is read once per CTA and kept in registers
+// (in shared memory it measured slower).  At the end the
+// CTA's row groups fold their dw shares into one row in shared memory,
+// which goes with red.global.add.v4.f32 into one of kDwRows f32 rows of the
+// workspace, which the launcher zeroes first (CTA i into row i % kDwRows,
+// so that fewer CTAs
+// contend for each address); the last CTA to finish (a counter after the
+// rows) sums the rows and casts to w's type.  So the dw partials never
+// reach device memory as one row a CTA.
+// Rows must allow 16-byte vectors and hold at most 512 of them (d <= 4096
+// bf16, 2048 f32); the wrapper refuses others.
 
-template <typename T, int NV, int TPR>
-__global__ void __launch_bounds__(kRegThreads)
-rmsnorm_bwd_reg_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                       const T* __restrict__ dy, T* __restrict__ dx,
-                       float* __restrict__ dw_part, long long rows, int d,
-                       float eps) {
-  constexpr int N = 16 / sizeof(T);
-  constexpr int GROUPS = 32 / TPR;
-  extern __shared__ float dw_row[];  // d floats
-  const int lane = threadIdx.x & 31, sub = lane % TPR;
+constexpr int kBwdThreads = 256;
+constexpr int kBwdCtasPerSm = 4;  // resident CTAs an SM: the plan's grid
+constexpr int kDwRows = 8;        // f32 dw rows the CTAs' reduce-adds spread over
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename T, int V, int TPR>
+__global__ void __launch_bounds__(kBwdThreads, kBwdCtasPerSm)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   const T* __restrict__ dy, T* __restrict__ dx, T* __restrict__ dw,
+                   float* __restrict__ ws, long long rows, int d, float eps) {
+  constexpr int N = 16 / sizeof(T);          // elements per vector
+  constexpr int GPC = kBwdThreads / TPR;     // row groups per CTA
+  constexpr int WPG = TPR / 32;              // warps per group (TPR > 32)
+  __shared__ uint4 buf[2][2][V][kBwdThreads];  // [stage][x, dy][vector][thread]
+  __shared__ float red[2][kBwdThreads / 32][2];
+  __shared__ bool last_cta;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = tid / TPR, sub = tid % TPR;
   const int nvec = d / N;
+
   const uint4* wv = reinterpret_cast<const uint4*>(w);
-  for (int i = threadIdx.x; i < d; i += kRegThreads) dw_row[i] = 0.f;
-  float dwa[NV][N];
+  uint4 wr[V];
+  float dwa[V][N];
 #pragma unroll
-  for (int i = 0; i < NV; ++i)
+  for (int i = 0; i < V; ++i) {
+    const int c = sub + i * TPR;
+    wr[i] = c < nvec ? wv[c] : make_uint4(0, 0, 0, 0);
 #pragma unroll
     for (int j = 0; j < N; ++j) dwa[i][j] = 0.f;
+  }
 
-  const long long warps = (long long)gridDim.x * (kRegThreads / 32);
-  const long long warp0 = (long long)blockIdx.x * (kRegThreads / 32) + (threadIdx.x >> 5);
-  for (long long base = warp0 * GROUPS; base < rows; base += warps * GROUPS) {
-    const long long row = base + lane / TPR;
-    const uint4* xv = reinterpret_cast<const uint4*>(x + row * d);
-    const uint4* gv = reinterpret_cast<const uint4*>(dy + row * d);
-    uint4 xr[NV], gr[NV];
+  // This group's rows: g, g + stride, ...; the loop runs on the warp's
+  // first group (rows past the end load zeros and store nothing), so every
+  // lane of a warp takes the same trips and the shuffles stay whole.
+  const long long stride = (long long)gridDim.x * GPC;
+  const long long g_mine = (long long)blockIdx.x * GPC + grp;
+  const long long g_warp =
+      (long long)blockIdx.x * GPC + (TPR >= 32 ? grp : warp * (32 / TPR));
+  auto prefetch = [&](long long row, int st) {
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
+    for (int i = 0; i < V; ++i) {
       const int c = sub + i * TPR;
       const bool in = row < rows && c < nvec;
-      xr[i] = in ? __ldcs(xv + c) : make_uint4(0, 0, 0, 0);
-      gr[i] = in ? __ldcs(gv + c) : make_uint4(0, 0, 0, 0);
+      const long long off = in ? row * d + (long long)c * N : 0;
+      cp_async16(&buf[st][0][i][tid], x + off, in);
+      cp_async16(&buf[st][1][i][tid], dy + off, in);
     }
+    cp_async_commit();
+  };
+  prefetch(g_mine, 0);
+  int k = 0;
+  for (long long base = g_warp; base < rows; base += stride, ++k) {
+    const long long row = g_mine + (long long)k * stride;
+    const int st = k & 1;
+    prefetch(row + stride, st ^ 1);
+    cp_async_wait<1>();  // this row's copies have landed
+    // Keep w packed: unpacked once out of the loop it would take N V
+    // registers more.
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      asm volatile("" : "+r"(wr[i].x), "+r"(wr[i].y), "+r"(wr[i].z), "+r"(wr[i].w));
     float ss = 0.f, gx = 0.f;
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int c = sub + i * TPR;
+    for (int i = 0; i < V; ++i) {
       float fx[N], fg[N], fw[N];
-      unpack16<T>(xr[i], fx);
-      unpack16<T>(gr[i], fg);
-      unpack16<T>(c < nvec ? wv[c] : make_uint4(0, 0, 0, 0), fw);
+      unpack16<T>(buf[st][0][i][tid], fx);
+      unpack16<T>(buf[st][1][i][tid], fg);
+      unpack16<T>(wr[i], fw);
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         ss += fx[j] * fx[j];
@@ -324,22 +376,46 @@ rmsnorm_bwd_reg_kernel(const T* __restrict__ x, const T* __restrict__ w,
       }
     }
 #pragma unroll
-    for (int o = TPR / 2; o > 0; o >>= 1) {
+    for (int o = (TPR < 32 ? TPR : 32) / 2; o > 0; o >>= 1) {
       ss += __shfl_xor_sync(0xffffffffu, ss, o);
       gx += __shfl_xor_sync(0xffffffffu, gx, o);
+    }
+    if constexpr (TPR > 32) {
+      if (lane == 0) {
+        red[k & 1][warp][0] = ss;
+        red[k & 1][warp][1] = gx;
+      }
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "r"(TPR) : "memory");
+      ss = gx = 0.f;
+#pragma unroll
+      for (int i = 0; i < WPG; ++i) {
+        ss += red[k & 1][grp * WPG + i][0];
+        gx += red[k & 1][grp * WPG + i][1];
+      }
     }
     if (row >= rows) continue;
     const float r = inv_rms(ss, d, eps);
     const float mean_gxh = r * gx / (float)d;  // mean(g x^)
-    T* dxr = dx + row * d;
+    uint4* dxr = reinterpret_cast<uint4*>(dx + row * d);
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
+    for (int i = 0; i < V; ++i) {
       const int c = sub + i * TPR;
       if (c >= nvec) continue;
+      // x and dy again from shared memory (a few cycles), rather than held
+      // in registers across the row's reductions.
+      uint4 xv, gv;
+      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(xv.x), "=r"(xv.y), "=r"(xv.z), "=r"(xv.w)
+                   : "r"(static_cast<uint32_t>(
+                       __cvta_generic_to_shared(&buf[st][0][i][tid]))));
+      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(gv.x), "=r"(gv.y), "=r"(gv.z), "=r"(gv.w)
+                   : "r"(static_cast<uint32_t>(
+                       __cvta_generic_to_shared(&buf[st][1][i][tid]))));
       float fx[N], fg[N], fw[N];
-      unpack16<T>(xr[i], fx);
-      unpack16<T>(gr[i], fg);
-      unpack16<T>(wv[c], fw);
+      unpack16<T>(xv, fx);
+      unpack16<T>(gv, fg);
+      unpack16<T>(wr[i], fw);
       uint4 out;
       T* e = reinterpret_cast<T*>(&out);
 #pragma unroll
@@ -348,80 +424,93 @@ rmsnorm_bwd_reg_kernel(const T* __restrict__ x, const T* __restrict__ w,
         e[j] = from_f<T>(r * (fg[j] * fw[j] - xh * mean_gxh));
         dwa[i][j] += fg[j] * xh;
       }
-      reinterpret_cast<uint4*>(dxr)[c] = out;
+      __stcs(dxr + c, out);
     }
   }
-  __syncthreads();  // dw_row is zeroed
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Fold the CTA's dw shares into one row (the copy buffer is free now).
+  float* dw_row = reinterpret_cast<float*>(&buf[0][0][0][0]);  // d floats
+  for (int c = tid; c < d; c += kBwdThreads) dw_row[c] = 0.f;
+  __syncthreads();
+  // The thread's first vector again (held across the row loop it took a
+  // spill at d = 2048).
+  int sub_again = threadIdx.x % TPR;
+  asm volatile("" : "+r"(sub_again));
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int c = sub + i * TPR;
+  for (int i = 0; i < V; ++i) {
+    const int c = sub_again + i * TPR;
     if (c >= nvec) continue;
 #pragma unroll
     for (int j = 0; j < N; ++j) atomicAdd(&dw_row[c * N + j], dwa[i][j]);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < d; i += kRegThreads)
-    dw_part[(long long)blockIdx.x * d + i] = dw_row[i];
-}
-
-// dw[c] = sum over the CTAs' rows of dw_part[:, c], cast to w's type: a CTA
-// takes 32 columns, its 8 warps stride over the rows (coalesced 128-byte
-// reads), and shared memory sums the warps.
-constexpr int kReduceRowsPar = 8;
-
-template <typename T>
-__global__ void __launch_bounds__(32 * kReduceRowsPar)
-rmsnorm_dw_reduce_kernel(const float* __restrict__ dw_part, int parts, int d,
-                         T* __restrict__ dw) {
-  __shared__ float acc[kReduceRowsPar][33];
-  const int c = blockIdx.x * 32 + threadIdx.x;
-  float s = 0.f;
-  if (c < d)
-    for (int p = threadIdx.y; p < parts; p += kReduceRowsPar)
-      s += dw_part[(long long)p * d + c];
-  acc[threadIdx.y][threadIdx.x] = s;
+  float* ws_row = ws + (long long)(blockIdx.x % kDwRows) * d;
+  for (int c = 4 * tid; c < d; c += 4 * kBwdThreads) {
+    const float4 v = *reinterpret_cast<const float4*>(dw_row + c);
+    asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(ws_row + c),
+                 "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+                 : "memory");
+  }
+  __threadfence();
   __syncthreads();
-  if (threadIdx.y == 0 && c < d) {
+  if (tid == 0)
+    last_cta = atomicAdd(reinterpret_cast<unsigned*>(ws + kDwRows * d), 1u) ==
+               gridDim.x - 1;
+  __syncthreads();
+  if (last_cta) {
+    __threadfence();
+    for (int c = tid; c < d; c += kBwdThreads) {
+      float sum = 0.f;
 #pragma unroll
-    for (int y = 1; y < kReduceRowsPar; ++y) s += acc[y][threadIdx.x];
-    dw[c] = from_f<T>(s);
+      for (int j = 0; j < kDwRows; ++j) sum += __ldcg(ws + (long long)j * d + c);
+      dw[c] = from_f<T>(sum);
+    }
   }
 }
 
-template <typename T, int NV, int TPR>
-cudaError_t launch_bwd_reg(const T* x, const T* w, const T* dy, T* dx, T* dw,
-                           float* dw_part, int parts, long long rows, int d,
-                           float eps, cudaStream_t stream) {
-  auto kern = rmsnorm_bwd_reg_kernel<T, NV, TPR>;
-  const size_t smem = (size_t)d * sizeof(float);
-  kern<<<parts, kRegThreads, smem, stream>>>(x, w, dy, dx, dw_part, rows, d, eps);
-  cudaError_t err = cudaGetLastError();
+template <typename T, int V, int TPR>
+cudaError_t launch_bwd_rows(const T* x, const T* w, const T* dy, T* dx, T* dw,
+                            float* ws, int grid, long long rows, int d, float eps,
+                            cudaStream_t stream) {
+  auto kern = rmsnorm_bwd_kernel<T, V, TPR>;
+  static int ctas_per_sm = 0;  // per instantiation, asked once
+  if (!ctas_per_sm) {
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &ctas_per_sm, kern, kBwdThreads, 0);
+    if (err != cudaSuccess) return err;
+  }
+  // The plan's grid is kBwdCtasPerSm CTAs an SM: refuse a build that fits
+  // fewer (it would run in two waves).
+  if (ctas_per_sm < kBwdCtasPerSm) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaMemsetAsync(ws, 0, ((size_t)kDwRows * d + 1) * sizeof(float), stream);
   if (err != cudaSuccess) return err;
-  rmsnorm_dw_reduce_kernel<T><<<(d + 31) / 32, dim3(32, kReduceRowsPar), 0, stream>>>(
-      dw_part, parts, d, dw);
+  kern<<<grid, kBwdThreads, 0, stream>>>(x, w, dy, dx, dw, ws, rows, d, eps);
   return cudaGetLastError();
 }
 
-// Lanes per row and vectors per lane, as the forward's launch_vec_rows.
+// Threads per row and vectors per thread, as rmsnorm_bwd_plan() in
+// kernels/rmsnorm/kernel.py picks them.
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx,
-                       void* dw, float* dw_part, int parts, long long rows,
-                       int d, float eps, cudaStream_t s) {
+                       void* dw, float* ws, int grid, long long rows, int d,
+                       float eps, cudaStream_t s) {
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   const T* gp = static_cast<const T*>(dy);
   T* dxp = static_cast<T*>(dx);
   T* dwp = static_cast<T*>(dw);
   const int nvec = d / int(16 / sizeof(T));
-#define BWD(NV_, TPR_) \
-  launch_bwd_reg<T, NV_, TPR_>(xp, wp, gp, dxp, dwp, dw_part, parts, rows, d, eps, s)
+#define BWD(V_, TPR_) \
+  launch_bwd_rows<T, V_, TPR_>(xp, wp, gp, dxp, dwp, ws, grid, rows, d, eps, s)
   if (nvec <= 8) return BWD(1, 8);
   if (nvec <= 16) return BWD(1, 16);
   if (nvec <= 32) return BWD(1, 32);
   if (nvec <= 64) return BWD(2, 32);
-  if (nvec <= 128) return BWD(4, 32);
-  if (nvec <= 256) return BWD(8, 32);
-  if (nvec <= 512) return BWD(16, 32);
+  if (nvec <= 128) return BWD(2, 64);
+  if (nvec <= 256) return BWD(2, 128);
+  if (nvec <= 512) return BWD(2, 256);
 #undef BWD
   return cudaErrorInvalidValue;
 }
@@ -447,19 +536,20 @@ extern "C" int rmsnorm_fwd(const void* x, const void* w, void* y,
 
 // Backward of rmsnorm_fwd.  x, dy, dx: (rows, d) row-major; w, dw: (d,); all
 // of dtype, 16-byte aligned, d * sizeof(T) % 16 == 0 and at most 512 vectors
-// a row.  dw_part: (parts, d) f32 scratch, one row per CTA; `parts` CTAs
-// (rmsnorm_bwd_parts() in kernels/rmsnorm/kernel.py).  Two launches on
-// `stream`.  Returns cudaGetLastError() after them (0 on success).
+// a row.  ws: 8 d + 4 f32 scratch (kDwRows rows of dw's f32 sums, then a
+// counter), zeroed here.  `grid` CTAs (rmsnorm_bwd_plan() in kernels/rmsnorm/kernel.py:
+// at most four an SM).  A memset of ws and one launch on `stream`.  Returns
+// cudaGetLastError() after them (0 on success).
 extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy,
-                           void* dx, void* dw, float* dw_part, int parts,
+                           void* dx, void* dw, float* ws, int grid,
                            long long rows, int d, float eps, int dtype,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || d <= 0 || parts <= 0) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || d <= 0 || grid <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == kF32 && d % 4 == 0)
-    return (int)launch_bwd<float>(x, w, dy, dx, dw, dw_part, parts, rows, d, eps, s);
+    return (int)launch_bwd<float>(x, w, dy, dx, dw, ws, grid, rows, d, eps, s);
   if (dtype == kBF16 && d % 8 == 0)
-    return (int)launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw, dw_part, parts, rows, d,
-                                          eps, s);
+    return (int)launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw, ws, grid, rows, d, eps,
+                                          s);
   return (int)cudaErrorInvalidValue;
 }

@@ -32,7 +32,7 @@ SIGNATURES = {
     "rmsnorm_bwd": ([_P, _P, _P, _P, _P, _P, _I, _LL, _I, _F, _I, _P], _I),
     "flash_attn_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-    "flash_attn_bwd": ([_P] * 10 + [_I] * 9 + [_F] + [_I] * 7 + [_P], _I),
+    "flash_attn_bwd": ([_P] * 10 + [_I] * 9 + [_F] + [_I] * 8 + [_P], _I),
     "ssd_chunk_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "ssd_chunk_smem_bytes": ([_I, _I, _I], _LL),
     "kernels_error_string": ([_I], ctypes.c_char_p),

@@ -18,11 +18,17 @@ arithmetic, and the C launcher takes its values as they are.
 ``return_lse`` the forward also writes each row's log-sum-exp, the
 backward's input (serving passes none, so its launches are unchanged).
 
-The backward (FlashAttention-2's, bound by tensor FLOPs: 2.5x the
-forward's) takes one CTA per (64-key block, KV head, b), loops over the
-group's q heads and the q blocks the mask keeps, accumulates dK and dV on
-chip and adds dQ with f32 atomics: ``mma_sync`` for bf16, ``fma`` for f32
-(``bwd_plan``).  ``flash_attention_bwd_cuda.launches`` counts its calls.
+The backward (bound by tensor FLOPs: 2.5x the forward's) loops, for each
+key block and KV head, over the group's q heads and the q blocks the mask
+keeps, accumulates dK and dV on chip and adds dQ into an f32 buffer that its
+D pass zeroes.  ``bwd_plan`` picks ``wgmma`` for bf16 hd 64 / 128
+(FlashAttention-3's backward in outline: a persistent grid over 128-key
+items, a producer warpgroup TMA-loading Q and dO through an mbarrier ring,
+two consumer warpgroups on ``wgmma``, dQ by a TMA reduce-add of each 64 x 64
+tile; ``bwd_items`` mirrors its schedule), ``mma_sync`` for bf16 hd 16 / 32
+and ``fma`` for f32.  ``flash_attention_bwd_cuda.launches`` counts its
+calls, and ``flash_attention_bwd_cuda.variant_launches`` counts them by
+variant.
 """
 from __future__ import annotations
 
@@ -84,22 +90,42 @@ def plan(dtype: torch.dtype, hd: int, B: int, Sq: int, H: int,
     raise TypeError(f"flash attention: no kernel for {dtype}")
 
 
-BWD_BLOCK_KV = 64                # keys per backward CTA
+BWD_BLOCK_KV = 64                # keys per CTA of the mma_sync and fma backwards
+BWD_WG_BLOCK_KV = 128            # keys per work item of the wgmma backward
+BWD_WG_BLOCK_Q = 64              # q rows per ring slot of the wgmma backward
 
 
 def bwd_plan(dtype: torch.dtype, hd: int, B: int, Skv: int,
-             KV: int) -> FlashPlan:
-    """The backward's launch plan; sizes mirror ``BwdMmaSmem`` and
-    ``BwdFmaSmem`` in csrc/flash_attention.cu, whose launcher refuses a plan
-    smaller than its kernel needs."""
+             KV: int, sms: int = 132) -> FlashPlan:
+    """The backward's launch plan on a card with ``sms`` SMs; sizes mirror
+    ``BwdWgSmem``, ``BwdMmaSmem`` and ``BwdFmaSmem`` in
+    csrc/flash_attention.cu, whose launcher refuses a plan smaller than its
+    kernel needs."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash attention: head dim {hd} not in {HEAD_DIMS}")
+    if dtype == torch.bfloat16 and hd >= 64:
+        # K and V tiles of 128 keys (two of each at hd 64, so the next
+        # item's load overlaps this one); `stages` ring slots of Q and dO
+        # (64 rows each); two dS buffers and one P buffer (64 x 128 bf16
+        # each); each consumer's f32 dQ tile (64 x 64); lse and D (64 f32 a
+        # slot); the barriers (full and empty a slot, kv_full and kv_empty
+        # a K / V buffer); 1024 bytes to align the tiles to the 128-byte
+        # swizzle's period.  hd 64 takes four slots (216 KB), hd 128 two
+        # (215 KB): one CTA an SM, as the persistent grid assumes.
+        block_kv, block_q = BWD_WG_BLOCK_KV, BWD_WG_BLOCK_Q
+        stages, kv_bufs = (4, 2) if hd == 64 else (2, 1)
+        smem = (2 * kv_bufs * block_kv * hd * 2 + 2 * stages * block_q * hd * 2
+                + 3 * block_q * block_kv * 2 + 2 * block_q * 64 * 4
+                + 2 * stages * block_q * 4 + (2 * stages + 2 * kv_bufs) * 8
+                + 1024)
+        items = -(-Skv // block_kv) * KV * B
+        return FlashPlan("wgmma", block_q, block_kv, stages, 384,
+                         (min(sms, items), 1, 1), smem)
     grid = (-(-Skv // BWD_BLOCK_KV), KV, B)
     if dtype == torch.bfloat16:
-        # K, V (64 rows), Q, dO (block_q rows), padded by 8 bf16; dS
-        # (block_q x 72 bf16); lse and D (block_q f32).  32 q rows at hd 128
-        # keep both score tiles and the dK / dV accumulators in registers.
-        block_q = 32 if hd == 128 else 64
+        # K, V (64 rows), Q, dO (64 rows), padded by 8 bf16; dS (64 x 72
+        # bf16); lse and D (64 f32).
+        block_q = 64
         elems = (2 * BWD_BLOCK_KV + 2 * block_q) * (hd + 8) + block_q * 72
         return FlashPlan("mma_sync", block_q, BWD_BLOCK_KV, 1, 128, grid,
                          2 * elems + 8 * block_q)
@@ -108,6 +134,47 @@ def bwd_plan(dtype: torch.dtype, hd: int, B: int, Skv: int,
         floats = 4 * 64 * (hd + 1) + 64 * 65 + 2 * 64
         return FlashPlan("fma", 64, BWD_BLOCK_KV, 1, 256, grid, 4 * floats)
     raise TypeError(f"flash attention: no kernel for {dtype}")
+
+
+def bwd_items(p: FlashPlan, B: int, Skv: int, KV: int) -> list:
+    """The (k0, kvh, b) work items each CTA of a persistent ``wgmma``
+    backward grid takes, in its order, as ``bwd_item`` and the kernel's
+    item decoding in csrc/flash_attention.cu walk them: round r gives CTA i
+    item r G + i for even r and r G + G - 1 - i for odd r (G CTAs)."""
+    n_items = -(-Skv // p.block_kv) * KV * B
+    G = p.grid[0]
+    out = []
+    for cta in range(G):
+        mine, r = [], 0
+        while True:
+            w = r * G + (G - 1 - cta if r & 1 else cta)
+            if w >= n_items:
+                break
+            mine.append((w // (KV * B) * p.block_kv, w % KV, w // KV % B))
+            r += 1
+        out.append(mine)
+    return out
+
+
+def bwd_q_blocks(k0: int, block_q: int, Sq: int, causal: bool,
+                 q_offset: int) -> range:
+    """The q blocks (by index) that the backward visits for the key block
+    starting at ``k0``: from the first that holds a row seeing key k0 under
+    the causal mask (none if no row below Sq does), to the last.  The
+    kernels compute the same."""
+    first_row = max(0, k0 - q_offset) if causal else 0
+    n_qb = -(-Sq // block_q)
+    return range(first_row // block_q if first_row < Sq else n_qb, n_qb)
+
+
+def bwd_tile_masked(kw0: int, q0: int, Skv: int, causal: bool,
+                    q_offset: int, keys: int = 64) -> bool:
+    """Whether a ``wgmma`` backward consumer masks its tile of ``keys`` keys
+    from ``kw0`` against the q block from row ``q0``: when it holds a key at
+    or past Skv, or (causal) its smallest q position lies below its largest
+    key.  Rows past Sq need no mask (their lse is +inf, so P = 0).  The
+    kernel computes the same."""
+    return kw0 + keys > Skv or (causal and q_offset + q0 < kw0 + keys - 1)
 
 
 def kv_tiles(q0: int, block_q: int, block_kv: int, Sq: int, Skv: int,
@@ -212,11 +279,12 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     if int(q_offset) < 0 or Skv == 0:
         raise ValueError("flash_attention_bwd_cuda: q_offset < 0 or empty "
                          "key/value sequence")
-    p = bwd_plan(q.dtype, hd, B, Skv, KV)
-    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    p = bwd_plan(q.dtype, hd, B, Skv, KV, _build.sm_count(q.device.index))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if B == 0 or Sq == 0:
-        return dq_acc.to(q.dtype), dk.zero_(), dv.zero_()
+        return torch.zeros_like(q), dk.zero_(), dv.zero_()
+    # f32 dQ sums, zeroed by the kernels' D pass.
+    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if not _build.aligned16(q, k, v, o, do, dk, dv):
         raise ValueError("flash_attention_bwd_cuda: tensors must be 16-byte "
                          "aligned")
@@ -229,12 +297,15 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
             do.data_ptr(), lse.data_ptr(), D.data_ptr(), dq_acc.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, KV, hd,
             _build.DTYPE_CODES[q.dtype], int(bool(causal)), int(q_offset),
-            float(scale), VARIANTS[p.variant], p.block_q, p.threads, *p.grid,
-            p.smem_bytes, _build.stream_ptr(q))
+            float(scale), VARIANTS[p.variant], p.block_q, p.stages, p.threads,
+            *p.grid, p.smem_bytes, _build.stream_ptr(q))
     _build.check(lib, err, "flash_attn_bwd")
     flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.variant_launches[p.variant] += 1
+    # The cast to bf16 stays a PyTorch op (one elementwise pass over dQ).
     dq = dq_acc if q.dtype == torch.float32 else dq_acc.to(q.dtype)
     return dq, dk, dv
 
 
 flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)

@@ -8,8 +8,17 @@ row in registers, reduce x^2 in f32 with shuffles and write the result from
 the same registers, over a grid-stride loop that keeps the weight in
 registers; longer rows take one CTA per row.  See the source for the rest.
 ``rmsnorm_cuda.launches`` counts launches.
+
+The backward (``rmsnorm_bwd_cuda``, bound by bytes: x and dy read, dx
+written) spreads a row over up to 256 threads of one or two vectors each,
+at most 64 registers a thread, on a one-wave persistent grid
+(``rmsnorm_bwd_plan``) that prefetches the next row by ``cp.async``; dw
+folds into one f32 row by ``red.global.add`` and the last CTA casts it.
+``rmsnorm_bwd_cuda.launches`` counts its calls.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -18,6 +27,8 @@ from .. import _build
 MAX_D = 16384
 MAX_BWD_VECS = 512      # 16-byte vectors a row: d <= 4096 bf16, 2048 f32
 BWD_THREADS = 256
+BWD_CTAS_PER_SM = 4     # csrc/rmsnorm.cu kBwdCtasPerSm
+BWD_DW_ROWS = 8         # csrc/rmsnorm.cu kDwRows
 
 
 def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor,
@@ -52,14 +63,30 @@ def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor,
 rmsnorm_cuda.launches = 0
 
 
-def rmsnorm_bwd_parts(rows: int, d: int, itemsize: int, sms: int = 132) -> int:
-    """CTAs (and f32 rows of dw partials) of one backward launch: as many as
-    the rows fill, at most two an SM.  A row takes 8, 16 or 32 lanes, as
-    ``launch_bwd`` in csrc/rmsnorm.cu picks them."""
+class RmsNormBwdPlan(NamedTuple):
+    """One backward launch: 16-byte vectors per thread, threads per row, row
+    groups per CTA and CTAs."""
+    vecs: int
+    lanes: int
+    groups: int
+    grid: int
+
+
+def rmsnorm_bwd_plan(rows: int, d: int, itemsize: int,
+                     sms: int = 132) -> RmsNormBwdPlan:
+    """The backward's launch, as ``launch_bwd`` in csrc/rmsnorm.cu lays it
+    out: a row of ``nvec`` 16-byte vectors takes the fewest threads (at least
+    8) that leave each one vector, up to a warp, then two vectors a thread
+    over up to 256 threads; the grid is as many CTAs as the row groups fill,
+    at most the BWD_CTAS_PER_SM an SM that the kernel's register bound lets
+    fit (one wave)."""
     nvec = d * itemsize // 16
-    lanes = 8 if nvec <= 8 else (16 if nvec <= 16 else 32)
-    rows_per_cta = BWD_THREADS // 32 * (32 // lanes)
-    return max(1, min(-(-rows // rows_per_cta), 2 * sms))
+    vecs, lanes = next((v, t) for top, v, t in (
+        (8, 1, 8), (16, 1, 16), (32, 1, 32), (64, 2, 32), (128, 2, 64),
+        (256, 2, 128), (512, 2, 256)) if nvec <= top)
+    groups = BWD_THREADS // lanes
+    return RmsNormBwdPlan(vecs, lanes, groups, max(1, min(
+        -(-rows // groups), BWD_CTAS_PER_SM * sms)))
 
 
 def rmsnorm_bwd_cuda(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
@@ -94,14 +121,18 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
         return dx, dw.zero_()
     if not _build.aligned16(x, weight, dy, dx, dw):
         raise ValueError("rmsnorm_bwd_cuda: tensors must be 16-byte aligned")
-    parts = rmsnorm_bwd_parts(rows, d, x.element_size(),
-                              _build.sm_count(x.device.index))
-    dw_part = torch.empty((parts, d), dtype=torch.float32, device=x.device)
+    p = rmsnorm_bwd_plan(rows, d, x.element_size(),
+                         _build.sm_count(x.device.index))
+    # dw's f32 sums (BWD_DW_ROWS rows the CTAs spread their reduce-adds
+    # over) and the CTAs' finish counter, zeroed by the launcher right before
+    # the kernel; the last CTA sums and casts dw.
+    ws = torch.empty(BWD_DW_ROWS * d + 4, dtype=torch.float32,
+                     device=x.device)
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.rmsnorm_bwd(x.data_ptr(), weight.data_ptr(), dy.data_ptr(),
-                              dx.data_ptr(), dw.data_ptr(), dw_part.data_ptr(),
-                              parts, rows, d, float(eps),
+                              dx.data_ptr(), dw.data_ptr(), ws.data_ptr(),
+                              p.grid, rows, d, float(eps),
                               _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
     _build.check(lib, err, "rmsnorm_bwd")
     rmsnorm_bwd_cuda.launches += 1

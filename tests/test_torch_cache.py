@@ -15,6 +15,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import BUNDLES as JAX_BUNDLES
 from repro.core import CacheConfig as JaxCacheConfig
@@ -35,6 +36,17 @@ SIDES = {
 CFG = dict(min_share=8 * MB, rebalance_quantum=8 * MB, rebalance_period=5.0,
            prefetch_budget_bytes=32 * MB, window=40, reanalyze_every=20)
 CAPACITY = 96 * MB
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Torch on two threads: the test workers share the machine's cores, and
+    torch's default (one thread per core) in every worker slows the others,
+    wall-clock assertions included; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def _store(side):

@@ -1,8 +1,10 @@
 """The host-side launch arithmetic of the CUDA flash-attention kernels
-(``repro_torch.kernels.flash_attention.kernel.plan`` and ``kv_tiles``), on
-the CPU: the variant chosen for each (dtype, head dim), the grid and the
-shared memory of each plan, and, for every q tile, the KV tiles loaded and
-the first one that needs the mask, against a brute-force causal mask.
+(``repro_torch.kernels.flash_attention.kernel.plan`` and ``kv_tiles``, and
+the backward's ``bwd_plan``, ``bwd_items``, ``bwd_q_blocks`` and
+``bwd_tile_masked``), on the CPU: the variant chosen for each (dtype, head
+dim), the grid and the shared memory of each plan, the persistent
+schedules, and, for every q tile (key block), the KV tiles (q blocks)
+visited and where the mask is needed, against a brute-force causal mask.
 The kernels themselves run only on the card (``chip_smoke.py``).
 """
 import numpy as np
@@ -13,9 +15,21 @@ pytest.importorskip("hypothesis")
 from hypothesis import given, settings, strategies as st  # noqa: E402
 
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    HEAD_DIMS, SMEM_LIMIT, kv_tiles, plan)
+    HEAD_DIMS, SMEM_LIMIT, bwd_items, bwd_plan, bwd_q_blocks, bwd_tile_masked,
+    kv_tiles, plan)
 
 DTYPES = (torch.bfloat16, torch.float32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Torch on two threads: the test workers share the machine's cores, and
+    torch's default (one thread per core) in every worker slows the others,
+    wall-clock assertions included; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.mark.parametrize("dtype,hd,variant", [
@@ -155,3 +169,101 @@ def test_cpu_path_counts_no_variant_launch():
     assert flash_attention_cuda.variant_launches == before
     assert flash_attention_cuda.launches == total
     assert set(before) == {"wgmma", "mma_sync", "fma"}
+
+
+# ------------------------------------------------------------------ backward
+
+@pytest.mark.parametrize("dtype,hd,variant", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 32, "mma_sync"), (torch.bfloat16, 16, "mma_sync"),
+    (torch.float32, 128, "fma"), (torch.float32, 64, "fma"),
+    (torch.float32, 32, "fma"), (torch.float32, 16, "fma")])
+def test_bwd_variant_for_dtype_and_head_dim(dtype, hd, variant):
+    p = bwd_plan(dtype, hd, 4, 1024, 8)
+    assert p.variant == variant
+    assert 0 < p.smem_bytes <= SMEM_LIMIT
+
+
+def test_bwd_wgmma_plan_matches_the_kernels_layout():
+    """K and V tiles (128 keys; two of each at hd 64), `stages` slots of Q
+    and dO (64 rows), two dS buffers and a P buffer, two f32 dQ tiles, lse
+    and D, barriers, alignment slack: the byte counts of ``BwdWgSmem`` in
+    csrc/flash_attention.cu."""
+    for hd, stages, kv_bufs in ((128, 2, 1), (64, 4, 2)):
+        p = bwd_plan(torch.bfloat16, hd, 4, 1024, 8)
+        assert (p.block_q, p.block_kv, p.stages, p.threads) == (
+            64, 128, stages, 384)
+        assert p.smem_bytes == (2 * kv_bufs * 128 * hd * 2
+                                + 2 * stages * 64 * hd * 2
+                                + 3 * 64 * 128 * 2 + 2 * 64 * 64 * 4
+                                + 2 * stages * 64 * 4
+                                + (2 * stages + 2 * kv_bufs) * 8 + 1024)
+    assert bwd_plan(torch.bfloat16, 128, 4, 1024, 8).smem_bytes == 215088
+    assert bwd_plan(torch.bfloat16, 64, 4, 1024, 8).smem_bytes == 216160
+    # Persistent: one CTA per SM, or one per item if there are fewer.
+    assert bwd_plan(torch.bfloat16, 128, 4, 1024, 8).grid == (132, 1, 1)
+    assert bwd_plan(torch.bfloat16, 64, 1, 200, 2, sms=132).grid == (4, 1, 1)
+
+
+@settings(max_examples=40, deadline=None)
+@given(B=st.integers(1, 6), Skv=st.integers(1, 3000), KV=st.integers(1, 16),
+       sms=st.integers(1, 140), hd=st.sampled_from((64, 128)))
+def test_bwd_schedule_visits_every_key_block_once_heaviest_first(B, Skv, KV,
+                                                                 sms, hd):
+    p = bwd_plan(torch.bfloat16, hd, B, Skv, KV, sms=sms)
+    per_cta = bwd_items(p, B, Skv, KV)
+    items = [it for cta in per_cta for it in cta]
+    assert p.grid[0] <= sms and all(per_cta)
+    assert sorted(items) == sorted(
+        (k0, kvh, b) for k0 in range(0, Skv, 128) for kvh in range(KV)
+        for b in range(B))
+    # Heaviest (earliest) key block first within each CTA.
+    assert all([it[0] for it in cta] == sorted(it[0] for it in cta)
+               for cta in per_cta)
+
+
+def test_bwd_schedule_balances_the_causal_triangle():
+    """qwen3's training shape: 256 items on 132 CTAs.  The snake order pairs
+    heavy and light key blocks, so no CTA visits more than 1.1x the mean of
+    q blocks (in block order, CTA 0 would take key blocks 0 and 4: 1.375x)."""
+    B, S, KV, group = 4, 1024, 8, 2
+    p = bwd_plan(torch.bfloat16, 128, B, S, KV)
+    work = [sum(group * len(bwd_q_blocks(k0, p.block_q, S, True, 0))
+                for k0, _, _ in cta) for cta in bwd_items(p, B, S, KV)]
+    assert sum(work) == group * KV * B * sum(
+        len(bwd_q_blocks(k0, 64, S, True, 0)) for k0 in range(0, S, 128))
+    assert max(work) <= 1.1 * sum(work) / len(work)
+
+
+def brute_force_q_blocks(k0, block_kv, block_q, Sq, Skv, causal, q_offset):
+    """q blocks holding a (q row < Sq, key < Skv) pair that the mask keeps,
+    for the keys of the block from ``k0``."""
+    keys = np.arange(k0, min(k0 + block_kv, Skv))[None, :]
+    rows = np.arange(Sq)[:, None]
+    keep = np.ones((Sq, keys.shape[1]), bool)
+    if causal:
+        keep = keys <= rows + q_offset
+    return sorted({int(r) // block_q for r in np.nonzero(keep.any(1))[0]})
+
+
+@settings(max_examples=60, deadline=None)
+@given(Sq=st.integers(1, 700), Skv=st.integers(1, 900),
+       q_offset=st.integers(0, 400), causal=st.booleans())
+def test_bwd_q_blocks_match_a_brute_force_mask(Sq, Skv, q_offset, causal):
+    p = bwd_plan(torch.bfloat16, 128, 1, Skv, 1)
+    for k0 in range(0, Skv, p.block_kv):
+        got = list(bwd_q_blocks(k0, p.block_q, Sq, causal, q_offset))
+        assert got == brute_force_q_blocks(k0, p.block_kv, p.block_q, Sq, Skv,
+                                           causal, q_offset), k0
+        # Each consumer's 64 keys: masked whenever the tile drops a pair of
+        # a q row below Sq and one of its keys.
+        for kw0 in (k0, k0 + 64):
+            keys = np.arange(kw0, kw0 + 64)[None, :]
+            for qb in got:
+                rows = np.arange(qb * 64, min(qb * 64 + 64, Sq))[:, None]
+                keep = keys < Skv
+                if causal:
+                    keep = keep & (keys <= rows + q_offset)
+                if not keep.all():
+                    assert bwd_tile_masked(kw0, qb * 64, Skv, causal,
+                                           q_offset), (kw0, qb)

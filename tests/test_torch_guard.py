@@ -21,6 +21,17 @@ FORBIDDEN = re.compile(
     r"from\s+repro(\.|\s))", re.M)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Torch on two threads: the test workers share the machine's cores, and
+    torch's default (one thread per core) in every worker slows the others,
+    wall-clock assertions included; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _port_modules():
     import repro_torch
     return sorted(m.name for m in pkgutil.walk_packages(

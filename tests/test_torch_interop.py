@@ -16,6 +16,17 @@ from repro_torch.models.transformer import init_params
 ARCHS = ["qwen3-1.7b", "qwen2.5-14b", "llama3-405b"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Torch on two threads: the test workers share the machine's cores, and
+    torch's default (one thread per core) in every worker slows the others,
+    wall-clock assertions included; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _jax_numpy_tree(arch, dtype=jnp.bfloat16):
     params = jax_init_params(jax_reduced_config(arch), jax.random.PRNGKey(0))
     return jax.tree.map(lambda a: np.asarray(a.astype(dtype)), params)

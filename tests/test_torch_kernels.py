@@ -48,6 +48,17 @@ FLASH_TOL = {jnp.float32: 5e-5, jnp.bfloat16: 2e-2}
 PALLAS_TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Torch on two threads: the test workers share the machine's cores, and
+    torch's default (one thread per core) in every worker slows the others,
+    wall-clock assertions included; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _pair(rng, shape, dtype):
     """The same values as a JAX array and a CPU torch tensor."""
     a = jnp.asarray(rng.normal(size=shape), dtype)

@@ -33,6 +33,17 @@ TOL = {jnp.float32: dict(atol=1e-4, rtol=1e-4),
 B, S = 2, 16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Torch on two threads: the test workers share the machine's cores, and
+    torch's default (one thread per core) in every worker slows the others,
+    wall-clock assertions included; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _jax_params(arch, dtype):
     """JAX init, with norm weights and biases perturbed from numpy so that
     they are not all ones / zeros, cast to ``dtype``."""

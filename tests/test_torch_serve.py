@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import reduced_config as jax_reduced_config
 from repro.core import CacheConfig, open_cache
@@ -44,6 +45,17 @@ from repro_torch.serve.engine import Request, ServingEngine
 ARCH = "qwen3-1.7b"
 LOGITS_TOL = 1e-3          # f32 weights over a bf16 KV cache (see above)
 N_REQ, BATCH, MAX_SEQ, MAX_NEW = 10, 4, 24, 6
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Torch on two threads: the test workers share the machine's cores, and
+    torch's default (one thread per core) in every worker slows the others,
+    wall-clock assertions included; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def _cache():

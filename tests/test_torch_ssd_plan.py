@@ -37,6 +37,17 @@ SSD_TOL = 1e-4
 # ---------------------------------------------------------------- plan
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Torch on two threads: the test workers share the machine's cores, and
+    torch's default (one thread per core) in every worker slows the others,
+    wall-clock assertions included; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("l", [16, 48, 200, 256])
 @pytest.mark.parametrize("h", [1, 2, 3, 5, 32, 64])
 def test_plan_covers_every_tile_and_head_once(h, l):

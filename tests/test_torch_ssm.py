@@ -47,6 +47,17 @@ jax_ssd_ref = jax.jit(jax_ssd.ssd_ref, static_argnames=("chunk",))
 jax_ssd_decode_ref = jax.jit(jax_ssd.ssd_decode_ref)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Torch on two threads: the test workers share the machine's cores, and
+    torch's default (one thread per core) in every worker slows the others,
+    wall-clock assertions included; restored after the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _f32(x):
     if isinstance(x, torch.Tensor):
         return x.float().numpy()

@@ -418,23 +418,55 @@ def test_cpu_backward_launches_nothing_and_wrappers_refuse_cpu():
 def test_backward_launch_plans():
     """The plans mirror csrc's shared-memory structs and lane choices."""
     from repro_torch.kernels.flash_attention.kernel import bwd_plan
-    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_parts
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_plan
     p = bwd_plan(torch.bfloat16, 128, 4, 1024, 8)
-    assert (p.variant, p.block_q, p.threads, p.grid) == (
-        "mma_sync", 32, 128, (16, 8, 4))
-    # K, V (64 x 136) + Q, dO (32 x 136) + dS (32 x 72) bf16 + lse, D (32 f32)
-    assert p.smem_bytes == 2 * ((128 + 64) * 136 + 32 * 72) + 8 * 32
+    assert (p.variant, p.block_q, p.block_kv, p.stages, p.threads, p.grid) == (
+        "wgmma", 64, 128, 2, 384, (132, 1, 1))
+    # K, V (128 x 128) + 2 slots of Q, dO (64 x 128) + 2 dS and a P (64 x
+    # 128) bf16; 2 dQ tiles (64 x 64 f32); lse, D (2 x 64 f32); 6 barriers;
+    # alignment
+    assert p.smem_bytes == (2 * (2 * 128 * 128 + 2 * 2 * 64 * 128
+                                 + 3 * 64 * 128) + 4 * 2 * 64 * 64
+                            + 8 * 2 * 64 + 6 * 8 + 1024) == 215088
     p = bwd_plan(torch.bfloat16, 16, 2, 40, 2)
-    assert (p.block_q, p.grid) == (64, (1, 2, 2))
+    assert (p.variant, p.block_q, p.grid) == ("mma_sync", 64, (1, 2, 2))
     p = bwd_plan(torch.float32, 128, 2, 1601, 8)
     assert (p.variant, p.block_q, p.threads, p.grid) == (
         "fma", 64, 256, (26, 8, 2))
     assert p.smem_bytes == 4 * (4 * 64 * 129 + 64 * 65 + 128) <= 232448
     with pytest.raises(ValueError):
         bwd_plan(torch.bfloat16, 96, 1, 64, 1)
-    # one row a warp at d_model (32 lanes), two at the head dim (16 lanes);
-    # at most two CTAs an SM
-    assert rmsnorm_bwd_parts(4096, 2048, 2, 132) == 264
-    assert rmsnorm_bwd_parts(40, 2048, 2, 132) == 5
-    assert rmsnorm_bwd_parts(100, 128, 2, 132) == 7
-    assert rmsnorm_bwd_parts(80, 16, 2, 132) == 3      # 8 lanes: 32 rows a CTA
+    # (vectors a thread, threads a row, rows a CTA, CTAs): d_model takes 128
+    # threads of two vectors, two rows a CTA, on a grid of four CTAs an SM;
+    # the head dim 16 threads, 16 rows a CTA
+    assert rmsnorm_bwd_plan(4096, 2048, 2, 132) == (2, 128, 2, 528)
+    assert rmsnorm_bwd_plan(40, 2048, 2, 132).grid == 20
+    assert rmsnorm_bwd_plan(100, 128, 2, 132) == (1, 16, 16, 7)
+    assert rmsnorm_bwd_plan(80, 16, 2, 132) == (1, 8, 32, 3)  # 32 rows a CTA
+
+
+@pytest.mark.parametrize("rows,d,itemsize,sms", [
+    (4096, 2048, 2, 132), (65536, 128, 2, 132), (32768, 128, 4, 132),
+    (1000, 2048, 4, 132), (80, 64, 2, 132), (640, 16, 4, 132),
+    (7, 4096, 2, 132), (100000, 1024, 2, 8), (1, 8, 2, 1)])
+def test_rmsnorm_bwd_plan_mirrors_the_launch(rows, d, itemsize, sms):
+    """The fewest threads a row (at least 8) that leave one vector each up
+    to a warp, then two; the groups fill a CTA of 256 threads; one wave of
+    at most four CTAs an SM, striding over every row."""
+    from repro_torch.kernels.rmsnorm.kernel import (BWD_CTAS_PER_SM,
+                                                    BWD_THREADS,
+                                                    rmsnorm_bwd_plan)
+    nvec = d * itemsize // 16
+    p = rmsnorm_bwd_plan(rows, d, itemsize, sms)
+    assert p.vecs * p.lanes >= nvec and p.lanes >= 8
+    assert p.lanes == 8 or (p.vecs * p.lanes) // 2 < nvec
+    assert p.vecs == (1 if nvec <= 32 else 2)
+    assert p.groups * p.lanes == BWD_THREADS
+    assert 1 <= p.grid <= BWD_CTAS_PER_SM * sms
+    assert p.grid == min(-(-rows // p.groups), BWD_CTAS_PER_SM * sms)
+    # every row falls to exactly one (CTA, group, trip)
+    stride = p.grid * p.groups
+    trips = -(-rows // stride)
+    seen = sorted(g + t * stride for g in range(stride) for t in range(trips)
+                  if g + t * stride < rows)
+    assert seen == list(range(rows))
