@@ -72,11 +72,20 @@ def tree_abstract(specs):
         lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), specs)
 
 
+# Largest f32 draw at once (1 GiB): a larger leaf is drawn in slices along
+# its leading axis, straight into its output.
+INIT_CHUNK = 2 ** 28
+
+
 def tree_init(specs, generator: torch.Generator, device=None):
     """Materialize real parameters on ``device`` (default: the generator's).
 
     Leaves are drawn in JAX's flatten order from one generator, so the values
-    depend only on the seed and the device's generator (not on JAX's)."""
+    depend only on the seed and the device's generator (not on JAX's).  A
+    normal leaf of more than ``INIT_CHUNK`` values is drawn in slices along
+    its leading axis, each of at most ``INIT_CHUNK`` values (or one leading
+    index), so that the f32 temporary stays small beside the output:
+    qwen3-moe's expert stacks are 9.66 G values each."""
     device = torch.device(device) if device is not None else generator.device
 
     def init(spec):
@@ -86,9 +95,18 @@ def tree_init(specs, generator: torch.Generator, device=None):
             return torch.ones(spec.shape, dtype=spec.dtype, device=device)
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         std = spec.scale / math.sqrt(max(1, fan_in))
-        return (torch.randn(spec.shape, generator=generator,
-                            dtype=torch.float32, device=device)
-                .mul_(std).to(spec.dtype))
+
+        def draw(shape):
+            return torch.randn(shape, generator=generator,
+                               dtype=torch.float32, device=device).mul_(std)
+        if math.prod(spec.shape) <= INIT_CHUNK:
+            return draw(spec.shape).to(spec.dtype)
+        out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+        row = math.prod(spec.shape[1:])
+        step = max(1, INIT_CHUNK // row)
+        for i in range(0, spec.shape[0], step):
+            part = out[i:i + step]
+            part.copy_(draw(part.shape))
+        return out
     return tree_unflatten((path, init(spec))
                           for path, spec in tree_leaves(specs))
-

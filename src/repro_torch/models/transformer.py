@@ -1,9 +1,11 @@
-"""The model: specs, forward and decode — dense, ssm and hybrid families
+"""The model: specs, forward and decode — dense, moe, ssm and hybrid families
 (torch).
 
 Counterpart of ``repro.models.transformer`` for those families:
 
   dense  : attention + SwiGLU per layer
+  moe    : attention + top-k expert FFN per layer, aux loss summed over
+           the layers
   ssm    : Mamba2 SSD block per layer
   hybrid : Mamba2 block per layer + one weight-SHARED attention/MLP block
            fired every ``shared_attn_every`` layers (the Zamba2 design)
@@ -14,10 +16,11 @@ backward stacks the layers' grads once, where indexing ``v[i]`` would
 allocate a zero tensor the size of the whole stack for every layer).
 ``remat`` maps ``jax.checkpoint`` per layer to ``torch.utils.checkpoint``
 (non-reentrant): ``"full"`` recomputes the layer, ``"dots"`` saves its
-``aten.mm`` outputs (``dots_with_no_batch_dims_saveable``), ``"none"``
+``aten.mm`` outputs (``dots_with_no_batch_dims_saveable``: MoE's router
+product is saved, its batched expert products recomputed), ``"none"``
 checkpoints nothing; the final norm and the head stay outside, as in JAX.
 ``lm_loss`` and ``lm_loss_chunked`` are the training losses.  Training is
-ported for the dense family; the other families raise
+ported for the dense and moe families; the other families raise
 ``NotImplementedError`` naming the ROADMAP slice that ports them.
 """
 from __future__ import annotations
@@ -32,18 +35,18 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..kernels import rmsnorm
 from .config import ModelConfig
 from .layers import attention, attention_specs, mlp_specs, swiglu
+from .moe import moe_ffn, moe_specs
 from .params import p, tree_abstract, tree_init
 from .ssm import init_ssm_state, mamba_block, ssm_specs
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 _SLICE_OF = {
-    "moe": "MoE",
     "vlm": "VLM and audio",
     "audio": "VLM and audio",
 }
 
 
-TRAINED_FAMILIES = ("dense",)
+TRAINED_FAMILIES = ("dense", "moe")
 REMAT_POLICIES = ("none", "full", "dots")
 
 
@@ -56,8 +59,8 @@ def _require_ported(cfg: ModelConfig) -> None:
 
 
 def require_trainable(cfg: ModelConfig) -> None:
-    """Training is ported for the dense family only: the SSD chunk kernel
-    has no backward yet."""
+    """Training is ported for the dense and moe families: the SSD chunk
+    kernel has no backward yet."""
     _require_ported(cfg)
     if cfg.family not in TRAINED_FAMILIES:
         raise NotImplementedError(
@@ -79,6 +82,8 @@ def build_specs(cfg: ModelConfig) -> Dict[str, Any]:
         specs["lm_head"] = p((d, cfg.vocab), ("embed", "vocab"))
     if cfg.family == "dense":
         specs["blocks"] = {**attention_specs(cfg, L), **mlp_specs(cfg, L)}
+    elif cfg.family == "moe":
+        specs["blocks"] = {**attention_specs(cfg, L), **moe_specs(cfg, L)}
     else:
         specs["blocks"] = ssm_specs(cfg, L)
     if cfg.family == "hybrid":
@@ -160,21 +165,28 @@ def forward(params, cfg: ModelConfig, tokens, *, remat: str = "full",
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def body(x, lp, i):
-        if cfg.family == "dense":
+        a = None                         # the layer's MoE aux loss
+        if cfg.family in ("dense", "moe"):
             out, _ = attention(x, lp, cfg, positions=positions,
                                force_ref=force_ref)
             x = x + out
-            x = x + swiglu(x, lp, cfg, force_ref=force_ref)
+            if cfg.family == "moe":
+                ffn, a = moe_ffn(x, lp, cfg, force_ref=force_ref)
+            else:
+                ffn = swiglu(x, lp, cfg, force_ref=force_ref)
+            x = x + ffn
         else:
             x, _ = mamba_block(x, lp, cfg, force_ref=force_ref)
         if _fires_shared(cfg, i):
             x, _ = _shared_block(x, params["shared"], cfg, positions,
                                  force_ref=force_ref)
-        return x
+        return x, a
 
     layer = _remat(body, remat)
     for i, lp in enumerate(_layers(params["blocks"])):
-        x = layer(x, lp, i)
+        x, a = layer(x, lp, i)
+        if a is not None:
+            aux = aux + a
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, force_ref=force_ref)
     if return_hidden:
         return x, aux
@@ -185,8 +197,8 @@ def forward(params, cfg: ModelConfig, tokens, *, remat: str = "full",
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device="cuda") -> Dict[str, Any]:
-    """Decode cache (zeros).  dense: k/v (L, B, max_seq, KV, hd) in bf16
-    whatever the params' type; ssm/hybrid: conv (L, B, W-1, conv_ch) in
+    """Decode cache (zeros).  dense and moe: k/v (L, B, max_seq, KV, hd) in
+    bf16 whatever the params' type; ssm/hybrid: conv (L, B, W-1, conv_ch) in
     bf16 and ssd (L, B, nh, p, n) in f32; hybrid also shared_k/v
     (n_inv, B, max_seq, KV, hd) in bf16, n_inv = ceil(L / every).  ``pos``
     is a Python int shared by the whole batch, as the JAX scalar is."""
@@ -197,7 +209,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     def kv(n):
         return torch.zeros((n, batch, max_seq, KV, hd), dtype=torch.bfloat16,
                            device=device)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         state["k"], state["v"] = kv(L), kv(L)
         return state
     conv, ssd_st = init_ssm_state(cfg, batch, device=device)
@@ -226,13 +238,16 @@ def decode_step(params, cfg: ModelConfig, state, tokens, *,
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     blocks = params["blocks"]
     new_state = dict(state, pos=pos + 1)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         for i, lp in enumerate(_layers(blocks)):
             out, _ = attention(x, lp, cfg, positions=positions,
                                cache=(state["k"][i], state["v"][i]),
                                cache_len=pos, force_ref=force_ref)
             x = x + out
-            x = x + swiglu(x, lp, cfg, force_ref=force_ref)
+            if cfg.family == "moe":
+                x = x + moe_ffn(x, lp, cfg, force_ref=force_ref)[0]
+            else:
+                x = x + swiglu(x, lp, cfg, force_ref=force_ref)
     else:
         conv, ssd_st = state["conv"], state["ssd"]
         if conv.dtype != x.dtype:

@@ -8,6 +8,7 @@ JAX package's own prefill-vs-decode tolerance, atol 0.15 / rtol 0.05
 (tests/test_models.py), since bf16 rounds at different places in the two.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -215,3 +216,37 @@ def test_init_params_follows_the_jax_rule():
     emb = a["embed"].float()                            # (V, d): fan_in V
     assert abs(float(emb.std()) * np.sqrt(cfg.vocab) - 1.0) < 0.05
     assert all(t.dtype == torch.bfloat16 for _, t in tree_leaves(a))
+
+
+def test_init_params_draws_large_leaves_in_slices(monkeypatch):
+    """A leaf of more than ``INIT_CHUNK`` values is drawn slice by slice
+    along its leading axis (each slice of at most ``INIT_CHUNK`` values, or
+    one leading index) into its output: same seed, same values; the values
+    are the generator's draws for those slices in turn; the std rule
+    holds."""
+    from repro_torch.models import params
+    from repro_torch.models.params import p, tree_init
+    specs = {"a": p((6, 40, 50), ("layers", "embed", "ffn")),
+             "b": p((3, 7), ("embed", "ffn"), init="ones"),
+             "c": p((700, 30), ("embed_vocab", "embed"), scale=1.0)}
+    whole = tree_init(specs, torch.Generator().manual_seed(5))
+    monkeypatch.setattr(params, "INIT_CHUNK", 4000)
+    x = tree_init(specs, torch.Generator().manual_seed(5))
+    y = tree_init(specs, torch.Generator().manual_seed(5))
+    assert all(torch.equal(x[k], y[k]) for k in specs)
+    gen = torch.Generator().manual_seed(5)
+    a = [torch.randn((2, 40, 50), generator=gen) for _ in range(3)]
+    c = [torch.randn(shape, generator=gen) for shape in ((133, 30),) * 5
+         + ((35, 30),)]
+    torch.testing.assert_close(
+        x["a"], (torch.cat(a) * (1.0 / math.sqrt(40))).to(torch.bfloat16),
+        atol=0, rtol=0)
+    torch.testing.assert_close(
+        x["c"], (torch.cat(c) * (1.0 / math.sqrt(700))).to(torch.bfloat16),
+        atol=0, rtol=0)
+    assert torch.equal(x["b"], torch.ones(3, 7, dtype=torch.bfloat16))
+    assert {k: v.shape for k, v in whole.items()} == {
+        k: v.shape for k, v in x.items()}
+    assert abs(float(x["a"].float().std()) * np.sqrt(40) - 1.0) < 0.05
+    assert abs(float(x["c"].float().std()) * np.sqrt(700) - 1.0) < 0.05
+    assert all(t.dtype == torch.bfloat16 for t in x.values())

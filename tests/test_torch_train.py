@@ -394,6 +394,30 @@ def test_launcher_trains_checkpoints_and_resumes_on_cpu(tmp_path, capsys):
     assert CheckpointManager(tmp_path).latest_step() == 6
 
 
+def test_launcher_trains_moe_and_resumes_on_cpu(tmp_path, capsys):
+    """The same launcher on a reduced MoE model (granite-moe-3b-a800m):
+    the aux loss reaches the step, and a resume restores the expert
+    stacks."""
+    args = ["--arch", "granite-moe-3b-a800m", "--reduced", "--device", "cpu",
+            "--batch", "2", "--seq", "32", "--cache-mb", "64",
+            "--ckpt-dir", str(tmp_path), "--log-every", "2",
+            "--ckpt-every", "2"]
+    assert launch_train.main(args + ["--steps", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "[train] step     4" in out and "CHR" in out
+    assert launch_train.main(args + ["--steps", "6", "--resume"]) == 0
+    out = capsys.readouterr().out
+    assert "resumed from step 4" in out and "2 steps" in out
+    assert CheckpointManager(tmp_path).latest_step() == 6
+    cfg = reduced_config("granite-moe-3b-a800m")
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0))
+    (restored, state), extra = CheckpointManager(tmp_path).restore(
+        (params, topt.init_state(params)))
+    assert extra == {"step": 6} and int(state.step) == 6
+    assert not torch.equal(restored["blocks"]["w_down"],
+                           params["blocks"]["w_down"])
+
+
 # ------------------------------------------------- dispatch and plans
 
 def test_cpu_backward_launches_nothing_and_wrappers_refuse_cpu():
