@@ -5,9 +5,11 @@ launcher, ``repro_torch.launch.train``).
     PYTHONPATH=src python examples/train_cached_lm_torch.py --device cpu
 
 On the H100 drop ``--device cpu`` (the default device is ``cuda``, where every
-RMSNorm and flash-attention forward and backward is a hand-written kernel).
-Use ``--arch`` for another dense architecture; ``--cache-bundle juicefs``
-swaps the cache policy bundle under the SAME training code.
+RMSNorm, flash-attention and SSD chunk forward and backward is a hand-written
+kernel).  Use ``--arch`` for another dense, moe, ssm or hybrid architecture
+(``--arch zamba2-1.2b``, ``--arch mamba2-370m``, ``--arch
+granite-moe-3b-a800m``); ``--cache-bundle juicefs`` swaps the cache policy
+bundle under the SAME training code.
 """
 import sys
 from pathlib import Path

@@ -35,6 +35,8 @@ SIGNATURES = {
     "flash_attn_bwd": ([_P] * 10 + [_I] * 9 + [_F] + [_I] * 8 + [_P], _I),
     "ssd_chunk_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "ssd_chunk_smem_bytes": ([_I, _I, _I], _LL),
+    "ssd_chunk_bwd": ([_P] * 11 + [_LL] + [_I] * 5 + [_P], _I),
+    "ssd_chunk_bwd_smem_bytes": ([_I, _I, _I], _LL),
     "kernels_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,4 +1,5 @@
-"""CUDA SSD intra-chunk block (``csrc/ssd_chunk.cu``) bound to PyTorch.
+"""CUDA SSD intra-chunk block (``csrc/ssd_chunk.cu``) and its backward
+(``csrc/ssd_chunk_bwd.cu``) bound to PyTorch.
 
 Replaces the TPU kernel ``ssd_chunk_pallas`` (``repro/kernels/ssd/
 kernel.py:44``).  Per (b, c): G = C Bᵀ over the chunk, shared by every
@@ -16,6 +17,13 @@ keeps the 1e-4 f32 tolerance that one TF32 product misses.  With the
 products there, the kernel is bound by bytes at zamba2's shape (b4 c4 l256
 h64 p64 n64) and sits at the bytes/operations ridge at mamba2's (h32
 n128).  ``ssd_chunk_cuda.launches`` counts launches (one a call).
+
+The backward, ``ssd_chunk_bwd_cuda``: one CTA per (b*c, 64-row j-tile,
+group of up to 4 heads), heaviest j-tiles first (``bwd_plan``), f32 FMA
+over shared-memory tiles; it recomputes G and the decay from the saved
+inputs and writes per-group partials, which two small kernels sum in a
+fixed order into dB, dC and da (no atomics: the same bits on every run).
+``ssd_chunk_bwd_cuda.launches`` counts calls (three kernels each).
 """
 from __future__ import annotations
 
@@ -134,3 +142,117 @@ def ssd_chunk_cuda(xc: torch.Tensor, ac: torch.Tensor, Bc: torch.Tensor,
 
 
 ssd_chunk_cuda.launches = 0
+
+
+BWD_HEAD_GROUP = 4             # heads of a backward CTA
+
+
+@dataclass(frozen=True)
+class SsdBwdPlan:
+    """How one backward launch is laid out: j-tiles per chunk, heads per
+    group (the last group may hold fewer), groups per (b, c), blocks of
+    ``ssd_chunk_bwd_kernel``, its dynamic shared memory in bytes, and the
+    workspace in floats: the groups' sum_h dM ∘ L per (i-tile, j-tile <=
+    i-tile) (``ws_dg``), their state part of dB (``ws_dbs``) and each
+    j-tile's rows of dcum per head (``ws_dcum``)."""
+    j_tiles: int
+    head_group: int
+    groups: int
+    bc: int
+    h: int
+    blocks: int
+    smem_bytes: int
+    ws_dg: int
+    ws_dbs: int
+    ws_dcum: int
+
+    @property
+    def ws_floats(self) -> int:
+        return self.ws_dg + self.ws_dbs + self.ws_dcum
+
+    def block(self, k: int) -> tuple:
+        """(b*c index, j-tile, heads) of block ``k`` as
+        ``ssd_chunk_bwd_kernel`` decodes ``blockIdx.x``: the j-tile slowest,
+        the heaviest (0, which meets every i-tile) first, then b*c, then the
+        head group."""
+        per_tile = self.bc * self.groups
+        jt, rem = divmod(k, per_tile)
+        h0 = rem % self.groups * self.head_group
+        return rem // self.groups, jt, range(h0, min(h0 + self.head_group,
+                                                     self.h))
+
+
+def bwd_smem_bytes(p: int, n: int) -> int:
+    """Dynamic shared memory of one backward block, as ``BwdSmem`` in
+    csrc/ssd_chunk_bwd.cu: the prefix sums of 4 heads, the B j-tile and the
+    C i-tile (rows padded to n + 1), M (64 x 65), the x and dy tiles (rows
+    padded to p + 1), dx of 4 heads' j-tiles, the warps' column sums, dcum
+    of 4 heads' j-tile rows, dw w and 4 floats for dcum_last.  A mirror, as
+    ``smem_bytes`` is: ``chip_smoke.py`` holds it equal to the kernel's own
+    count (``ssd_chunk_bwd_smem_bytes``)."""
+    hg = BWD_HEAD_GROUP
+    floats = (hg * MAX_L + 2 * TILE * (n + 1) + TILE * (TILE + 1)
+              + 2 * TILE * (p + 1) + hg * TILE * p + 8 * TILE + hg * TILE
+              + TILE + hg)
+    return 4 * floats
+
+
+def bwd_plan(b: int, c: int, l: int, h: int, p: int, n: int) -> SsdBwdPlan:
+    """The backward's launch plan for xc (b, c, l, h, p), Bc (b, c, l, n):
+    groups of at most 4 heads, as even as they come."""
+    plan(b, c, l, h, p, n)             # raises on what no kernel takes
+    j_tiles = -(-l // TILE)
+    groups = -(-h // BWD_HEAD_GROUP)
+    bc = b * c
+    tri = j_tiles * (j_tiles + 1) // 2
+    return SsdBwdPlan(j_tiles, -(-h // groups), groups, bc, h,
+                      j_tiles * bc * groups, bwd_smem_bytes(p, n),
+                      bc * groups * tri * TILE * TILE, bc * groups * l * n,
+                      bc * h * j_tiles * l)
+
+
+def ssd_chunk_bwd_cuda(xc, ac, Bc, Cc, dy, dstates):
+    """Gradients of ``ssd_chunk_cuda``'s (y_diag, states): xc (b, c, l, h,
+    p), ac (b, c, l, h), Bc, Cc (b, c, l, n), dy like xc, dstates (b, c, h,
+    p, n); all f32, contiguous, on one CUDA device.  Returns (dxc, dac, dBc,
+    dCc) in the inputs' shapes.  Like the forward it assumes a <= 0."""
+    tensors = (xc, ac, Bc, Cc, dy, dstates)
+    if not all(t.is_cuda and t.device == xc.device for t in tensors):
+        raise ValueError("ssd_chunk_bwd_cuda: xc, ac, Bc, Cc, dy, dstates "
+                         "must be on one CUDA device (got "
+                         f"{[str(t.device) for t in tensors]})")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("ssd_chunk_bwd_cuda: inputs must be float32 (got "
+                        f"{[t.dtype for t in tensors]})")
+    if xc.dim() != 5 or Bc.dim() != 4:
+        raise ValueError(f"ssd_chunk_bwd_cuda: bad ranks xc "
+                         f"{tuple(xc.shape)} Bc {tuple(Bc.shape)}")
+    b, c, l, h, p = xc.shape
+    n = Bc.shape[-1]
+    if (ac.shape != (b, c, l, h) or Bc.shape != (b, c, l, n)
+            or Cc.shape != Bc.shape or dy.shape != xc.shape
+            or dstates.shape != (b, c, h, p, n)):
+        raise ValueError(f"ssd_chunk_bwd_cuda: shapes do not match: xc "
+                         f"{tuple(xc.shape)} ac {tuple(ac.shape)} Bc "
+                         f"{tuple(Bc.shape)} Cc {tuple(Cc.shape)} dy "
+                         f"{tuple(dy.shape)} dstates {tuple(dstates.shape)}")
+    if b * c == 0 or h == 0:          # no head: dB and dC are 0
+        return tuple(torch.zeros_like(t) for t in (xc, ac, Bc, Cc))
+    grads = tuple(torch.empty_like(t) for t in (xc, ac, Bc, Cc))
+    pl = bwd_plan(b, c, l, h, p, n)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ssd_chunk_bwd_cuda: inputs must be contiguous")
+    if not _build.aligned16(*tensors):
+        raise ValueError("ssd_chunk_bwd_cuda: inputs must be 16-byte aligned")
+    ws = torch.empty(pl.ws_floats, dtype=torch.float32, device=xc.device)
+    lib = _build.load()
+    with torch.cuda.device(xc.device):
+        err = lib.ssd_chunk_bwd(*(t.data_ptr() for t in tensors + grads),
+                                ws.data_ptr(), pl.ws_floats, b * c, l, h, p,
+                                n, _build.stream_ptr(xc))
+    _build.check(lib, err, "ssd_chunk_bwd")
+    ssd_chunk_bwd_cuda.launches += 1
+    return grads
+
+
+ssd_chunk_bwd_cuda.launches = 0

@@ -1,20 +1,57 @@
 """SSD dispatch on the tensor's device: the CUDA chunk kernel plus the
 inter-chunk recurrence in plain torch for a CUDA tensor, the plain
 ``ssd_ref`` for a CPU tensor (or when ``force_ref`` asks for it, as the
-on-card comparisons do).  No fallback: a kernel that cannot run raises."""
+on-card comparisons do).  No fallback: a kernel that cannot run raises.
+
+``ssd_chunk`` is a ``torch.autograd.Function``: its forward dispatches
+``ssd_chunk_cuda`` or ``ssd_chunk_ref`` and its backward
+``ssd_chunk_bwd_cuda`` or ``ssd_chunk_bwd_ref`` the same way, recomputing
+G and the decay from the saved inputs; the recurrence across chunks stays
+plain torch under autograd, as it is plain ``jnp`` in the JAX package."""
 from __future__ import annotations
 
 import torch
 
-from .kernel import ssd_chunk_cuda
-from .ref import _inter_chunk, _pad_seq, ssd_decode_ref, ssd_ref
+from .kernel import ssd_chunk_bwd_cuda, ssd_chunk_cuda
+from .ref import (_inter_chunk, _pad_seq, ssd_chunk_bwd_ref, ssd_chunk_ref,
+                  ssd_decode_ref, ssd_ref)
+
+
+def _plain(x, force_ref: bool) -> bool:
+    if force_ref or x.device.type == "cpu":
+        return True
+    if x.device.type == "cuda":
+        return False
+    raise ValueError(f"ssd: no path for device {x.device}")
+
+
+class _SsdChunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xc, ac, Bc, Cc, force_ref):
+        ctx.save_for_backward(xc, ac, Bc, Cc)
+        ctx.plain = _plain(xc, force_ref)
+        fwd = ssd_chunk_ref if ctx.plain else ssd_chunk_cuda
+        return fwd(xc, ac, Bc, Cc)
+
+    @staticmethod
+    def backward(ctx, dy, dstates):
+        bwd = ssd_chunk_bwd_ref if ctx.plain else ssd_chunk_bwd_cuda
+        dxc, dac, dBc, dCc = bwd(*ctx.saved_tensors, dy.contiguous(),
+                                 dstates.contiguous())
+        return dxc, dac, dBc, dCc, None
+
+
+def ssd_chunk(xc, ac, Bc, Cc, force_ref: bool = False):
+    """The intra-chunk block with its gradient: (y_diag, states) as
+    ``ssd_chunk_ref`` returns them."""
+    return _SsdChunk.apply(xc, ac, Bc, Cc, force_ref)
 
 
 def ssd_chunked(x, a, B, C, chunk: int, initial_state, chunk_fn):
     """The card's SSD: pad S to a multiple of ``chunk``, cast to f32, run
-    ``chunk_fn`` (the CUDA kernel, or ``ssd_chunk_ref`` in the CPU tests) on
-    the chunks, then the recurrence across chunks, as
-    ``repro.kernels.ssd.ops.ssd`` does on the TPU."""
+    ``chunk_fn`` (``ssd_chunk`` on the card, ``ssd_chunk_ref`` or
+    ``ssd_chunk`` in the CPU tests) on the chunks, then the recurrence
+    across chunks, as ``repro.kernels.ssd.ops.ssd`` does on the TPU."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     dtype = x.dtype
@@ -35,11 +72,9 @@ def ssd_chunked(x, a, B, C, chunk: int, initial_state, chunk_fn):
 
 
 def ssd(x, a, B, C, chunk: int = 256, initial_state=None, force_ref=False):
-    if force_ref or x.device.type == "cpu":
+    if _plain(x, force_ref):
         return ssd_ref(x, a, B, C, chunk=chunk, initial_state=initial_state)
-    if x.device.type == "cuda":
-        return ssd_chunked(x, a, B, C, chunk, initial_state, ssd_chunk_cuda)
-    raise ValueError(f"ssd: no path for device {x.device}")
+    return ssd_chunked(x, a, B, C, chunk, initial_state, ssd_chunk)
 
 
 def ssd_decode(x_t, a_t, B_t, C_t, state):

@@ -38,6 +38,39 @@ def ssd_chunk_ref(xc, ac, Bc, Cc):
     return y, states
 
 
+def ssd_chunk_bwd_ref(xc, ac, Bc, Cc, dy, dstates):
+    """Gradients of ``ssd_chunk_ref``'s two outputs, by explicit formulas.
+
+    dy (b, c, l, h, p) and dstates (b, c, h, p, n), the layout the chunk
+    returns -> (dxc, dac, dBc, dCc) in the inputs' shapes, f32.  Per
+    (b, c, h), with cum = cumsum(a), L[i, j] = exp(cum_i - cum_j) for
+    j <= i (else 0), G = C Bᵀ, M = G ∘ L and w_j = exp(cum_last - cum_j):
+    dM = dy xᵀ on j <= i; dx = Mᵀ dy + (B ∘ w) dSᵀ; dG = Σ_h dM ∘ L, so
+    dC = dG B and dB = dGᵀ C + Σ_h w ∘ (x dS); dseg = dM ∘ G ∘ L adds its
+    row sums to dcum_i and takes its column sums from dcum_j; the end state
+    adds Σ_j dw_j w_j to dcum_last and takes dw_j w_j from dcum_j, with
+    dw_j = Σ_{p, n} x_jp B_jn dS_pn; da is the reverse cumsum of dcum."""
+    aT = ac.permute(0, 3, 1, 2)                             # (b, h, c, l)
+    L = torch.exp(segsum(aT))                               # (b, h, c, l, l)
+    acum = torch.cumsum(aT, dim=-1)
+    w = torch.exp(acum[..., -1:] - acum)                    # (b, h, c, l)
+    G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[:, None]    # (b, 1, c, l, l)
+    dGh = torch.einsum("bcihp,bcjhp->bhcij", dy, xc) * L    # dM ∘ L
+    dx = (torch.einsum("bhcij,bcihp->bcjhp", G * L, dy)
+          + torch.einsum("bcjn,bhcj,bchpn->bcjhp", Bc, w, dstates))
+    dG = dGh.sum(1)                                         # (b, c, l, l)
+    xdS = torch.einsum("bcjhp,bchpn->bhcjn", xc, dstates)
+    dC = torch.einsum("bcij,bcjn->bcin", dG, Bc)
+    dB = (torch.einsum("bcij,bcin->bcjn", dG, Cc)
+          + torch.einsum("bhcj,bhcjn->bcjn", w, xdS))
+    dseg = dGh * G
+    dww = torch.einsum("bhcjn,bcjn->bhcj", xdS, Bc) * w
+    dcum = dseg.sum(-1) - dseg.sum(-2) - dww
+    dcum[..., -1] += dww.sum(-1)
+    da = dcum.flip(-1).cumsum(-1).flip(-1)
+    return dx, da.permute(0, 2, 3, 1), dB, dC
+
+
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
     """Zeros after the sequence axis (dim 1) of t."""
     return torch.cat([t, t.new_zeros((t.shape[0], pad) + t.shape[2:])], dim=1)

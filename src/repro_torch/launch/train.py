@@ -9,6 +9,9 @@ reduced model):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --reduced --steps 100 --batch 4 --seq 256 --device cpu
 
+``--arch`` takes any dense, moe, ssm or hybrid architecture (e.g.
+``zamba2-1.2b``, ``mamba2-370m``, ``granite-moe-3b-a800m``).
+
 Every batch is read through the port's own cache client
 (``core.bundle_client``) by ``CachedTokenPipeline``, which yields NumPy; the
 loop moves it to the device.  The model is initialised from seed 0 on the

@@ -20,7 +20,8 @@ allocate a zero tensor the size of the whole stack for every layer).
 product is saved, its batched expert products recomputed), ``"none"``
 checkpoints nothing; the final norm and the head stay outside, as in JAX.
 ``lm_loss`` and ``lm_loss_chunked`` are the training losses.  Training is
-ported for the dense and moe families; the other families raise
+ported for the dense, moe, ssm and hybrid families (the SSD chunk's
+gradient is ``kernels.ssd.ssd_chunk``'s backward); vlm and audio raise
 ``NotImplementedError`` naming the ROADMAP slice that ports them.
 """
 from __future__ import annotations
@@ -46,7 +47,7 @@ _SLICE_OF = {
 }
 
 
-TRAINED_FAMILIES = ("dense", "moe")
+TRAINED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 REMAT_POLICIES = ("none", "full", "dots")
 
 
@@ -59,14 +60,14 @@ def _require_ported(cfg: ModelConfig) -> None:
 
 
 def require_trainable(cfg: ModelConfig) -> None:
-    """Training is ported for the dense and moe families: the SSD chunk
-    kernel has no backward yet."""
+    """Training is ported for every family that is ported (dense, moe, ssm,
+    hybrid); the others raise, naming the slice that brings them."""
     _require_ported(cfg)
     if cfg.family not in TRAINED_FAMILIES:
         raise NotImplementedError(
             f"training {cfg.family!r} models ({cfg.name}) is not ported yet: "
-            "it comes with the 'ssm/hybrid training' slice of ROADMAP.md, "
-            "which brings an SSD chunk backward kernel")
+            f"it comes with the {_SLICE_OF.get(cfg.family, cfg.family)!r} slice of "
+            "ROADMAP.md")
 
 
 # ------------------------------------------------------------------ specs

@@ -44,6 +44,7 @@ def test_port_modules_exist():
                  "repro_torch.kernels.rmsnorm.kernel",
                  "repro_torch.kernels.flash_attention.kernel",
                  "repro_torch.kernels.ssd.kernel",
+                 "repro_torch.kernels.ssd.ops", "repro_torch.kernels.ssd.ref",
                  "repro_torch.models.ssm", "repro_torch.models.transformer",
                  "repro_torch.serve.engine", "repro_torch.configs",
                  "repro_torch.train.optimizer",

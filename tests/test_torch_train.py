@@ -1,8 +1,10 @@
 """The port's training path against the JAX package's, on the CPU: the
 kernels' backward plain versions (and the autograd Functions' CPU path)
 against ``jax.vjp`` of the references, the two losses, full-model gradients
-of reduced qwen3-1.7b, remat, AdamW, an 8-step trajectory of
-``make_train_step``, checkpoints crossing both ways, and the launcher.
+of reduced qwen3-1.7b, mamba2-370m (ssm) and zamba2-1.2b (hybrid), remat,
+AdamW, 8-step trajectories of ``make_train_step``, checkpoints crossing both
+ways, and the launcher.  (The SSD chunk's own gradient:
+tests/test_torch_ssd_train.py.)
 
 Inputs are drawn with numpy from a seed; weights are JAX-initialised and
 carried over by ``params_from_jax``.  Tolerances, all in f32: the kernels'
@@ -184,20 +186,41 @@ def test_lm_loss_chunked_matches_jax_and_dense(arch):
 
 # --------------------------------------------------------------- model
 
-def _jax_params(dtype=jnp.float32):
+def _perturb(tree, rng):
+    """Norm weights (and an SSM layer's D, A_log and dt_bias) drawn from
+    numpy, so that they are not the init's ones and zeros."""
+    out = dict(tree)
+    for name in tree:
+        if name.endswith("norm") or name == "D":
+            out[name] = jnp.asarray(
+                1.0 + 0.1 * rng.normal(size=tree[name].shape), jnp.bfloat16)
+        elif name in ("A_log", "dt_bias"):
+            out[name] = jnp.asarray(0.5 * rng.normal(size=tree[name].shape),
+                                    jnp.bfloat16)
+    return out
+
+
+def _jax_params(dtype=jnp.float32, arch=ARCH):
     """JAX init with norm weights perturbed from numpy (not all ones)."""
-    cfg = jax_reduced_config(ARCH)
+    cfg = jax_reduced_config(arch)
     params = jt.init_params(cfg, jax.random.PRNGKey(0))
     rng = np.random.default_rng(11)
-    blocks = dict(params["blocks"])
-    for name in blocks:
-        if name.endswith("norm"):
-            blocks[name] = jnp.asarray(
-                1.0 + 0.1 * rng.normal(size=blocks[name].shape), jnp.bfloat16)
-    params = dict(params, blocks=blocks,
+    params = dict(params, blocks=_perturb(params["blocks"], rng),
                   final_norm=jnp.asarray(1.0 + 0.1 * rng.normal(
                       size=params["final_norm"].shape), jnp.bfloat16))
+    if "shared" in params:
+        params["shared"] = _perturb(params["shared"], rng)
     return cfg, jax.tree.map(lambda a: a.astype(dtype), params)
+
+
+# S for the ssm / hybrid models: two of the reduced configs' 32-step
+# chunks, the second padded.
+SSM_SEQ = 40
+SSM_ARCHS = ("mamba2-370m", "zamba2-1.2b")
+
+
+def _seq(arch):
+    return SSM_SEQ if arch in SSM_ARCHS else 16
 
 
 def _batch(vocab, B=4, S=16, seed=0):
@@ -224,11 +247,15 @@ def _value_and_grad(params, cfg, batch, remat="none", loss_impl="dense"):
     return loss.detach(), dict(zip(paths, torch.autograd.grad(loss, req)))
 
 
-@pytest.mark.parametrize("loss_impl", ["dense", "chunked"])
-def test_model_gradients_match_jax(loss_impl):
-    jcfg, jp = _jax_params()
-    cfg = reduced_config(ARCH)
-    batch = _batch(cfg.vocab)
+@pytest.mark.parametrize("arch,loss_impl", [
+    pytest.param(ARCH, "dense", id="dense"),
+    pytest.param(ARCH, "chunked", id="chunked"),
+    *(pytest.param(a, impl, id=f"{a}-{impl}") for a in SSM_ARCHS
+      for impl in ("dense", "chunked"))])
+def test_model_gradients_match_jax(arch, loss_impl):
+    jcfg, jp = _jax_params(arch=arch)
+    cfg = reduced_config(arch)
+    batch = _batch(cfg.vocab, S=_seq(arch))
 
     def jloss(p):
         if loss_impl == "chunked":
@@ -248,10 +275,20 @@ def test_model_gradients_match_jax(loss_impl):
 
 
 def test_remat_policies_give_identical_grads():
-    _, jp = _jax_params()
-    cfg = reduced_config(ARCH)
+    _check_remat_identity(ARCH)
+
+
+def test_remat_policies_give_identical_grads_ssm():
+    """The same for mamba2-370m: the SSD, the conv and the gated norm
+    recomputed under "full" and "dots"."""
+    _check_remat_identity("mamba2-370m")
+
+
+def _check_remat_identity(arch):
+    _, jp = _jax_params(arch=arch)
+    cfg = reduced_config(arch)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
-    batch = _batch(cfg.vocab, seed=4)
+    batch = _batch(cfg.vocab, S=_seq(arch), seed=4)
     base_loss, base = _value_and_grad(tp, cfg, batch, remat="none")
     for remat in ("full", "dots"):
         loss, grads = _value_and_grad(tp, cfg, batch, remat=remat)
@@ -263,9 +300,14 @@ def test_remat_policies_give_identical_grads():
 
 
 def test_other_families_refuse_to_train():
-    for arch in ("mamba2-370m", "zamba2-1.2b"):
-        with pytest.raises(NotImplementedError, match="ssm/hybrid training"):
+    """vlm and audio refuse, naming their slice; ssm and hybrid build a
+    step."""
+    for arch in ("llama-3.2-vision-90b", "musicgen-large"):
+        with pytest.raises(NotImplementedError, match="VLM and audio"):
             make_train_step(reduced_config(arch), topt.AdamWConfig())
+    for arch in SSM_ARCHS:
+        assert callable(make_train_step(reduced_config(arch),
+                                        topt.AdamWConfig()))
     with pytest.raises(NotImplementedError, match="sharding"):
         make_train_step(reduced_config(ARCH), topt.AdamWConfig(),
                         mesh=object())
@@ -308,10 +350,20 @@ def test_apply_updates_matches_jax_on_the_quadratic():
 
 
 @requires_mesh_axis_types
-@pytest.mark.parametrize("microbatches", [1, 2])
-def test_adamw_trajectory_matches_jax_train_step(microbatches):
-    jcfg, jp = _jax_params()
-    cfg = reduced_config(ARCH)
+@pytest.mark.parametrize("arch,microbatches", [
+    pytest.param(ARCH, 1, id="1"), pytest.param(ARCH, 2, id="2"),
+    pytest.param("zamba2-1.2b", 1, id="zamba2-1.2b-1")])
+def test_adamw_trajectory_matches_jax_train_step(arch, microbatches):
+    """8 steps of ``make_train_step`` against the JAX package's: loss and
+    grad norm of every step at 1e-4, the final params at 1e-3 of each
+    leaf's largest magnitude.  qwen3 runs free.  zamba2 starts every step
+    from JAX's params and AdamW state: free-running, the two 8-step
+    trajectories of the reduced hybrid drift apart however right each step
+    is (step 0's grad norms agree to 1.8e-7, step 5's differ by 1.3e-4,
+    and by 9e-5 with AdamW's eps at 1e-6), so each step is held from the
+    same state instead."""
+    jcfg, jp = _jax_params(arch=arch)
+    cfg = reduced_config(arch)
     opt = topt.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=8)
     jstep = jax.jit(jax_make_train_step(
         jcfg, jopt.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=8),
@@ -320,7 +372,12 @@ def test_adamw_trajectory_matches_jax_train_step(microbatches):
     tstep = make_train_step(cfg, opt, remat="full", microbatches=microbatches)
     js, ts = jopt.init_state(jp), topt.init_state(tp)
     for i in range(8):
-        batch = _batch(cfg.vocab, seed=10 + i)
+        batch = _batch(cfg.vocab, S=_seq(arch), seed=10 + i)
+        if arch != ARCH:
+            tp, mu, nu = (params_from_jax(jax.tree.map(np.asarray, t), "cpu")
+                          for t in (jp, js.mu, js.nu))
+            ts = topt.AdamWState(torch.tensor(int(js.step), dtype=torch.int32),
+                                 mu, nu)
         jp, js, jm = jstep(jp, js, batch)
         tp, ts, tm = tstep(tp, ts, _torch_batch(batch))
         _close(tm["loss"], jm["loss"], 1e-4)
@@ -335,7 +392,17 @@ def test_adamw_trajectory_matches_jax_train_step(microbatches):
 def test_checkpoints_cross_both_ways(tmp_path):
     """bf16 params + f32 moments + the int32 step: written by one package,
     restored by the other, bit for bit, under the same manifest keys."""
-    _, jp = _jax_params(jnp.bfloat16)
+    _check_checkpoints_cross(tmp_path, ARCH)
+
+
+def test_checkpoints_cross_both_ways_hybrid(tmp_path):
+    """The same for zamba2-1.2b, whose ``shared`` leaves have no layer
+    dim."""
+    _check_checkpoints_cross(tmp_path, "zamba2-1.2b")
+
+
+def _check_checkpoints_cross(tmp_path, arch):
+    _, jp = _jax_params(jnp.bfloat16, arch=arch)
     js = jopt.init_state(jp)
     rng = np.random.default_rng(5)
     js = jopt.AdamWState(jnp.asarray(7, jnp.int32), jax.tree.map(
@@ -392,6 +459,32 @@ def test_launcher_trains_checkpoints_and_resumes_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "resumed from step 4" in out and "2 steps" in out
     assert CheckpointManager(tmp_path).latest_step() == 6
+
+
+def test_launcher_trains_hybrid_and_resumes_on_cpu(tmp_path, capsys):
+    """The launcher on reduced zamba2-1.2b: the SSD's gradient reaches the
+    step, and a resume restores the Mamba2 stacks and the shared block."""
+    arch = "zamba2-1.2b"
+    args = ["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+            "--seq", "40", "--cache-mb", "64", "--ckpt-dir", str(tmp_path),
+            "--log-every", "2", "--ckpt-every", "2"]
+    assert launch_train.main(args + ["--steps", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "[train] step     4" in out and "CHR" in out
+    assert launch_train.main(args + ["--steps", "6", "--resume"]) == 0
+    out = capsys.readouterr().out
+    assert "resumed from step 4" in out and "2 steps" in out
+    params = tt.init_params(reduced_config(arch),
+                            torch.Generator().manual_seed(0))
+    (restored, state), extra = CheckpointManager(tmp_path).restore(
+        (params, topt.init_state(params)))
+    assert extra == {"step": 6} and int(state.step) == 6
+    for leaf in (restored["blocks"]["in_proj"], restored["blocks"]["A_log"],
+                 restored["shared"]["wq"]):
+        assert bool(torch.isfinite(leaf.float()).all())
+    assert not torch.equal(restored["blocks"]["A_log"],
+                           params["blocks"]["A_log"])
+    assert not torch.equal(restored["shared"]["wq"], params["shared"]["wq"])
 
 
 def test_launcher_trains_moe_and_resumes_on_cpu(tmp_path, capsys):
