@@ -6,6 +6,8 @@
                                           # the kernels, then stop
     python3 chip_smoke.py --profile-only  # phases 1, 2 and 7, and the traced
                                           # train step of phase 6
+    python3 chip_smoke.py --profile-only zamba2-1.2b mamba2-370m
+                                          # ... of the models named only
 
 Phases, each printing one JSON line (``{"phase": ...}``):
 
@@ -560,9 +562,32 @@ def ssd_chunk_bwd_case(b, c, l, h, p, n, scale_bc, gen, flush, timed,
                  bound_ms=max(t_ops, t_bytes),
                  bound_by="operations" if t_ops >= t_bytes else "bytes",
                  # The floor of a 3xTF32 tensor-core design.
-                 bound_tc_ms=max(3 * flops / PEAK_TF32 * 1e3, t_bytes))
+                 bound_tc_ms=max(3 * flops / PEAK_TF32 * 1e3, t_bytes),
+                 # The three launches apart (a trace of 5 warm calls): the
+                 # main kernel and the two finishing ones.
+                 traced_ms=device_ms_by_name(
+                     lambda: ssd_chunk_bwd_cuda(*args),
+                     ("ssd_chunk_bwd_kernel", "ssd_chunk_bwd_bc_kernel",
+                      "ssd_chunk_bwd_da_kernel")))
         r["tflops"] = flops / r["ms"] / 1e9
     return r
+
+
+def device_ms_by_name(fn, names, reps: int = 5) -> dict:
+    """Device ms per call of the kernels whose names contain each of
+    ``names``, from one trace of ``reps`` warm calls of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {k: sum(ms for name, ms in rows if k in name) / reps
+            for k in names}
 
 
 def ssd_grad_case(b, s, h, p, n, chunk, gen):
@@ -1649,13 +1674,21 @@ def main() -> int:
 
     dev = phase_device()
     if "--profile-only" in sys.argv[1:]:
+        named = [a for a in sys.argv[1:] if not a.startswith("--")]
+        unknown = set(named) - set(ARCHS)
+        if unknown:
+            raise SystemExit(f"chip_smoke: unknown models {sorted(unknown)}")
         phase_build()
         for arch in PROFILED:
+            if named and arch not in named:
+                continue
             cfg, params = init_model(arch)
             phase_profile(cfg, params)
             del params
             torch.cuda.empty_cache()
         for arch in TRAIN_ARCHS:
+            if named and arch not in named:
+                continue
             cfg, params = init_model(arch)
             profile_train(cfg, params, random_batch(cfg))
             del params

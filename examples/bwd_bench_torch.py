@@ -1,26 +1,37 @@
 #!/usr/bin/env python3
-"""Time the port's two backward kernels beside an earlier version of them,
+"""Time the port's backward kernels beside an earlier version of them,
 and beside their PyTorch yardsticks, on one GPU.
 
-    python3 examples/bwd_bench_torch.py --old DIR
+    python3 examples/bwd_bench_torch.py --old DIR [--kernels flash,rmsnorm,ssd]
 
-``DIR`` is the ``csrc/`` of an earlier checkout whose ``flash_attn_bwd`` and
-``rmsnorm_bwd`` keep PR 15's C interface (the ``mma_sync`` flash backward
-over 64-key CTAs with a caller-zeroed f32 dQ buffer; the RMSNorm backward
-with per-CTA dw rows), e.g. the parent commit's, unpacked with
+``DIR`` is the ``csrc/`` of an earlier checkout, e.g. the parent commit's,
+unpacked with
 
     git archive HEAD~1 src/repro_torch/csrc | tar -x -C build/parent
 
-It is built by ``_build.build(DIR)`` beside the repo's own library.  At the
-qwen3-1.7b and zamba2-1.2b training shapes (flash attention, bf16, causal)
-and at the qwen3 RMSNorm shapes ((4096, 2048) and (65536, 128), bf16), each
-version is held against the plain backward (``chip_smoke.py``'s gradient
-tolerance) and timed as ``chip_smoke.py`` times a kernel (cold L2, median of
-20), in turns: old, new, library, then library, new, old.  Each version is
-timed through its whole wrapper (allocations, the D pass, the dQ cast).
-Prints the card's name and power limit, then one JSON line per (shape,
-version, turn), and one traced call of each new wrapper (``chip_smoke.py``'s
-``profile`` line: device time by kernel).
+It is built by ``_build.build(DIR)`` beside the repo's own library.
+``--kernels`` picks the backwards to time (all three by default):
+
+- ``flash`` and ``rmsnorm`` need an old ``flash_attn_bwd`` and
+  ``rmsnorm_bwd`` with the first backwards' C interface (the ``mma_sync``
+  flash backward over 64-key CTAs with a caller-zeroed f32 dQ buffer; the
+  RMSNorm backward with per-CTA dw rows).  At the qwen3-1.7b and
+  zamba2-1.2b training shapes (flash attention, bf16, causal) and at the
+  qwen3 RMSNorm shapes ((4096, 2048) and (65536, 128), bf16), in turns:
+  old, new, library, then library, new, old.  Each version is timed
+  through its whole wrapper (allocations, the D pass, the dQ cast).
+- ``ssd``: the old library's ``ssd_chunk_bwd`` (the repo's C signature;
+  the f32 FMA kernel groups 4 heads, so its workspace is sized for that)
+  beside ``ssd_chunk_bwd_cuda`` at zamba2-1.2b's and mamba2-370m's train
+  shapes (b4 c4 l256 p64, h64 n64 and h32 n128, f32, on ``chip_smoke.py``'s
+  inputs), in two rounds, the second in reverse order.  No PyTorch call
+  computes it.
+
+Each version is held against the plain backward (``chip_smoke.py``'s
+gradient tolerance) and timed as ``chip_smoke.py`` times a kernel (cold L2,
+median of 20).  Prints the card's name and power limit, then one JSON line
+per (shape, version, turn), and one traced call of each new wrapper
+(``chip_smoke.py``'s ``profile`` line: device time by kernel).
 """
 from __future__ import annotations
 
@@ -38,23 +49,28 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-from chip_smoke import grad_close, profile_once, rel_l2, time_ms  # noqa: E402
+from chip_smoke import (grad_close, profile_once, rel_l2, ssd_inputs,  # noqa: E402
+                        time_ms)
 from repro_torch.kernels import _build  # noqa: E402
 
 FLASH_SHAPES = [(4, 1024, 1024, 16, 8, 128), (4, 1024, 1024, 32, 32, 64)]
 RMS_SHAPES = [(4096, 2048), (65536, 128)]
+SSD_SHAPES = [(4, 4, 256, 64, 64, 64), (4, 4, 256, 32, 64, 128)]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 OLD_SIGNATURES = {
-    "flash_attn_bwd": ([_P] * 10 + [_I] * 9 + [_F] + [_I] * 7 + [_P], _I),
-    "rmsnorm_bwd": _build.SIGNATURES["rmsnorm_bwd"],
+    "flash": {"flash_attn_bwd": ([_P] * 10 + [_I] * 9 + [_F] + [_I] * 7
+                                 + [_P], _I)},
+    "rmsnorm": {"rmsnorm_bwd": _build.SIGNATURES["rmsnorm_bwd"]},
+    "ssd": {"ssd_chunk_bwd": _build.SIGNATURES["ssd_chunk_bwd"]},
 }
 
 
-def load_old(csrc: Path) -> ctypes.CDLL:
+def load_old(csrc: Path, kinds) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build.build(csrc)))
-    for name, (argtypes, restype) in OLD_SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, restype
+    for kind in kinds:
+        for name, (argtypes, restype) in OLD_SIGNATURES[kind].items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 
@@ -96,13 +112,33 @@ def old_rmsnorm_bwd(lib, x, w, dy, sms):
     return dx, dw
 
 
-def report(kernel, shape, version, turn, got, want, kind, ms) -> bool:
+def old_ssd_bwd(lib, x, a, B, C, dy, ds):
+    """The f32 FMA kernel's wrapper: groups of 4 heads, so its workspace
+    holds 4-head group partials (dG tiles, dB's state part) and the dcum
+    rows."""
+    b, c, l, h, p = x.shape
+    n = B.shape[-1]
+    bc, tiles, groups = b * c, -(-l // 64), -(-h // 4)
+    ws_floats = (bc * groups * tiles * (tiles + 1) // 2 * 64 * 64
+                 + bc * groups * l * n + bc * h * tiles * l)
+    grads = tuple(torch.empty_like(t) for t in (x, a, B, C))
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=x.device)
+    err = lib.ssd_chunk_bwd(*(t.data_ptr() for t in (x, a, B, C, dy, ds)
+                              + grads), ws.data_ptr(), ws_floats, bc, l, h,
+                            p, n, _build.stream_ptr(x))
+    if err:
+        raise RuntimeError(f"old ssd_chunk_bwd: CUDA error {err}")
+    return grads
+
+
+def report(kernel, shape, version, turn, got, want, kind, ms,
+           dtype=torch.bfloat16) -> bool:
     """One JSON line; True if every leaf holds (library rows: not checked)."""
     line = {"kernel": kernel, "shape": list(shape), "version": version,
             "turn": turn, "ms": ms}
     ok = True
     if got is not None:
-        oks, errs = zip(*(grad_close(g, w, torch.bfloat16, kind)
+        oks, errs = zip(*(grad_close(g, w, dtype, kind)
                           for g, w in zip(got, want)))
         ok = all(oks)
         line.update(ok=ok, max_abs_err=max(errs),
@@ -114,8 +150,13 @@ def report(kernel, shape, version, turn, got, want, kind, ms) -> bool:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", type=Path, required=True,
-                    help="csrc/ of an earlier checkout (PR 15's interface)")
+                    help="csrc/ of an earlier checkout")
+    ap.add_argument("--kernels", default="flash,rmsnorm,ssd",
+                    help="comma-separated: flash, rmsnorm, ssd")
     args = ap.parse_args()
+    kinds = args.kernels.split(",")
+    if not set(kinds) <= set(OLD_SIGNATURES):
+        ap.error(f"--kernels: {kinds} not within {sorted(OLD_SIGNATURES)}")
     if not torch.cuda.is_available():
         print("bwd_bench: CUDA is not available", file=sys.stderr)
         return 2
@@ -126,14 +167,15 @@ def main() -> int:
                                                      flash_attention_bwd_ref,
                                                      flash_attention_cuda)
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_bwd_ref
-    old = load_old(args.old.resolve())
+    from repro_torch.kernels.ssd import ssd_chunk_bwd_cuda, ssd_chunk_bwd_ref
+    old = load_old(args.old.resolve(), kinds)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(1)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     bf16 = torch.bfloat16
     ok = True
 
-    for shape in FLASH_SHAPES:
+    for shape in FLASH_SHAPES if "flash" in kinds else []:
         B, Sq, Skv, H, KV, hd = shape
         q, do = (torch.randn(B, Sq, H, hd, generator=gen, device="cuda")
                  .to(bf16) for _ in range(2))
@@ -163,7 +205,7 @@ def main() -> int:
         profile_once(str(shape), "flash_attention_bwd", fns["new"])
         del want, out
 
-    for rows, d in RMS_SHAPES:
+    for rows, d in RMS_SHAPES if "rmsnorm" in kinds else []:
         x, dy = (torch.randn(rows, d, generator=gen, device="cuda").to(bf16)
                  for _ in range(2))
         w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(bf16)
@@ -186,6 +228,25 @@ def main() -> int:
                     good &= rel_l2(got[1], want[1]) <= 2e-2
                 ok &= good
         profile_once(str((rows, d)), "rmsnorm_bwd", fns["new"])
+
+    for shape in SSD_SHAPES if "ssd" in kinds else []:
+        b, c, l, h, p, n = shape
+        torch.backends.cuda.matmul.allow_tf32 = False
+        x, a, B, C = ssd_inputs((b, c, l, h, p), (b, c, l, h), (b, c, l, n),
+                                n ** -0.5, gen)
+        dy = torch.randn(b, c, l, h, p, generator=gen, device="cuda")
+        ds = torch.randn(b, c, h, p, n, generator=gen, device="cuda")
+        args_ = (x, a, B, C, dy, ds)
+        want = ssd_chunk_bwd_ref(*args_)
+        fns = {"old": lambda: old_ssd_bwd(old, *args_),
+               "new": lambda: ssd_chunk_bwd_cuda(*args_)}
+        for turn, order in enumerate((list(fns), list(fns)[::-1])):
+            for name in order:
+                ok &= report("ssd_chunk_bwd", shape, name, turn, fns[name](),
+                             want, "ssd_chunk_bwd", time_ms(fns[name], flush),
+                             torch.float32)
+        profile_once(str(shape), "ssd_chunk_bwd", fns["new"])
+        del want
     return 0 if ok else 1
 
 

@@ -50,10 +50,13 @@
 //     stages (rows past l zero-filled); x through registers, one item ahead.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 #include <limits.h>
 
 namespace {
+
+using namespace tf32x3;
 
 constexpr int kT = 64;          // rows of an i- or j-tile
 constexpr int kThreads = 256;   // two warpgroups
@@ -64,78 +67,6 @@ constexpr int kGroupStepsLast = 1;  // ... y and the states
 // Dynamic shared memory a block may use: 232,448 bytes on the H100, less the
 // kernel's static `wsum`.
 constexpr size_t kSmemLimit = 232448 - 256;
-
-// cvt.rna.tf32.f32's rounding (to nearest, ties away from zero) of a finite
-// value, in two integer operations: on sm_90 the instruction compiles to the
-// same two plus an infinity test and a select, which the finite operands
-// here do not need.
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-// v = hi + lo, both TF32: lo keeps the bits that hi rounds away.
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(v);
-  lo = to_tf32(v - __uint_as_float(hi));
-}
-
-// m16n8k8 fragments (g = lane / 4, t = lane % 4):
-//   A (16 x 8, row): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-//   B (8 x 8, col):  b0 (k t, n g), b1 (k t + 4, n g)
-//   C (16 x 8):      c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
-struct FragA { uint32_t hi[4], lo[4]; };
-struct FragB { uint32_t hi[2], lo[2]; };
-
-// f(row, k) -> the A element.
-template <class F>
-__device__ __forceinline__ FragA load_a(F f, int g, int t) {
-  FragA a;
-  split(f(g, t), a.hi[0], a.lo[0]);
-  split(f(g + 8, t), a.hi[1], a.lo[1]);
-  split(f(g, t + 4), a.hi[2], a.lo[2]);
-  split(f(g + 8, t + 4), a.hi[3], a.lo[3]);
-  return a;
-}
-
-// f(k, col) -> the B element.
-template <class F>
-__device__ __forceinline__ FragB load_b(F f, int g, int t) {
-  FragB b;
-  split(f(t, g), b.hi[0], b.lo[0]);
-  split(f(t + 4, g), b.hi[1], b.lo[1]);
-  return b;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 3xTF32: d += a b, the small products first.
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
-                                     const FragB& b) {
-  mma_tf32(d, a.lo, b.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Rows [0, 64) of a (rows x cols) f32 tile, source row stride `ld_src`, into
 // shared memory with row stride `ld_dst`; rows >= `valid` read zeros.
@@ -181,36 +112,6 @@ struct Smem {
 // 512 + (p % 8) * 4 + j % 4, so a descriptor has lbo = 128 bytes (next 4
 // columns j) and sbo = 2048 bytes (next 8 rows p), and moves 256 bytes a
 // k-step of 8.
-
-template <int P>
-__device__ __forceinline__ void wgmma_tf32(float (&d)[P / 2],
-                                           const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (P == 64) hopper::wgmma_tf32_rs_n64(d, a, db);
-  else hopper::wgmma_tf32_rs_n16(d, a, db);
-}
-
-// 3xTF32 on the warpgroup: d += a b with only lo.lo dropped, the small
-// products first.
-template <int P>
-__device__ __forceinline__ void wgmma3(float (&d)[P / 2], const FragA& a,
-                                       uint64_t b_hi, uint64_t b_lo) {
-  wgmma_tf32<P>(d, a.lo, b_hi);
-  wgmma_tf32<P>(d, a.hi, b_lo);
-  wgmma_tf32<P>(d, a.hi, b_hi);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pin a fragment's registers here: the compiler neither reuses them nor
-// writes them before this point (a wgmma still reads them until its wait).
-__device__ __forceinline__ void pin(FragA& f) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    asm volatile("" : "+r"(f.hi[e]), "+r"(f.lo[e])::"memory");
-}
 
 // One head item's products on the warpgroup: y += S x_jt and, in the last
 // i-tile's CTA, state^T += B_jt^T x_jt, x_jt's TF32 halves behind the
@@ -284,7 +185,7 @@ __device__ __forceinline__ void head_products(
     }
     hopper::wgmma_commit();
     if (gr + 1 < KS / KB) {
-      wgmma_wait<1>();                 // group gr - 1 is done with c ^ 1
+      hopper::wgmma_wait<1>();                 // group gr - 1 is done with c ^ 1
 #pragma unroll
       for (int kb = 0; kb < KB; ++kb) {
         pin(fs[c ^ 1][kb]);
@@ -294,7 +195,7 @@ __device__ __forceinline__ void head_products(
       }
     }
   }
-  wgmma_wait<0>();
+  hopper::wgmma_wait<0>();
   hopper::fence_regs(yd);
 #pragma unroll
   for (int m = 0; m < MM; ++m) hopper::fence_regs(sd[m]);

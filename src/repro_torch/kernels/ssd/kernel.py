@@ -19,11 +19,12 @@ h64 p64 n64) and sits at the bytes/operations ridge at mamba2's (h32
 n128).  ``ssd_chunk_cuda.launches`` counts launches (one a call).
 
 The backward, ``ssd_chunk_bwd_cuda``: one CTA per (b*c, 64-row j-tile,
-group of up to 4 heads), heaviest j-tiles first (``bwd_plan``), f32 FMA
-over shared-memory tiles; it recomputes G and the decay from the saved
-inputs and writes per-group partials, which two small kernels sum in a
-fixed order into dB, dC and da (no atomics: the same bits on every run).
-``ssd_chunk_bwd_cuda.launches`` counts calls (three kernels each).
+group of up to 8 heads), heaviest j-tiles first (``bwd_plan``), every
+product in 3xTF32 on the tensor cores; it recomputes Gᵀ and the decay from
+the saved inputs (Gᵀ once a group) and writes per-group partials, which two
+small kernels sum in a fixed order into dB, dC and da (no atomics: the
+same bits on every run).  ``ssd_chunk_bwd_cuda.launches`` counts calls
+(three kernels each).
 """
 from __future__ import annotations
 
@@ -144,7 +145,7 @@ def ssd_chunk_cuda(xc: torch.Tensor, ac: torch.Tensor, Bc: torch.Tensor,
 ssd_chunk_cuda.launches = 0
 
 
-BWD_HEAD_GROUP = 4             # heads of a backward CTA
+BWD_HEAD_GROUP = 8             # heads of a backward CTA
 
 
 @dataclass(frozen=True)
@@ -184,22 +185,32 @@ class SsdBwdPlan:
 
 def bwd_smem_bytes(p: int, n: int) -> int:
     """Dynamic shared memory of one backward block, as ``BwdSmem`` in
-    csrc/ssd_chunk_bwd.cu: the prefix sums of 4 heads, the B j-tile and the
-    C i-tile (rows padded to n + 1), M (64 x 65), the x and dy tiles (rows
-    padded to p + 1), dx of 4 heads' j-tiles, the warps' column sums, dcum
-    of 4 heads' j-tile rows, dw w and 4 floats for dcum_last.  A mirror, as
-    ``smem_bytes`` is: ``chip_smoke.py`` holds it equal to the kernel's own
-    count (``ssd_chunk_bwd_smem_bytes``)."""
-    hg = BWD_HEAD_GROUP
-    floats = (hg * MAX_L + 2 * TILE * (n + 1) + TILE * (TILE + 1)
-              + 2 * TILE * (p + 1) + hg * TILE * p + 8 * TILE + hg * TILE
-              + TILE + hg)
+    csrc/ssd_chunk_bwd.cu: the prefix sums of 8 heads; Gᵀ of 4 i-tiles
+    (64 x 64 each, one float per position, no padding); a scratch area,
+    the larger of the main phase's (the dGᵀ sums of 4 tiles, and per
+    warpgroup dy's 32 rows in two layouts of two TF32 halves, the K = i
+    one's 8-row groups 288 floats apart, and raw, rows padded by 4) and
+    the set-up's (the B j-tile, rows padded by 4, then two C tiles or dS's
+    two halves, then the raw dS, rows padded by 8); the j-tile's dcum rows
+    of 8 heads, row l - 1 of 8, one head's dw w, the two warpgroups' dw
+    halves, column sums (2 x 2 buffers x 4 warps x 32), row sums (2 x 64)
+    and the diagonal tile's column sums (64).  A mirror, as ``smem_bytes``
+    is: ``chip_smoke.py`` holds it equal to the kernel's own count
+    (``ssd_chunk_bwd_smem_bytes``)."""
+    hg, tiles = BWD_HEAD_GROUP, MAX_L // TILE
+    tile = TILE * TILE
+    dy_halves = 2 * 32 * p + 2 * p // 8 * 288        # one warpgroup's
+    main = tiles * tile + 2 * dy_halves + 2 * 32 * (p + 4)
+    setup = (TILE * (n + 4) + max(2 * TILE * (n + 4), 2 * p * n)
+             + p * (n + 8))
+    floats = (hg * MAX_L + tiles * tile + max(main, setup) + hg * TILE + hg
+              + TILE + 2 * TILE + 2 * 2 * 4 * 32 + 2 * TILE + TILE)
     return 4 * floats
 
 
 def bwd_plan(b: int, c: int, l: int, h: int, p: int, n: int) -> SsdBwdPlan:
     """The backward's launch plan for xc (b, c, l, h, p), Bc (b, c, l, n):
-    groups of at most 4 heads, as even as they come."""
+    groups of at most 8 heads, as even as they come."""
     plan(b, c, l, h, p, n)             # raises on what no kernel takes
     j_tiles = -(-l // TILE)
     groups = -(-h // BWD_HEAD_GROUP)
