@@ -26,25 +26,31 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 and its gradient (both SSD kernels under autograd) against
                 autograd of ``ssd_ref``.
   4. prefill  — per model: a reduced model on the card against the CPU (f32
-                weights), then ``make_prefill`` at full width (random weights,
-                seed 0, bf16) on 4 x 1024 tokens, launches per forward
-                checked, the main path's logits held against the
-                plain-kernel forward on the same bf16 weights
-                (``kernels_vs_plain``; MoE: with the routing agreement, see
-                ``pair_check``).
-  5. serve    — qwen3-1.7b, zamba2-1.2b, granite-moe-3b-a800m and
-                qwen3-moe-30b-a3b: ``ServingEngine(batch=4, max_seq=512)``
-                answers 8 requests, each retrieving 4 passages through the
-                port's own IGTCache client; one decode step with kernels
-                against one with plain versions (mamba2-370m: the same
-                comparison after a few decode steps).  Last, each model's f32
-                pairs (``check_f32``): prefill and a decode step with the
-                weights cast to f32, kernels against plain versions;
-                qwen3-moe's on a copy of its first ``F32_DEPTH`` layers, made
-                after the full weights are freed (122 GB in f32 would not
-                fit).
+                weights; audio on frame embeddings, vlm on random image
+                embeddings with nonzero gates), then ``make_prefill`` at
+                full width (random weights, seed 0, bf16) on 4 x 1024 tokens
+                (musicgen: 4 x 1024 frame embeddings; llama-vision: with 4
+                random images of 1601 embeddings, on its first 20 of 100
+                layers), launches per forward checked, the main path's
+                logits held against the plain-kernel forward on the same
+                bf16 weights (``kernels_vs_plain``; MoE: with the routing
+                agreement, see ``pair_check``).
+  5. serve    — every model but mamba2-370m: ``ServingEngine(batch=4,
+                max_seq=512)`` answers 8 requests (token ids; llama-vision
+                with no image, as the reference's engine serves it), each
+                retrieving 4 passages through the port's own IGTCache
+                client; one decode step with kernels against one with plain
+                versions (mamba2-370m: the same comparison after a few
+                decode steps; musicgen on a frame embedding; llama-vision
+                also after a few steps on an image state).  Last, each
+                model's f32 pairs (``check_f32``): prefill and a decode step
+                with the weights cast to f32, kernels against plain
+                versions; qwen3-moe's and llama-vision's on a copy of their
+                first ``F32_DEPTH`` layers, made after the full weights are
+                freed.
   6. train    — per trained model (qwen3-1.7b, granite-moe-3b-a800m,
-                zamba2-1.2b, mamba2-370m): the
+                zamba2-1.2b, mamba2-370m, musicgen-large on frame
+                embeddings drawn from the seed): the
                 reduced model trained 4 steps on the card against the CPU
                 (f32); the launcher (``repro_torch.launch.train``, qwen3) on
                 the card with a checkpoint and a resume; then the model at
@@ -55,7 +61,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 bf16 and f32 (ssm / hybrid: f32 within twice the plain
                 path's own floor, and at 1e-4 on the model's first
                 ``F32_TRAIN_DEPTH`` layers; bf16 beside a floor of order
-                1, see TRAIN_TOL), and one traced step.
+                1, see TRAIN_TOL), and one traced step.  llama-vision: one
+                loss-and-grads on its first ``GRAD_DEPTH`` layers (the
+                non-causal flash backward), held against plain versions in
+                bf16.
   7. profile  — one traced prefill and decode step of each model: device
                 time by kernel (and summed for each of the port's kernels)
                 and the device's busy share (not part of the main path).
@@ -74,9 +83,13 @@ The models, in order: qwen3-1.7b (dense; RMSNorm and flash attention),
 zamba2-1.2b (hybrid; all three forward kernels), mamba2-370m (ssm; RMSNorm
 and the SSD chunk kernel; prefill and training, not served),
 granite-moe-3b-a800m and qwen3-moe-30b-a3b (moe; RMSNorm and flash
-attention at GQA groups 3 and 8), then qwen3-1.7b, granite-moe-3b-a800m,
-zamba2-1.2b and mamba2-370m training (the forwards and the RMSNorm, flash
-and SSD chunk backwards).
+attention at GQA groups 3 and 8), musicgen-large (audio; the dense kernels
+on frame embeddings) and llama-3.2-vision-90b (vlm; RMSNorm at d 8192,
+causal flash attention at H64/KV8/hd128, and non-causal cross-attention
+over 1601 image tokens: prefill's Sq 1024 and decode's Sq 1), then
+qwen3-1.7b, granite-moe-3b-a800m, zamba2-1.2b, mamba2-370m and
+musicgen-large training, and llama-vision's loss and grads (the forwards
+and the RMSNorm, flash and SSD chunk backwards).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase raises
 and the script exits non-zero without it.
@@ -96,15 +109,26 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+VLM, AUDIO = "llama-3.2-vision-90b", "musicgen-large"
 ARCHS = ("qwen3-1.7b", "zamba2-1.2b", "mamba2-370m", "granite-moe-3b-a800m",
-         "qwen3-moe-30b-a3b")
+         "qwen3-moe-30b-a3b", AUDIO, VLM)
 SERVED = ("qwen3-1.7b", "zamba2-1.2b", "granite-moe-3b-a800m",
-          "qwen3-moe-30b-a3b")                   # main path: prefill + serve
+          "qwen3-moe-30b-a3b", AUDIO, VLM)       # main path: prefill + serve
 PROFILED = ARCHS
+# Models run at full width on fewer layers than their config's: 100 layers
+# of llama-3.2-vision-90b are 88.6 G params (177 GB in bf16); 20 (with its
+# 4 cross layers) are 19.82 G, 39.6 GB.
+DEPTH = {VLM: 20}
 # Models whose f32 pairs (kernels vs plain) run on a copy of their first
-# layers (with embed, final norm and head): qwen3-moe's 30.5 G params are
-# 61 GB in bf16 and would be 122 GB in f32.  The others run at full depth.
-F32_DEPTH = {"qwen3-moe-30b-a3b": 4}
+# layers (with embed, final norm and head, and a vlm's cross layers among
+# them): qwen3-moe's 30.5 G params are 61 GB in bf16 and would be 122 GB in
+# f32; llama-vision's 20 layers would be 79 GB.  The others run at full
+# depth.
+F32_DEPTH = {"qwen3-moe-30b-a3b": 4, VLM: 5}
+# llama-vision's loss and grads (no AdamW: params, grads and moments take
+# ~78 GB at any depth from 5) run on its first GRAD_DEPTH layers, one cross
+# layer among them.
+GRAD_DEPTH = 5
 # A MoE pair whose routing differs may flip at most this many times the
 # (layer, token) routes that the plain path's floor flips (``routes_held``).
 ROUTE_FACTOR = 3
@@ -276,11 +300,46 @@ def bwd_build(build: dict, kernel: str, dtype, d: int) -> dict:
     size = 2 if dtype == torch.bfloat16 else 4
     p = rmsnorm_bwd_plan(1, d, size)
     t = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
+    if p.groups == 1:                    # rows of more than 512 vectors
+        return kernel_build(build, "rmsnorm_bwd_long_kernel",
+                            f"I{t}Li{p.vecs}EE")
     return kernel_build(build, "rmsnorm_bwd_kernel",
                         f"I{t}Li{p.vecs}ELi{p.lanes}E")
 
 
 # --------------------------------------------------------------- phase 3
+
+def mixed_rmsnorm_case(rows, d, gen):
+    """x bf16 with an f32 weight (musicgen's first norm under f32 weights)
+    through the dispatch (``ops.rmsnorm``: the f32 kernels on x.float(),
+    the result cast to bf16) and its autograd backward, against
+    ``rmsnorm_ref`` and ``rmsnorm_bwd_ref`` of the same mix: y and dx in
+    bf16 at the bf16 tolerances, dw in f32 by its relative L2 error."""
+    from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd_ref,
+                                             rmsnorm_ref)
+    bf16 = torch.bfloat16
+    x = torch.randn(rows, d, generator=gen, device="cuda").to(bf16)
+    w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    dy = torch.randn(rows, d, generator=gen, device="cuda").to(bf16)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = rmsnorm(xg, wg)
+    dx, dw = torch.autograd.grad(y, (xg, wg), dy)
+    rx, rw = rmsnorm_bwd_ref(x, w, dy)
+    ok_y, err_y = close_enough(y, rmsnorm_ref(x, w), TOL[bf16]["rmsnorm"], bf16)
+    ok_x, err_x = grad_close(dx, rx, bf16, "rmsnorm_bwd")
+    dw_rel = rel_l2(dw, rw)
+    tol = TOL[torch.float32]["rmsnorm_bwd"]
+    return {"kernel": "rmsnorm", "check": "x bf16, w f32: forward and "
+            "backward through ops.rmsnorm", "shape": [rows, d],
+            "dtype": "bfloat16/float32",
+            "out_dtypes": [str(t.dtype)[6:] for t in (y, dx, dw)],
+            "ok": (ok_y and ok_x and dw_rel <= tol
+                   and (y.dtype, dx.dtype, dw.dtype) == (bf16, bf16,
+                                                         torch.float32)),
+            "max_abs_err": err_y, "max_abs_err_dx": err_x, "dw_rel_l2": dw_rel,
+            "tol": {"y": TOL[bf16]["rmsnorm"], "dx": TOL[bf16]["rmsnorm_bwd"],
+                    "dw_rel_l2": tol}}
+
 
 def rmsnorm_case(rows, d, dtype, gen, flush, timed):
     import torch.nn.functional as F
@@ -299,6 +358,13 @@ def rmsnorm_case(rows, d, dtype, gen, flush, timed):
                                     flush),
                  bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
     return r
+
+
+def sdpa_computes(Sq, Skv, causal, q_offset) -> bool:
+    """Whether one ``F.scaled_dot_product_attention`` call computes the same
+    function: no mask, or the causal one when Sq == Skv (SDPA's causal mask
+    is aligned to the top left, the kernels' to q_offset)."""
+    return q_offset == 0 and (not causal or Sq == Skv)
 
 
 def attention_work(B, Sq, Skv, H, hd, causal, q_offset):
@@ -339,9 +405,8 @@ def flash_case(B, Sq, Skv, H, KV, hd, causal, q_offset, dtype, gen, flush,
                             flush),
                  plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, **kw),
                                   flush, iters=5),
-                 library_ms=(time_ms(sdpa, flush)
-                             if causal and q_offset == 0 and Sq == Skv
-                             else None),
+                 library_ms=(time_ms(sdpa, flush) if sdpa_computes(
+                     Sq, Skv, causal, q_offset) else None),
                  bound_ms=max(t_ops, t_bytes),
                  bound_by="operations" if t_ops >= t_bytes else "bytes")
         r["tflops"] = flops / r["ms"] / 1e9
@@ -439,7 +504,7 @@ def flash_bwd_case(B, Sq, Skv, H, KV, hd, causal, q_offset, dtype, gen, flush,
                      q, k, v, o, lse, do, **kw), flush, iters=3),
                  library_ms=(time_ms(lambda: torch.autograd.grad(
                      out, (qt, kt, vt), dot, retain_graph=True), flush)
-                     if q_offset == 0 and Sq == Skv else None),
+                     if sdpa_computes(Sq, Skv, causal, q_offset) else None),
                  bound_ms=max(t_ops, t_bytes),
                  bound_by="operations" if t_ops >= t_bytes else "bytes")
         r["tflops"] = flops / r["ms"] / 1e9
@@ -640,14 +705,19 @@ def phase_kernels(build: dict) -> list:
     # q_norm over B*S*16 rows, k_norm over B*S*8 rows, decode's 4 rows,
     # mamba2's layer norm, a ragged count, llama3-405b's d_model, granite's
     # d_model, and qwen3-moe's q / k norms (B*S*32, B*S*4 rows).
+    # llama-vision's d_model (4 x 1024 rows) and decode's 4 rows.
     for rows, d, timed in [(4096, 2048, True), (65536, 128, True),
                            (32768, 128, True), (4, 2048, True),
                            (4096, 1024, True), (1000, 2048, False),
                            (64, 16384, False), (4096, 1536, True),
-                           (131072, 128, True), (16384, 128, False)]:
+                           (131072, 128, True), (16384, 128, False),
+                           (4096, 8192, True), (4, 8192, False)]:
         for dtype in (torch.bfloat16, torch.float32):
             results.append(rmsnorm_case(rows, d, dtype, gen, flush,
                                         timed and dtype == torch.bfloat16))
+    # x bf16 with w f32: musicgen's width, and a ragged row count.
+    for rows, d in [(4096, 2048), (1000, 8192)]:
+        results.append(mixed_rmsnorm_case(rows, d, gen))
     bf16, f32 = torch.bfloat16, torch.float32
     for shape, causal, off, timed in [
             ((4, 1024, 1024, 16, 8, 128), True, 0, (bf16, f32)),  # qwen3
@@ -660,7 +730,13 @@ def phase_kernels(build: dict) -> list:
             ((2, 16, 16, 4, 2, 16), True, 0, ()),             # hd 16
             ((4, 1024, 1024, 24, 8, 64), True, 0, (bf16,)),   # granite, GQA 3
             ((4, 1024, 1024, 32, 4, 128), True, 0, (bf16,)),  # qwen3-moe, 8
-            ((1, 1000, 1000, 6, 2, 64), True, 0, ())]:        # ragged group 3
+            ((1, 1000, 1000, 6, 2, 64), True, 0, ()),         # ragged group 3
+            # llama-vision: cross-attention over 1601 image tokens (prefill
+            # and decode's one row, whose 128-row Q tile holds one valid row
+            # and whose last KV tile 65 keys), and its self-attention.
+            ((4, 1024, 1601, 64, 8, 128), False, 0, (bf16,)),
+            ((4, 1, 1601, 64, 8, 128), False, 0, (bf16,)),
+            ((4, 1024, 1024, 64, 8, 128), True, 0, (bf16,))]:
         for dtype in (bf16, f32):
             results.append(flash_case(*shape, causal, off, dtype, gen, flush,
                                       dtype in timed))
@@ -693,11 +769,14 @@ def phase_kernels(build: dict) -> list:
     # Backwards (the train phase's kernels).  RMSNorm (rows, d): the qwen3
     # train step's norms over 4 x 1024 tokens (d_model, then the q and k
     # norms), a ragged row count, the reduced config's d_model and head dim,
-    # granite's d_model.
+    # granite's d_model, llama-vision's d_model (the long-row kernel; in f32
+    # eight vectors a thread), an f32 width just past the row groups' 512
+    # vectors, and fewer long rows than CTAs.
     for rows, d, timed in [(4096, 2048, True), (65536, 128, True),
                            (32768, 128, False), (1000, 2048, False),
                            (80, 64, False), (640, 16, False),
-                           (4096, 1536, True)]:
+                           (4096, 1536, True), (4096, 8192, True),
+                           (1000, 2056, False), (7, 8192, False)]:
         for dtype in (bf16, f32):
             results.append(rmsnorm_bwd_case(rows, d, dtype, gen, flush,
                                             timed and dtype == bf16, build))
@@ -719,6 +798,12 @@ def phase_kernels(build: dict) -> list:
         for dtype in (bf16, f32):
             results.append(flash_bwd_case(*shape, causal, off, dtype, gen,
                                           flush, dtype in timed, build))
+    # llama-vision's train shapes, bf16: the non-causal cross-attention
+    # (timed; a ragged last key block of 65) and the causal self-attention.
+    for shape, causal, timed in [((4, 1024, 1601, 64, 8, 128), False, True),
+                                 ((4, 1024, 1024, 64, 8, 128), True, False)]:
+        results.append(flash_bwd_case(*shape, causal, 0, bf16, gen, flush,
+                                      timed, build))
     for r in results:
         emit("kernels", **r)
     bad = [r for r in results if not r["ok"]]
@@ -771,21 +856,82 @@ def tree_to(params, fn):
                 else fn(v)) for k, v in params.items()}
 
 
+def model_inputs(cfg, B: int, S: int, seed: int, device="cuda") -> dict:
+    """One prefill's (or train step's) inputs, drawn from ``seed``: token
+    ids, or audio's frame embeddings (the frontend stub's input, bf16 as
+    ``batch_structs`` declares it); and a vlm's image embeddings (bf16)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def embeds(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(
+            torch.bfloat16)
+    out = {}
+    if cfg.family == "audio":
+        out["inputs_embeds"] = embeds(B, S, cfg.d_model)
+    else:
+        out["tokens"] = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                      device=device)
+    if cfg.family == "vlm":
+        out["img_embeds"] = embeds(B, cfg.n_image_tokens, cfg.d_model)
+    return out
+
+
+def with_inputs(cfg, batch: dict, seed: int, device="cuda") -> dict:
+    """A (tokens, labels) batch with audio's frame embeddings in place of
+    its tokens and a vlm's image embeddings added, drawn from ``seed``
+    (``model_inputs``); other families' batches as they are."""
+    if cfg.family not in ("audio", "vlm"):
+        return batch
+    B, S = batch["labels"].shape
+    extra = model_inputs(cfg, B, S, seed, device)
+    out = {k: v for k, v in batch.items()
+           if k != "tokens" or "tokens" in extra}
+    out.update({k: v for k, v in extra.items() if k != "tokens"})
+    return out
+
+
+def step_inputs(cfg, batch: int, seed: int) -> dict:
+    """One decode step's input: a token id a sequence (numpy, from
+    ``seed``), or audio's frame embedding."""
+    if cfg.family == "audio":
+        return {"inputs_embeds": model_inputs(cfg, batch, 1, seed)[
+            "inputs_embeds"]}
+    return {"tokens": torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (batch, 1)))}
+
+
+def open_gates(cfg, params, seed: int = 0):
+    """A vlm's ``ca_gate`` set to 0.5 + 0.1 N(0, 1) (in place): the init's
+    zeros (tanh(0) = 0) would hide every cross-attention error."""
+    if cfg.family == "vlm":
+        gate = params["cross"]["ca_gate"]
+        gen = torch.Generator(device=gate.device).manual_seed(seed)
+        gate.copy_(0.5 + 0.1 * torch.randn(gate.shape, generator=gen,
+                                           device=gate.device))
+    return params
+
+
 def small_model_check(arch: str) -> None:
     """A reduced model with f32 weights: the card (kernels) against the CPU
-    (plain versions) on the same weights and tokens; 40 tokens span two of
-    the reduced SSM configs' 32-token chunks."""
+    (plain versions) on the same weights and inputs; 40 tokens span two of
+    the reduced SSM configs' 32-token chunks (audio: frame embeddings, so
+    its first norm and products mix bf16 with f32; vlm: image embeddings
+    and nonzero gates)."""
     from repro_torch.configs import reduced_config
     from repro_torch.models.transformer import forward, init_params
     cfg = reduced_config(arch)
-    cpu = tree_to(init_params(cfg, torch.Generator().manual_seed(0)),
-                  lambda t: t.float())
+    cpu = open_gates(cfg, tree_to(init_params(
+        cfg, torch.Generator().manual_seed(0)), lambda t: t.float()))
     gpu = tree_to(cpu, lambda t: t.cuda())
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab, (2, 40)))
+    if cfg.family in ("audio", "vlm"):
+        inputs = model_inputs(cfg, 2, 40, 0, device="cpu")
+    else:
+        inputs = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (2, 40)))}
     with torch.inference_mode():
-        want, _ = forward(cpu, cfg, toks, remat="none")
-        got, _ = forward(gpu, cfg, toks.cuda(), remat="none")
+        want, _ = forward(cpu, cfg, remat="none", **inputs)
+        got, _ = forward(gpu, cfg, remat="none",
+                         **{k: v.cuda() for k, v in inputs.items()})
     err = float((got.cpu() - want).abs().max())
     ok = bool(torch.allclose(got.cpu(), want, atol=SMALL_F32_TOL,
                              rtol=SMALL_F32_TOL))
@@ -796,13 +942,22 @@ def small_model_check(arch: str) -> None:
                              f"CPU by {err}")
 
 
+def cross_fired(cfg) -> int:
+    """Layers whose cross-attention fires (every ``cross_attn_every``-th
+    from 0): a vlm's n_ca when ``cross_attn_every`` divides n_layers."""
+    return -(-cfg.n_layers // cfg.cross_attn_every) if cfg.family == "vlm" \
+        else 0
+
+
 def expected_per_forward(cfg) -> dict:
     """Kernel launches one prefill forward must make; every flash launch is
-    the wgmma variant (bf16, hd 64 / 128).  moe counts as dense: its
-    ``ffn_norm`` takes the place of the SwiGLU's."""
+    the wgmma variant (bf16, hd 64 / 128).  moe and audio count as dense
+    (moe's ``ffn_norm`` takes the place of the SwiGLU's); a vlm's cross
+    layer adds its norm and its flash launch each time it fires."""
     L = cfg.n_layers
-    if cfg.family in ("dense", "moe"):
-        norms, flash, ssd = L * (2 + 2 * cfg.qk_norm) + 1, L, 0
+    if cfg.family in ("dense", "moe", "audio", "vlm"):
+        norms = L * (2 + 2 * cfg.qk_norm) + cross_fired(cfg) + 1
+        flash, ssd = L + cross_fired(cfg), 0
     else:
         flash = -(-L // cfg.shared_attn_every) if cfg.family == "hybrid" else 0
         norms, ssd = L + 2 * flash + 1, L
@@ -816,16 +971,15 @@ def expected_per_forward(cfg) -> dict:
 def phase_prefill(cfg, params) -> dict:
     from repro_torch.serve.serve_step import make_prefill
     B, S, runs = 4, 1024, 3
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    inputs = model_inputs(cfg, B, S, 0)
     prefill = make_prefill(cfg, "cuda")
     before = counts()
     with routing_log() as routes:     # warm-up run: the logits checked later
-        logits = prefill(params, tokens)
+        logits = prefill(params, **inputs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(runs):
-        prefill(params, tokens)
+        prefill(params, **inputs)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / runs * 1e3
     per_forward = {k: (v - before[k]) / (runs + 1)
@@ -837,7 +991,7 @@ def phase_prefill(cfg, params) -> dict:
     if per_forward != expected_per_forward(cfg):
         raise AssertionError(f"{cfg.name} prefill launched {per_forward}, "
                              f"expected {expected_per_forward(cfg)}")
-    return {"logits": logits, "routes": routes, "tokens": tokens, "ms": ms,
+    return {"logits": logits, "routes": routes, "inputs": inputs, "ms": ms,
             "tokens_per_s": B * S / ms * 1e3, "launches": per_forward,
             "batch": B, "seq": S}
 
@@ -986,7 +1140,7 @@ def check_prefill(cfg, params, pre) -> None:
 
     def run(p, force_ref):
         return make_prefill(cfg, "cuda", force_ref=force_ref)(
-            p, pre["tokens"])
+            p, **pre["inputs"])
     logits_max_abs = float(pre["logits"].abs().max())
     cmp = kernels_vs_plain(cfg, params, run, got=pre.pop("logits"),
                            rk=pre.pop("routes"))
@@ -1037,8 +1191,13 @@ def phase_serve(cfg, params) -> dict:
     snap = client.snapshot()
     client.close()
     retrievals = sum(r.retrieved for r in done)
+    # Decode reaches the flash kernel only through a vlm's cross-attention
+    # (one q row over the image): once a step for each cross layer that
+    # fires.
     ok = (len(done) == n_req and retrievals == 4 * n_req
-          and all(len(r.output) == max_new for r in done))
+          and all(len(r.output) == max_new for r in done)
+          and launches["flash_attention"] == eng.steps * cross_fired(cfg)
+          == launches["flash_attention/wgmma"])
     return {"engine": eng, "ok": ok, "requests": len(done),
             "tokens": sum(len(r.output) for r in done), "seconds": dt,
             "steps": eng.steps, "launches": launches,
@@ -1055,15 +1214,15 @@ def clone_state(state) -> dict:
 
 def decode_run(cfg, state):
     """``run(p, force_ref)`` -> the logits of one decode step on a copy of
-    ``state`` (decode_step updates it in place), for ``pair_check``."""
+    ``state`` (decode_step updates it in place), for ``pair_check``: a
+    token id a sequence, or audio's frame embedding."""
     from repro_torch.serve.serve_step import make_serve_step
     batch = state["ssd" if "ssd" in state else "k"].shape[1]
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (batch, 1)))
+    feed = step_inputs(cfg, batch, 1)
 
     def run(p, force_ref):
         return make_serve_step(cfg, "cuda", force_ref=force_ref)(
-            p, clone_state(state), toks)[0]
+            p, clone_state(state), **feed)[0]
     return run
 
 
@@ -1098,27 +1257,41 @@ def check_serve(cfg, params, srv) -> None:
 
 def cut_depth(cfg, params, depth: int, clone: bool = False):
     """(cfg, params) cut to the first ``depth`` layers, with embed, final
-    norm, head and a hybrid's shared block; ``clone`` copies the cut
+    norm, head, a hybrid's shared block and a vlm's first
+    ``depth // cross_attn_every`` cross layers; ``clone`` copies the cut
     layers (views otherwise)."""
-    cut = dict(params, blocks={
-        n: t[:depth].clone() if clone else t[:depth]
-        for n, t in params["blocks"].items()})
+    def first(tree, n):
+        return {k: t[:n].clone() if clone else t[:n] for k, t in tree.items()}
+    cut = dict(params, blocks=first(params["blocks"], depth))
+    if cfg.family == "vlm":
+        cut["cross"] = first(params["cross"], depth // cfg.cross_attn_every)
     return dataclasses.replace(cfg, n_layers=depth), cut
 
 
-def check_f32(cfg, params, tokens, state) -> None:
-    """The f32 pairs: prefill on ``tokens`` and one decode step on
+def cut_state(cfg, state, depth: int) -> dict:
+    """A decode state cut (copied) to the first ``depth`` layers, and a
+    vlm's image K/V to the cross layers among them."""
+    n_ca = depth // cfg.cross_attn_every if cfg.family == "vlm" else 0
+    return {k: (v[:depth].clone() if torch.is_tensor(v) else
+                tuple(t[:n_ca].clone() for t in v) if k == "img_kv" else v)
+            for k, v in state.items()}
+
+
+def check_f32(cfg, params, inputs, state) -> None:
+    """The f32 pairs: prefill on ``inputs`` and one decode step on
     ``state``, with the weights cast to f32, kernels against plain versions
     (``pair_check``).  ``params`` (the caller's only reference to the bf16
     weights) is emptied before the f32 copy is made.  A model in F32_DEPTH
     is cut first to its first layers, with embed, final norm and head, and
-    ``state`` with it."""
+    ``state`` with it.  A vlm's state keeps its bf16 image K/V, so its
+    decode step runs f32 queries over bf16 keys and values (cast to f32, as
+    the reference computes them); audio's bf16 frame embeddings meet f32
+    weights in its first norm and products."""
     depth = F32_DEPTH.get(cfg.name, cfg.n_layers)
     cut = dict(params)
     if depth < cfg.n_layers:
+        state = cut_state(cfg, state, depth)
         cfg, cut = cut_depth(cfg, params, depth, clone=True)
-        state = {k: v[:depth].clone() if torch.is_tensor(v) else v
-                 for k, v in state.items()}
     params.clear()
     torch.cuda.empty_cache()
     p32 = tree_to(cut, lambda t: t.float())
@@ -1126,7 +1299,7 @@ def check_f32(cfg, params, tokens, state) -> None:
     torch.cuda.empty_cache()
     from repro_torch.serve.serve_step import make_prefill
     prefill = pair_check(p32, lambda p, force_ref: make_prefill(
-        cfg, "cuda", force_ref=force_ref)(p, tokens))
+        cfg, "cuda", force_ref=force_ref)(p, **inputs))
     decode = pair_check(p32, decode_run(cfg, state))
     ok = prefill["ok"] and decode["ok"]
     emit("f32", arch=cfg.name, check="kernels vs plain, f32 weights",
@@ -1139,27 +1312,31 @@ def check_f32(cfg, params, tokens, state) -> None:
                              f"kernels differ from plain versions")
 
 
-def check_decode(cfg, params, steps: int = 8) -> dict:
-    """For a model that is not served on the main path: ``steps`` decode
-    steps from an empty state, then one step with kernels against one with
-    plain versions; returns the state."""
+def check_decode(cfg, params, steps: int = 8, img_embeds=None) -> dict:
+    """For a model that is not served on the main path, or a vlm on an image
+    state (``img_embeds``): ``steps`` decode steps from an empty state (its
+    image K/V from ``img_embeds``), then one step with kernels against one
+    with plain versions; returns the state."""
     from repro_torch.models.transformer import init_decode_state
     from repro_torch.serve.serve_step import make_serve_step
-    state = init_decode_state(cfg, 4, 64, device="cuda")
+    state = init_decode_state(cfg, 4, 64, device="cuda", img_embeds=img_embeds,
+                              params=None if img_embeds is None else params)
     step = make_serve_step(cfg, "cuda")
     toks = np.random.default_rng(3).integers(0, cfg.vocab, (4, steps))
     for t in range(steps):
         _, state = step(params, state, toks[:, t:t + 1])
     cmp = decode_step_check(cfg, params, state)
     emit("serve", arch=cfg.name, check="decode step after "
-         f"{steps} steps, kernels vs plain", ok=True, **cmp)
+         f"{steps} steps" + (" on an image state" if img_embeds is not None
+                             else "") + ", kernels vs plain", ok=True, **cmp)
     return state
 
 
 # --------------------------------------------------------------- phase 6
 
 TRAIN_ARCHS = ("qwen3-1.7b", "granite-moe-3b-a800m", "zamba2-1.2b",
-               "mamba2-370m")
+               "mamba2-370m", AUDIO)
+GRAD_ARCHS = (VLM,)          # loss and grads only, at GRAD_DEPTH
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 3       # timed steps, after one more
 # A full-width step with kernels against the same step with plain versions:
 # loss relative error, and each leaf's gradient by relative L2 error.  In
@@ -1198,7 +1375,8 @@ ORDER_ONE = 0.1
 def small_train_check(arch: str) -> None:
     """A reduced model with f32 weights: 4 steps of ``make_train_step`` on
     the card (kernels) against the CPU (plain versions), same weights and
-    batches; per-step loss within 1e-4, final params within 1e-4.
+    batches (audio: frame embeddings; vlm: image embeddings and nonzero
+    gates); per-step loss within 1e-4, final params within 1e-4.
 
     AdamW's step is m / (sqrt(v) + eps) (bias-corrected), at the first step
     g / (|g| + eps): where sqrt(v) is itself within a few eps (a gradient
@@ -1214,8 +1392,8 @@ def small_train_check(arch: str) -> None:
     from repro_torch.train.train_step import make_train_step
     cfg = reduced_config(arch)
     opt_cfg = AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=4)
-    cpu = tree_to(init_params(cfg, torch.Generator().manual_seed(0)),
-                  lambda t: t.float())
+    cpu = open_gates(cfg, tree_to(init_params(
+        cfg, torch.Generator().manual_seed(0)), lambda t: t.float()))
     run = {}
     for dev in ("cpu", "cuda"):
         p = cpu if dev == "cpu" else tree_to(
@@ -1228,9 +1406,10 @@ def small_train_check(arch: str) -> None:
     rng = np.random.default_rng(0)
     for step in range(1, 5):
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 65)))
+        cpu_batch = with_inputs(cfg, {"tokens": toks[:, :-1],
+                                      "labels": toks[:, 1:]}, step, "cpu")
         for dev, r in run.items():
-            batch = {"tokens": toks[:, :-1].to(dev),
-                     "labels": toks[:, 1:].to(dev)}
+            batch = {k: v.to(dev) for k, v in cpu_batch.items()}
             r[0], r[1], m = r[3](r[0], r[1], batch)
             r[2].append(float(m["loss"]))
         for path, v in tree_leaves(run["cpu"][1].nu):
@@ -1288,16 +1467,19 @@ def launcher_check() -> None:
 
 
 def expected_per_train_step(cfg) -> dict:
-    """Kernel launches of one train step under remat="full": every layer's
-    forward runs twice (the step, then the recompute), the final norm once;
-    one backward each.  A layer's norms: dense / moe 2 (+ 2 q/k norms), a
-    Mamba2 layer 1 (its gated norm is plain torch), the hybrid's shared
-    block 2 each time it fires (every ``shared_attn_every``-th layer, with
-    its attention).  Every flash launch, forward and backward, is the
+    """Kernel launches of one train step (or loss and grads: AdamW launches
+    none of these) under remat="full": every layer's forward runs twice (the
+    step, then the recompute), the final norm once; one backward each.  A
+    layer's norms: dense / moe / audio / vlm 2 (+ 2 q/k norms), a Mamba2
+    layer 1 (its gated norm is plain torch), the hybrid's shared block 2
+    each time it fires (every ``shared_attn_every``-th layer, with its
+    attention), a vlm's cross layer 1 each time it fires (with its
+    non-causal attention).  Every flash launch, forward and backward, is the
     ``wgmma`` variant (bf16, hd 64 / 128)."""
     L = cfg.n_layers
-    if cfg.family in ("dense", "moe"):
-        norms, flash, ssd = L * (2 + 2 * cfg.qk_norm), L, 0
+    if cfg.family in ("dense", "moe", "audio", "vlm"):
+        norms = L * (2 + 2 * cfg.qk_norm) + cross_fired(cfg)
+        flash, ssd = L + cross_fired(cfg), 0
     else:
         flash = -(-L // cfg.shared_attn_every) if cfg.family == "hybrid" else 0
         norms, ssd = L + 2 * flash, L
@@ -1310,12 +1492,21 @@ def expected_per_train_step(cfg) -> dict:
             "flash_attention_bwd/mma_sync": 0, "flash_attention_bwd/fma": 0}
 
 
+def train_batch(cfg, batch_np, seed: int) -> dict:
+    """A pipeline batch on the card; audio trains on frame embeddings drawn
+    from ``seed`` in place of the token ids (the frontend stub's input, as
+    ``batch_structs`` declares it), against the pipeline's labels; a vlm
+    gets image embeddings from ``seed``."""
+    from repro_torch.launch.train import to_device
+    return with_inputs(cfg, to_device(batch_np, "cuda"), 100 + seed)
+
+
 def phase_train(cfg, params) -> dict:
     """The main path: ``make_train_step`` (remat="full", dense loss, AdamW)
     on batches of TRAIN_B x TRAIN_S tokens from the launcher's
-    ``CachedTokenPipeline`` over the port's cache, one warm-up step and
-    TRAIN_STEPS timed ones; launches per step checked."""
-    from repro_torch.launch.train import build_pipeline, to_device
+    ``CachedTokenPipeline`` over the port's cache (``train_batch``), one
+    warm-up step and TRAIN_STEPS timed ones; launches per step checked."""
+    from repro_torch.launch.train import build_pipeline
     from repro_torch.storage import RemoteStore
     from repro_torch.train.optimizer import AdamWConfig, init_state
     from repro_torch.train.train_step import make_train_step
@@ -1326,8 +1517,9 @@ def phase_train(cfg, params) -> dict:
     opt_state = init_state(params)
     step = make_train_step(cfg, AdamWConfig(total_steps=steps), remat="full")
     it = pipe.batches(epochs=1000)
+    draws = iter(range(steps))
     before = counts()
-    batch = to_device(next(it), "cuda")
+    batch = train_batch(cfg, next(it), next(draws))
     params, opt_state, m = step(params, opt_state, batch)  # warm-up step
     losses = [float(m["loss"])]
     torch.cuda.synchronize()
@@ -1335,7 +1527,7 @@ def phase_train(cfg, params) -> dict:
     data_s = 0.0                         # host time drawing the next batch
     for _ in range(TRAIN_STEPS):
         t1 = time.perf_counter()
-        batch = to_device(next(it), "cuda")
+        batch = train_batch(cfg, next(it), next(draws))
         data_s += time.perf_counter() - t1
         params, opt_state, m = step(params, opt_state, batch)
         losses.append(float(m["loss"]))
@@ -1370,18 +1562,30 @@ def train_step_flops(cfg, B, S) -> float:
     and backward (2.5x) once, and a Mamba2 layer's SSD chunk (``ssd_work``)
     forward twice and backward (``ssd_bwd_work``) once.  A Mamba2 layer's
     weights are in_proj d x (2 d_in + 2 n + nh) and out_proj d_in x d; the
-    hybrid's shared attention / MLP block counts once each time it fires."""
+    hybrid's shared attention / MLP block counts once each time it fires,
+    and so does a vlm's cross layer (q and o products over the tokens,
+    attention over the image; its K and V products over the image
+    embeddings, outside the checkpointed layers, 6 N a row)."""
     d, L = cfg.d_model, cfg.n_layers
     T = B * S
     qkv = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd
     attn_block = qkv + cfg.n_heads * cfg.hd * d + 3 * d * cfg.d_ff
     attn = (2 + 2.5) * attention_work(B, S, S, cfg.n_heads, cfg.hd, True, 0)
     head = 6 * d * cfg.vocab * T
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "audio", "vlm"):
         if cfg.family == "moe":
             attn_block += (d * cfg.n_experts
                            + 3 * d * cfg.d_ff * (cfg.top_k - 1))
-        return 8 * L * attn_block * T + head + L * attn
+        flops = 8 * L * attn_block * T + head + L * attn
+        if cfg.family == "vlm":
+            n_img = cfg.n_image_tokens
+            qo = 2 * d * cfg.n_heads * cfg.hd
+            kv = 2 * d * cfg.n_kv_heads * cfg.hd
+            cross = (8 * qo * T + 6 * kv * B * n_img + (2 + 2.5)
+                     * attention_work(B, S, n_img, cfg.n_heads, cfg.hd,
+                                      False, 0))
+            flops += cross_fired(cfg) * cross
+        return flops
     from repro_torch.models.ssm import ssm_dims
     d_in, nh, n, _ = ssm_dims(cfg)
     chunk = cfg.ssm_chunk
@@ -1413,6 +1617,84 @@ def plain_floor(cfg, params, batch):
             params, batch)
 
 
+def grad_pair(cfg, p, batch, dtype) -> dict:
+    """One loss and its gradients with kernels against the same with plain
+    versions (``force_ref``), from the weights ``p`` (of ``dtype``) and
+    ``batch``, under TRAIN_TOL and the floors (``check_train`` says
+    which)."""
+    from repro_torch.train.train_step import make_value_and_grad
+    plain_step = make_value_and_grad(cfg, remat="full", force_ref=True)
+    ssm = cfg.family in ("ssm", "hybrid")
+    with routing_log() as rk:
+        kern = make_value_and_grad(cfg, remat="full")(p, batch)
+    with routing_log() as rp:
+        plain = plain_step(p, batch)
+    agree = routing_agreement(rk, rp)
+    replay = rk if agree is not None else None
+    r = {}
+    if agree is not None:
+        r.update(routing_agreement=agree, rule="tolerance")
+        if agree < 1:
+            loss_rel, errs = grad_gap(kern, plain)
+            r.update(rule="replay", loss_rel_err_own_routing=loss_rel,
+                     worst_grad_rel_l2_own_routing=max(errs.values()))
+            del plain
+            with routing_log() as rf:
+                plain_floor(cfg, p, batch)
+            r.update(routes_held(agree, routing_agreement(rf, rp),
+                                 rp[0].shape[0]))
+            del rf
+            with routing_log(replay=replay):
+                plain = plain_step(p, batch)
+    loss_rel, errs = grad_gap(kern, plain)
+    tol = dict(TRAIN_TOL[dtype])
+    if dtype == torch.float32 and "inputs_embeds" in batch:
+        # Audio's frame embeddings are bf16 (as in the reference), so under
+        # f32 weights layer 0's attention norm returns bf16 and its
+        # gradient arrives rounded to bf16: a last-bit change upstream
+        # moves that one row of ``attn_norm``'s gradient by bf16 steps,
+        # 0.5-0.9e-4 of the leaf between two plain runs at any depth
+        # (examples/train_f32_floor_torch.py).  That row is held at the
+        # bf16 gradient bound, the leaf's other rows with the rest.
+        k0, p0 = (t[1]["blocks"]["attn_norm"] for t in (kern, plain))
+        errs["blocks/attn_norm"] = rel_l2(k0[1:], p0[1:])
+        r["bf16_cotangent_rows"] = {"blocks/attn_norm[0]": rel_l2(k0[0],
+                                                                 p0[0])}
+        r["bf16_cotangent_ok"] = (r["bf16_cotangent_rows"][
+            "blocks/attn_norm[0]"] <= TRAIN_TOL[torch.bfloat16]["grad"])
+    worst = max(errs, key=errs.get)
+    r.update({"loss_kernels": float(kern[0]),
+              "loss_plain": float(plain[0]), "loss_rel_err": loss_rel,
+              "worst_grad_rel_l2": errs[worst], "worst_leaf": worst,
+              "embed_grad_rel_l2": errs["embed"],
+              "median_grad_rel_l2": float(np.median(list(errs.values())))})
+    if cfg.family == "vlm":
+        r["cross_grad_rel_l2"] = {k: v for k, v in errs.items()
+                                  if k.startswith("cross/")}
+    del kern
+    if dtype == torch.bfloat16 or ssm:
+        with routing_log(replay=replay):
+            floor_run = plain_floor(cfg, p, batch)
+        floor_loss, floor = grad_gap(floor_run, plain)
+        del floor_run
+        r.update(floor_worst_grad_rel_l2=max(floor.values()),
+                 floor_median_grad_rel_l2=float(np.median(
+                     list(floor.values()))),
+                 floor_loss_rel_err=floor_loss)
+        tol["grad"] = max(tol["grad"],
+                          FLOOR_FACTOR * r["floor_worst_grad_rel_l2"])
+        if ssm:
+            tol["loss"] = max(tol["loss"], FLOOR_FACTOR * floor_loss)
+    r["ok"] = (loss_rel <= tol["loss"] and errs[worst] <= tol["grad"]
+               and r.get("routes_ok", True)
+               and r.get("bf16_cotangent_ok", True))
+    r["tol"] = tol
+    if (ssm and dtype == torch.bfloat16
+            and r["floor_worst_grad_rel_l2"] >= ORDER_ONE):
+        r.update(rule="reported: floor of order 1", held=False)
+    return r
+
+
 def check_train(cfg, params, tr) -> None:
     """One step's loss and gradients with kernels against the same step with
     plain versions (``force_ref``), from the same weights and batch: in bf16
@@ -1422,65 +1704,13 @@ def check_train(cfg, params, tr) -> None:
     repeated on the kernel step's experts, where the bf16 floor is measured
     too (``pair_check`` says why)."""
     from repro_torch.train.train_step import make_value_and_grad
-    plain_step = make_value_and_grad(cfg, remat="full", force_ref=True)
     ssm = cfg.family in ("ssm", "hybrid")
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         p = params if dtype == torch.bfloat16 else tree_to(
             params, lambda t: t.float())
-        with routing_log() as rk:
-            kern = make_value_and_grad(cfg, remat="full")(p, tr["batch"])
-        with routing_log() as rp:
-            plain = plain_step(p, tr["batch"])
-        agree = routing_agreement(rk, rp)
-        replay = rk if agree is not None else None
-        r = {}
-        if agree is not None:
-            r.update(routing_agreement=agree, rule="tolerance")
-            if agree < 1:
-                loss_rel, errs = grad_gap(kern, plain)
-                r.update(rule="replay", loss_rel_err_own_routing=loss_rel,
-                         worst_grad_rel_l2_own_routing=max(errs.values()))
-                del plain
-                with routing_log() as rf:
-                    plain_floor(cfg, p, tr["batch"])
-                r.update(routes_held(agree, routing_agreement(rf, rp),
-                                     rp[0].shape[0]))
-                del rf
-                with routing_log(replay=replay):
-                    plain = plain_step(p, tr["batch"])
-        loss_rel, errs = grad_gap(kern, plain)
-        worst = max(errs, key=errs.get)
-        tol = dict(TRAIN_TOL[dtype])
-        r.update({"loss_kernels": float(kern[0]),
-                  "loss_plain": float(plain[0]), "loss_rel_err": loss_rel,
-                  "worst_grad_rel_l2": errs[worst], "worst_leaf": worst,
-                  "embed_grad_rel_l2": errs["embed"],
-                  "median_grad_rel_l2": float(np.median(
-                      list(errs.values())))})
-        del kern
-        if dtype == torch.bfloat16 or ssm:
-            with routing_log(replay=replay):
-                floor_run = plain_floor(cfg, p, tr["batch"])
-            floor_loss, floor = grad_gap(floor_run, plain)
-            del floor_run
-            r.update(floor_worst_grad_rel_l2=max(floor.values()),
-                     floor_median_grad_rel_l2=float(np.median(
-                         list(floor.values()))),
-                     floor_loss_rel_err=floor_loss)
-            tol["grad"] = max(tol["grad"],
-                              FLOOR_FACTOR * r["floor_worst_grad_rel_l2"])
-            if ssm:
-                tol["loss"] = max(tol["loss"], FLOOR_FACTOR * floor_loss)
-        del rk, rp, replay
-        r["ok"] = (loss_rel <= tol["loss"] and errs[worst] <= tol["grad"]
-                   and r.get("routes_ok", True))
-        r["tol"] = tol
-        if (ssm and dtype == torch.bfloat16
-                and r["floor_worst_grad_rel_l2"] >= ORDER_ONE):
-            r.update(rule="reported: floor of order 1", held=False)
-        out[str(dtype)[6:]] = r
-        del p, plain
+        out[str(dtype)[6:]] = grad_pair(cfg, p, tr["batch"], dtype)
+        del p
         torch.cuda.empty_cache()
     if ssm:
         c, cut = cut_depth(cfg, params, F32_TRAIN_DEPTH)
@@ -1517,12 +1747,13 @@ def check_train(cfg, params, tr) -> None:
 
 
 def random_batch(cfg) -> dict:
-    """A TRAIN_B x TRAIN_S batch of random tokens (seed 0) on the card."""
+    """A TRAIN_B x TRAIN_S batch of random tokens (seed 0) on the card; audio
+    on frame embeddings, a vlm with image embeddings (``model_inputs``)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     toks = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S + 1), generator=gen,
                          device="cuda")
-    return {"tokens": toks[:, :-1].contiguous(),
-            "labels": toks[:, 1:].contiguous()}
+    return with_inputs(cfg, {"tokens": toks[:, :-1].contiguous(),
+                             "labels": toks[:, 1:].contiguous()}, 1)
 
 
 def profile_train(cfg, params, batch) -> None:
@@ -1566,6 +1797,59 @@ def run_train(arch: str) -> dict:
     return {"launches": launches, "per_train_step": tr["launches"]}
 
 
+def run_grads(arch: str) -> dict:
+    """A model trained on one card only as far as its loss and grads
+    (llama-vision: its first GRAD_DEPTH layers, one cross layer among them;
+    a full step's AdamW state would not fit): two calls of
+    ``make_value_and_grad`` (remat "full", dense loss) on a TRAIN_B x
+    TRAIN_S batch from the launcher's ``CachedTokenPipeline`` with random
+    image embeddings, counted from 0 as a train path, the second timed; then
+    one call with kernels against plain versions in bf16 (``grad_pair``:
+    its own kernel call, as the three grads trees and the params take ~52
+    GB)."""
+    from repro_torch.launch.train import build_pipeline
+    from repro_torch.storage import RemoteStore
+    from repro_torch.train.train_step import make_value_and_grad
+    cfg, params = init_model(arch, depth=GRAD_DEPTH)
+    pipe, client = build_pipeline(RemoteStore(), cfg.vocab, batch=TRAIN_B,
+                                  seq=TRAIN_S, steps=1, cache_mb=256,
+                                  cache_bundle="igtcache")
+    batch = train_batch(cfg, next(pipe.batches(epochs=1)), 0)
+    pipe.close()
+    client.close()
+    value_and_grad = make_value_and_grad(cfg, remat="full")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                       # the train path starts here
+    loss0, _ = value_and_grad(params, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _ = value_and_grad(params, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()                  # ... and ends here
+    per_call = {k: v / 2 for k, v in launches.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del _
+    r = grad_pair(cfg, params, batch, torch.bfloat16)
+    flops = train_step_flops(cfg, TRAIN_B, TRAIN_S)
+    ok = (r["ok"] and bool(torch.isfinite(loss0))
+          and per_call == expected_per_train_step(cfg))
+    emit("train", arch=cfg.name, check=f"loss and grads, first {GRAD_DEPTH} "
+         "layers, kernels vs plain (bf16)", depth=GRAD_DEPTH, batch=TRAIN_B,
+         seq=TRAIN_S, remat="full", loss="dense", ms_per_loss_and_grads=ms,
+         tokens_per_s=TRAIN_B * TRAIN_S / ms * 1e3, tflop=flops / 1e12,
+         achieved_tflops=flops / ms / 1e9, peak_mem_gb=peak,
+         launches_per_call=per_call,
+         expected_per_call=expected_per_train_step(cfg), ok=ok,
+         kernels_vs_plain={"bfloat16": r})
+    if not ok:
+        raise AssertionError(f"{cfg.name} loss and grads with kernels: {r}, "
+                             f"launches {per_call}")
+    del params, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_train_step": per_call}
+
+
 # --------------------------------------------------------------- phase 7
 
 def phase_profile(cfg, params) -> None:
@@ -1574,14 +1858,12 @@ def phase_profile(cfg, params) -> None:
     the host's wall time."""
     from repro_torch.models.transformer import init_decode_state
     from repro_torch.serve.serve_step import make_prefill, make_serve_step
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    tokens = torch.randint(0, cfg.vocab, (4, 1024), generator=gen,
-                           device="cuda")
+    inputs = model_inputs(cfg, 4, 1024, 2)
     state = init_decode_state(cfg, 4, 512, device="cuda")
-    step_toks = tokens[:, :1]
+    feed = {k: v[:, :1] for k, v in inputs.items() if k != "img_embeds"}
     prefill, step = make_prefill(cfg, "cuda"), make_serve_step(cfg, "cuda")
-    for what, fn in (("prefill", lambda: prefill(params, tokens)),
-                     ("decode_step", lambda: step(params, state, step_toks))):
+    for what, fn in (("prefill", lambda: prefill(params, **inputs)),
+                     ("decode_step", lambda: step(params, state, **feed))):
         fn()
         torch.cuda.synchronize()
         profile_once(cfg.name, what, fn)
@@ -1626,16 +1908,24 @@ def profile_once(arch: str, what: str, fn, top_n: int = 10) -> None:
 
 # --------------------------------------------------------------- main
 
-def init_model(arch: str):
+def init_model(arch: str, depth=None):
+    """The model at full width, random weights from seed 0 on the card (a
+    vlm's gates opened), on its first ``depth`` layers (default: DEPTH's,
+    else all)."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
     cfg = get_config(arch)
+    depth = depth or DEPTH.get(arch, cfg.n_layers)
+    reduced = (f"n_layers {cfg.n_layers} -> {depth}"
+               if depth < cfg.n_layers else None)
+    cfg = dataclasses.replace(cfg, n_layers=depth)
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    params = open_gates(cfg, init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0)))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for v in params.values()
                    for t in (v.values() if isinstance(v, dict) else [v]))
-    emit("init", arch=cfg.name, params=n_params,
+    emit("init", arch=cfg.name, params=n_params, reduced=reduced,
          gb=n_params * 2 / 1e9, seconds=time.perf_counter() - t0)
     return cfg, params
 
@@ -1657,9 +1947,12 @@ def run_model(arch: str) -> dict:
         state = srv.pop("engine").state
     else:
         state = check_decode(cfg, params)
+    if cfg.family == "vlm":              # the engine's state has no image
+        state = check_decode(cfg, params,
+                             img_embeds=pre["inputs"]["img_embeds"])
     if arch in PROFILED:
         phase_profile(cfg, params)
-    check_f32(cfg, params, pre["tokens"], state)
+    check_f32(cfg, params, pre["inputs"], state)
     del params, state
     torch.cuda.empty_cache()
     return {"launches": launches, "per_prefill": pre["launches"],
@@ -1699,12 +1992,14 @@ def main() -> int:
         return 0
     for arch in ARCHS:
         small_model_check(arch)
-    for arch in TRAIN_ARCHS:
+    for arch in TRAIN_ARCHS + GRAD_ARCHS:
         small_train_check(arch)
     launcher_check()
     paths = {arch: run_model(arch) for arch in ARCHS}
     for arch in TRAIN_ARCHS:
         paths[f"train/{arch}"] = run_train(arch)
+    for arch in GRAD_ARCHS:
+        paths[f"train/{arch}"] = run_grads(arch)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

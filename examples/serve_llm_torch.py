@@ -2,15 +2,19 @@
 
 The same CLI as ``examples/serve_llm.py``, plus ``--device`` (default
 ``cuda``; pass ``cpu`` to run the plain PyTorch path) and ``--full`` (the
-full configuration instead of ``reduced_config``).  ``--arch`` takes a
-ported family's config: dense (``qwen3-1.7b``, ...), moe
+full configuration instead of ``reduced_config``).  ``--arch`` takes any
+family's config: dense (``qwen3-1.7b``, ...), moe
 (``granite-moe-3b-a800m``, ``qwen3-moe-30b-a3b``), hybrid
-(``zamba2-1.2b``) or ssm (``mamba2-370m``).  The port has no cache engine of
-its own yet, so this example serves without RAG retrieval.
+(``zamba2-1.2b``), ssm (``mamba2-370m``), audio (``musicgen-large``: token
+ids through its ``embed`` table, as the reference's engine decodes) or vlm
+(``llama-3.2-vision-90b``: with no image, so its cross-attention adds 0).
+This example serves without RAG retrieval.
 
     PYTHONPATH=src python examples/serve_llm_torch.py --device cpu
     PYTHONPATH=src python examples/serve_llm_torch.py --device cpu --arch zamba2-1.2b
     PYTHONPATH=src python examples/serve_llm_torch.py --device cpu --arch granite-moe-3b-a800m
+    PYTHONPATH=src python examples/serve_llm_torch.py --device cpu --arch musicgen-large
+    PYTHONPATH=src python examples/serve_llm_torch.py --device cpu --arch llama-3.2-vision-90b
     PYTHONPATH=src python examples/serve_llm_torch.py --full     # on a GPU
     PYTHONPATH=src python examples/serve_llm_torch.py --full --arch mamba2-370m
 """

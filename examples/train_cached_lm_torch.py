@@ -6,10 +6,14 @@ launcher, ``repro_torch.launch.train``).
 
 On the H100 drop ``--device cpu`` (the default device is ``cuda``, where every
 RMSNorm, flash-attention and SSD chunk forward and backward is a hand-written
-kernel).  Use ``--arch`` for another dense, moe, ssm or hybrid architecture
+kernel).  Use ``--arch`` for another architecture of any family
 (``--arch zamba2-1.2b``, ``--arch mamba2-370m``, ``--arch
-granite-moe-3b-a800m``); ``--cache-bundle juicefs`` swaps the cache policy
+granite-moe-3b-a800m``, ``--arch musicgen-large``, ``--arch
+llama-3.2-vision-90b``); ``--cache-bundle juicefs`` swaps the cache policy
 bundle under the SAME training code.
+
+    PYTHONPATH=src python examples/train_cached_lm_torch.py --device cpu --arch musicgen-large --steps 20
+    PYTHONPATH=src python examples/train_cached_lm_torch.py --device cpu --arch llama-3.2-vision-90b --steps 20
 """
 import sys
 from pathlib import Path

@@ -287,7 +287,9 @@ cudaError_t launch(const void* x, const void* w, void* y, long long rows,
 // rows) sums the rows and casts to w's type.  So the dw partials never
 // reach device memory as one row a CTA.
 // Rows must allow 16-byte vectors and hold at most 512 of them (d <= 4096
-// bf16, 2048 f32); the wrapper refuses others.
+// bf16, 2048 f32) for this kernel; longer rows, up to d = 8192 in either
+// type (llama-3.2-vision's d_model), take rmsnorm_bwd_long_kernel below.
+// The wrapper refuses others.
 
 constexpr int kBwdThreads = 256;
 constexpr int kBwdCtasPerSm = 4;  // resident CTAs an SM: the plan's grid
@@ -306,6 +308,29 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// After a CTA's dw share has gone into the workspace rows: the last CTA to
+// finish (a counter after the rows) sums the kDwRows rows and casts dw.
+template <typename T>
+__device__ __forceinline__ void dw_finish(float* __restrict__ ws,
+                                          T* __restrict__ dw, int d) {
+  __shared__ bool last_cta;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last_cta = atomicAdd(reinterpret_cast<unsigned*>(ws + kDwRows * d), 1u) ==
+               gridDim.x - 1;
+  __syncthreads();
+  if (last_cta) {
+    __threadfence();
+    for (int c = threadIdx.x; c < d; c += kBwdThreads) {
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kDwRows; ++j) sum += __ldcg(ws + (long long)j * d + c);
+      dw[c] = from_f<T>(sum);
+    }
+  }
+}
+
 template <typename T, int V, int TPR>
 __global__ void __launch_bounds__(kBwdThreads, kBwdCtasPerSm)
 rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -316,7 +341,6 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   constexpr int WPG = TPR / 32;              // warps per group (TPR > 32)
   __shared__ uint4 buf[2][2][V][kBwdThreads];  // [stage][x, dy][vector][thread]
   __shared__ float red[2][kBwdThreads / 32][2];
-  __shared__ bool last_cta;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = tid / TPR, sub = tid % TPR;
   const int nvec = d / N;
@@ -453,21 +477,150 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
                  "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
                  : "memory");
   }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0)
-    last_cta = atomicAdd(reinterpret_cast<unsigned*>(ws + kDwRows * d), 1u) ==
-               gridDim.x - 1;
-  __syncthreads();
-  if (last_cta) {
-    __threadfence();
-    for (int c = tid; c < d; c += kBwdThreads) {
-      float sum = 0.f;
+  dw_finish(ws, dw, d);
+}
+
+// Long rows (513 to 2048 vectors: d in (4096, 8192] bf16, (2048, 8192] f32).
+// One row at a time per CTA of kBwdThreads threads, each thread V vectors
+// of the row (V = 4 or 8, its columns tid + i * kBwdThreads), so no row
+// group shares a CTA.  The thread loads all of its x and dy vectors into
+// registers at once (up to 2 * 8 16-byte loads in flight), reduces the two
+// row sums (shuffles, then the CTA's 8 warps through shared memory, double
+// buffered by the row's parity so one barrier a row is enough), and writes
+// dx from the same registers: each byte is read once.  w is read per row
+// through L1 (a 16-32 KB row that every CTA keeps reading).  Each thread
+// owns its columns' dw share across the CTA's rows in registers, and adds it
+// to the workspace with red.global.add at the end, then dw_finish.  The
+// register bound is 128 a thread, two CTAs an SM (the plan's one-wave
+// grid); the next row is not prefetched, so the second CTA of an SM is what
+// hides a row's load latency.
+constexpr int kBwdLongCtasPerSm = 2;
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kBwdThreads, kBwdLongCtasPerSm)
+rmsnorm_bwd_long_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                        const T* __restrict__ dy, T* __restrict__ dx,
+                        T* __restrict__ dw, float* __restrict__ ws,
+                        long long rows, int d, float eps) {
+  constexpr int N = 16 / sizeof(T);          // elements per vector
+  constexpr int kWarps = kBwdThreads / 32;
+  __shared__ float red[2][kWarps][2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nvec = d / N;
+  const uint4* wv = reinterpret_cast<const uint4*>(w);
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  float dwa[V][N];
 #pragma unroll
-      for (int j = 0; j < kDwRows; ++j) sum += __ldcg(ws + (long long)j * d + c);
-      dw[c] = from_f<T>(sum);
+  for (int i = 0; i < V; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) dwa[i][j] = 0.f;
+
+  int k = 0;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x, ++k) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
+    const uint4* gr = reinterpret_cast<const uint4*>(dy + row * d);
+    uint4 xv[V], gv[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int c = tid + i * kBwdThreads;
+      xv[i] = c < nvec ? __ldcs(xr + c) : zero;
+      gv[i] = c < nvec ? __ldcs(gr + c) : zero;
+    }
+    float ss = 0.f, gx = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int c = tid + i * kBwdThreads;
+      float fx[N], fg[N], fw[N];
+      unpack16<T>(xv[i], fx);
+      unpack16<T>(gv[i], fg);
+      unpack16<T>(c < nvec ? __ldg(wv + c) : zero, fw);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        ss += fx[j] * fx[j];
+        gx += fg[j] * fw[j] * fx[j];
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      gx += __shfl_xor_sync(0xffffffffu, gx, o);
+    }
+    if (lane == 0) {
+      red[k & 1][warp][0] = ss;
+      red[k & 1][warp][1] = gx;
+    }
+    __syncthreads();
+    ss = gx = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) {
+      ss += red[k & 1][i][0];
+      gx += red[k & 1][i][1];
+    }
+    const float r = inv_rms(ss, d, eps);
+    const float mean_gxh = r * gx / (float)d;  // mean(g x^)
+    uint4* dxr = reinterpret_cast<uint4*>(dx + row * d);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int c = tid + i * kBwdThreads;
+      if (c >= nvec) continue;
+      float fx[N], fg[N], fw[N];
+      unpack16<T>(xv[i], fx);
+      unpack16<T>(gv[i], fg);
+      unpack16<T>(__ldg(wv + c), fw);
+      uint4 out;
+      T* e = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float xh = fx[j] * r;
+        e[j] = from_f<T>(r * (fg[j] * fw[j] - xh * mean_gxh));
+        dwa[i][j] += fg[j] * xh;
+      }
+      __stcs(dxr + c, out);
     }
   }
+  float* ws_row = ws + (long long)(blockIdx.x % kDwRows) * d;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int c = tid + i * kBwdThreads;
+    if (c >= nvec) continue;
+#pragma unroll
+    for (int j = 0; j < N; j += 4)
+      asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(
+                       ws_row + c * N + j),
+                   "f"(dwa[i][j]), "f"(dwa[i][j + 1]), "f"(dwa[i][j + 2]),
+                   "f"(dwa[i][j + 3])
+                   : "memory");
+  }
+  dw_finish(ws, dw, d);
+}
+
+// The resident CTAs an SM that `kern` must reach for the plan's one-wave
+// grid (asked once per instantiation), then a memset of the workspace and
+// the launch.
+template <typename K>
+cudaError_t launch_bwd_kernel(K kern, int min_ctas_per_sm, int& ctas_per_sm,
+                              float* ws, int d, int grid, cudaStream_t stream) {
+  if (!ctas_per_sm) {
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &ctas_per_sm, kern, kBwdThreads, 0);
+    if (err != cudaSuccess) return err;
+  }
+  // Refuse a build that fits fewer CTAs an SM (it would run in two waves).
+  if (ctas_per_sm < min_ctas_per_sm) return cudaErrorInvalidConfiguration;
+  return cudaMemsetAsync(ws, 0, ((size_t)kDwRows * d + 1) * sizeof(float), stream);
+}
+
+template <typename T, int V>
+cudaError_t launch_bwd_long(const T* x, const T* w, const T* dy, T* dx, T* dw,
+                            float* ws, int grid, long long rows, int d, float eps,
+                            cudaStream_t stream) {
+  auto kern = rmsnorm_bwd_long_kernel<T, V>;
+  static int ctas_per_sm = 0;  // per instantiation
+  cudaError_t err = launch_bwd_kernel(kern, kBwdLongCtasPerSm, ctas_per_sm, ws,
+                                      d, grid, stream);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, kBwdThreads, 0, stream>>>(x, w, dy, dx, dw, ws, rows, d, eps);
+  return cudaGetLastError();
 }
 
 template <typename T, int V, int TPR>
@@ -475,16 +628,9 @@ cudaError_t launch_bwd_rows(const T* x, const T* w, const T* dy, T* dx, T* dw,
                             float* ws, int grid, long long rows, int d, float eps,
                             cudaStream_t stream) {
   auto kern = rmsnorm_bwd_kernel<T, V, TPR>;
-  static int ctas_per_sm = 0;  // per instantiation, asked once
-  if (!ctas_per_sm) {
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &ctas_per_sm, kern, kBwdThreads, 0);
-    if (err != cudaSuccess) return err;
-  }
-  // The plan's grid is kBwdCtasPerSm CTAs an SM: refuse a build that fits
-  // fewer (it would run in two waves).
-  if (ctas_per_sm < kBwdCtasPerSm) return cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaMemsetAsync(ws, 0, ((size_t)kDwRows * d + 1) * sizeof(float), stream);
+  static int ctas_per_sm = 0;  // per instantiation
+  cudaError_t err = launch_bwd_kernel(kern, kBwdCtasPerSm, ctas_per_sm, ws, d,
+                                      grid, stream);
   if (err != cudaSuccess) return err;
   kern<<<grid, kBwdThreads, 0, stream>>>(x, w, dy, dx, dw, ws, rows, d, eps);
   return cudaGetLastError();
@@ -512,6 +658,11 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx,
   if (nvec <= 256) return BWD(2, 128);
   if (nvec <= 512) return BWD(2, 256);
 #undef BWD
+  if (d > 8192) return cudaErrorInvalidValue;
+  if (nvec <= 1024)
+    return launch_bwd_long<T, 4>(xp, wp, gp, dxp, dwp, ws, grid, rows, d, eps, s);
+  if constexpr (sizeof(T) == 4)
+    return launch_bwd_long<T, 8>(xp, wp, gp, dxp, dwp, ws, grid, rows, d, eps, s);
   return cudaErrorInvalidValue;
 }
 
@@ -535,10 +686,10 @@ extern "C" int rmsnorm_fwd(const void* x, const void* w, void* y,
 }
 
 // Backward of rmsnorm_fwd.  x, dy, dx: (rows, d) row-major; w, dw: (d,); all
-// of dtype, 16-byte aligned, d * sizeof(T) % 16 == 0 and at most 512 vectors
-// a row.  ws: 8 d + 4 f32 scratch (kDwRows rows of dw's f32 sums, then a
-// counter), zeroed here.  `grid` CTAs (rmsnorm_bwd_plan() in kernels/rmsnorm/kernel.py:
-// at most four an SM).  A memset of ws and one launch on `stream`.  Returns
+// of dtype, 16-byte aligned, d * sizeof(T) % 16 == 0 and d <= 8192.  ws:
+// 8 d + 4 f32 scratch (kDwRows rows of dw's f32 sums, then a counter),
+// zeroed here.  `grid` CTAs (rmsnorm_bwd_plan() in kernels/rmsnorm/kernel.py:
+// at most four an SM, two for rows of more than 512 vectors).  A memset of ws and one launch on `stream`.  Returns
 // cudaGetLastError() after them (0 on success).
 extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy,
                            void* dx, void* dw, float* ws, int grid,

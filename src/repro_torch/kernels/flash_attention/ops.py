@@ -4,7 +4,10 @@ on-card comparisons do).  No fallback: a kernel that cannot run raises.
 
 ``flash_attention`` is a ``torch.autograd.Function``: the forward keeps the
 rows' log-sum-exp beside q, k, v and o, and the backward dispatches the same
-way (``flash_attention_bwd_cuda`` or ``flash_attention_bwd_ref``)."""
+way (``flash_attention_bwd_cuda`` or ``flash_attention_bwd_ref``).  q in
+f32 with k and v in bf16 (a vlm under f32 weights over the bf16 zero image
+state) casts k and v to f32 first, which is what the reference computes in;
+any other mix of types raises."""
 from __future__ import annotations
 
 import torch
@@ -54,6 +57,12 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal=True, q_offset=0, block_kv=1024,
                     softmax_scale=None, force_ref=False):
+    if not q.dtype == k.dtype == v.dtype:
+        if not (q.dtype == torch.float32 and k.dtype == v.dtype
+                == torch.bfloat16):
+            raise TypeError(f"flash_attention: no path for q {q.dtype} with "
+                            f"k {k.dtype}, v {v.dtype}")
+        k, v = k.float(), v.float()
     return _FlashAttention.apply(q, k, v, causal, q_offset, block_kv,
                                  softmax_scale, force_ref)
 

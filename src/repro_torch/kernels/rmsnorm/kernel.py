@@ -14,7 +14,9 @@ written) spreads a row over up to 256 threads of one or two vectors each,
 at most 64 registers a thread, on a one-wave persistent grid
 (``rmsnorm_bwd_plan``) that prefetches the next row by ``cp.async``; dw
 folds into one f32 row by ``red.global.add`` and the last CTA casts it.
-``rmsnorm_bwd_cuda.launches`` counts its calls.
+Rows of more than 512 vectors (d up to 8192 in either type: llama-3.2-
+vision's d_model) take a CTA of 256 threads a row, 4 or 8 vectors a
+thread, two CTAs an SM.  ``rmsnorm_bwd_cuda.launches`` counts its calls.
 """
 from __future__ import annotations
 
@@ -25,9 +27,11 @@ import torch
 from .. import _build
 
 MAX_D = 16384
-MAX_BWD_VECS = 512      # 16-byte vectors a row: d <= 4096 bf16, 2048 f32
+MAX_BWD_D = 8192        # the backward's widest row, in either type
+BWD_ROW_VECS = 512      # 16-byte vectors a row of the row-group kernel
 BWD_THREADS = 256
 BWD_CTAS_PER_SM = 4     # csrc/rmsnorm.cu kBwdCtasPerSm
+BWD_LONG_CTAS_PER_SM = 2  # csrc/rmsnorm.cu kBwdLongCtasPerSm
 BWD_DW_ROWS = 8         # csrc/rmsnorm.cu kDwRows
 
 
@@ -79,8 +83,13 @@ def rmsnorm_bwd_plan(rows: int, d: int, itemsize: int,
     8) that leave each one vector, up to a warp, then two vectors a thread
     over up to 256 threads; the grid is as many CTAs as the row groups fill,
     at most the BWD_CTAS_PER_SM an SM that the kernel's register bound lets
-    fit (one wave)."""
+    fit (one wave).  A row of more than BWD_ROW_VECS vectors takes the
+    long-row kernel: a CTA of BWD_THREADS threads, 4 vectors a thread (8
+    past 1024 vectors), BWD_LONG_CTAS_PER_SM CTAs an SM."""
     nvec = d * itemsize // 16
+    if nvec > BWD_ROW_VECS:
+        return RmsNormBwdPlan(4 if nvec <= 1024 else 8, BWD_THREADS, 1,
+                              max(1, min(rows, BWD_LONG_CTAS_PER_SM * sms)))
     vecs, lanes = next((v, t) for top, v, t in (
         (8, 1, 8), (16, 1, 16), (32, 1, 32), (64, 2, 32), (128, 2, 64),
         (256, 2, 128), (512, 2, 256)) if nvec <= top)
@@ -105,11 +114,10 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
     if weight.shape != (d,) or dy.shape != x.shape:
         raise ValueError(f"rmsnorm_bwd_cuda: weight {tuple(weight.shape)}, dy "
                          f"{tuple(dy.shape)} vs x {tuple(x.shape)}")
-    nbytes = d * x.element_size()
-    if nbytes % 16 or nbytes // 16 > MAX_BWD_VECS:
+    if (d * x.element_size()) % 16 or d > MAX_BWD_D:
         raise ValueError(f"rmsnorm_bwd_cuda: a row of {d} x {x.dtype} must be "
-                         f"a multiple of 16 bytes and at most {MAX_BWD_VECS} "
-                         "of them")
+                         f"a multiple of 16 bytes and at most {MAX_BWD_D} "
+                         "wide")
     if not (x.is_contiguous() and weight.is_contiguous()
             and dy.is_contiguous()):
         raise ValueError("rmsnorm_bwd_cuda: x, weight and dy must be "

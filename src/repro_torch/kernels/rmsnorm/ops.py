@@ -4,7 +4,10 @@ on-card comparisons do).  No fallback: a kernel that cannot run raises.
 
 ``rmsnorm`` is a ``torch.autograd.Function``: its backward dispatches the
 same way (``rmsnorm_bwd_cuda`` or ``rmsnorm_bwd_ref``) and recomputes r
-from the saved x and weight."""
+from the saved x and weight.  x in bf16 with an f32 weight (audio's bf16
+frame embeddings under f32 weights) runs the f32 path on ``x.float()`` and
+casts the result to bf16, which is ``rmsnorm_ref``'s arithmetic; its
+gradient comes back as dx in bf16 and dw in f32."""
 from __future__ import annotations
 
 import torch
@@ -40,7 +43,12 @@ class _RMSNorm(torch.autograd.Function):
 
 
 def rmsnorm(x, weight, eps: float = 1e-5, force_ref: bool = False):
-    return _RMSNorm.apply(x, weight, eps, force_ref)
+    if x.dtype == weight.dtype:
+        return _RMSNorm.apply(x, weight, eps, force_ref)
+    if x.dtype == torch.bfloat16 and weight.dtype == torch.float32:
+        return _RMSNorm.apply(x.float(), weight, eps, force_ref).to(x.dtype)
+    raise TypeError(f"rmsnorm: no path for x {x.dtype} with weight "
+                    f"{weight.dtype}")
 
 
 def gated_rmsnorm(x, gate, weight, eps: float = 1e-5):

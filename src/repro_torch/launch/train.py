@@ -9,8 +9,10 @@ reduced model):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --reduced --steps 100 --batch 4 --seq 256 --device cpu
 
-``--arch`` takes any dense, moe, ssm or hybrid architecture (e.g.
-``zamba2-1.2b``, ``mamba2-370m``, ``granite-moe-3b-a800m``).
+``--arch`` takes any architecture (e.g. ``zamba2-1.2b``, ``mamba2-370m``,
+``granite-moe-3b-a800m``, ``musicgen-large``, ``llama-3.2-vision-90b``);
+as in the reference, every family trains on the pipeline's token ids
+(audio through its ``embed`` table, vlm with no image).
 
 Every batch is read through the port's own cache client
 (``core.bundle_client``) by ``CachedTokenPipeline``, which yields NumPy; the

@@ -3,7 +3,9 @@
 Counterpart of ``repro.models.layers``, with the same parameter names and
 arithmetic.  RMSNorm and prefill attention go through the port's kernels
 (``..kernels``); ``force_ref=True`` runs their plain versions instead, for
-on-card comparisons.
+on-card comparisons.  Products of two types (bf16 activations against f32
+weights: audio's bf16 frame embeddings under f32 weights) promote the
+narrower operand, as jnp does, where ``@`` in torch would raise.
 """
 from __future__ import annotations
 
@@ -13,6 +15,18 @@ import torch.nn.functional as F
 from ..kernels import decode_attention, flash_attention, rmsnorm
 from .config import ModelConfig
 from .params import p
+
+
+def promoted(a: torch.Tensor, b: torch.Tensor):
+    """``a`` and ``b`` in their promoted type (bf16 -> f32 is exact)."""
+    t = torch.promote_types(a.dtype, b.dtype)
+    return a.to(t), b.to(t)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the promoted type, as ``jnp.matmul`` computes it."""
+    a, b = promoted(a, b)
+    return a @ b
 
 
 def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
@@ -86,9 +100,9 @@ def attention(x, lp, cfg: ModelConfig, *, positions, cache=None,
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps, force_ref=force_ref)
-    q = h @ lp["wq"]
-    k = h @ lp["wk"]
-    v = h @ lp["wv"]
+    q = matmul(h, lp["wq"])
+    k = matmul(h, lp["wk"])
+    v = matmul(h, lp["wv"])
     if cfg.qkv_bias:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -109,11 +123,11 @@ def attention(x, lp, cfg: ModelConfig, *, positions, cache=None,
         k_cache[:, start:start + S] = k.to(k_cache.dtype)
         v_cache[:, start:start + S] = v.to(v_cache.dtype)
         attn = decode_attention(q, k_cache, v_cache, int(cache_len) + S)
-    out = attn.reshape(B, S, H * hd) @ lp["wo"]
+    out = matmul(attn.reshape(B, S, H * hd), lp["wo"])
     return out, cache
 
 
 def swiglu(x, lp, cfg: ModelConfig, force_ref: bool = False):
     h = rmsnorm(x, lp["ffn_norm"], cfg.norm_eps, force_ref=force_ref)
-    g = F.silu((h @ lp["w_gate"]).float()).to(h.dtype)
-    return (g * (h @ lp["w_up"])) @ lp["w_down"]
+    g = F.silu(matmul(h, lp["w_gate"]).float()).to(h.dtype)
+    return matmul(g * matmul(h, lp["w_up"]), lp["w_down"])

@@ -1,14 +1,18 @@
-"""The model: specs, forward and decode — dense, moe, ssm and hybrid families
-(torch).
+"""The model: specs, forward and decode for all six families (torch).
 
-Counterpart of ``repro.models.transformer`` for those families:
+Counterpart of ``repro.models.transformer``:
 
-  dense  : attention + SwiGLU per layer
-  moe    : attention + top-k expert FFN per layer, aux loss summed over
-           the layers
-  ssm    : Mamba2 SSD block per layer
-  hybrid : Mamba2 block per layer + one weight-SHARED attention/MLP block
-           fired every ``shared_attn_every`` layers (the Zamba2 design)
+  dense/audio : attention + SwiGLU per layer (audio takes precomputed frame
+                embeddings through ``inputs_embeds``: the EnCodec frontend
+                is a stub, as in JAX)
+  moe         : attention + top-k expert FFN per layer, aux loss summed over
+                the layers
+  vlm         : dense layers + gated cross-attention to (stub) image
+                embeddings every ``cross_attn_every`` layers
+  ssm         : Mamba2 SSD block per layer
+  hybrid      : Mamba2 block per layer + one weight-SHARED attention/MLP
+                block fired every ``shared_attn_every`` layers (the Zamba2
+                design)
 
 A Python loop over the stacked ``(L, ...)`` layer params takes the place of
 ``lax.scan``, each leaf unbound once per call (``torch.unbind``: its
@@ -19,10 +23,7 @@ allocate a zero tensor the size of the whole stack for every layer).
 ``aten.mm`` outputs (``dots_with_no_batch_dims_saveable``: MoE's router
 product is saved, its batched expert products recomputed), ``"none"``
 checkpoints nothing; the final norm and the head stay outside, as in JAX.
-``lm_loss`` and ``lm_loss_chunked`` are the training losses.  Training is
-ported for the dense, moe, ssm and hybrid families (the SSD chunk's
-gradient is ``kernels.ssd.ssd_chunk``'s backward); vlm and audio raise
-``NotImplementedError`` naming the ROADMAP slice that ports them.
+``lm_loss`` and ``lm_loss_chunked`` are the training losses.
 """
 from __future__ import annotations
 
@@ -33,47 +34,27 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..kernels import rmsnorm
+from ..kernels import flash_attention, rmsnorm
 from .config import ModelConfig
-from .layers import attention, attention_specs, mlp_specs, swiglu
+from .layers import (attention, attention_specs, matmul, mlp_specs, promoted,
+                     swiglu)
 from .moe import moe_ffn, moe_specs
 from .params import p, tree_abstract, tree_init
 from .ssm import init_ssm_state, mamba_block, ssm_specs
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-_SLICE_OF = {
-    "vlm": "VLM and audio",
-    "audio": "VLM and audio",
-}
-
-
-TRAINED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "audio", "vlm", "moe", "ssm", "hybrid")
 REMAT_POLICIES = ("none", "full", "dots")
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: it comes "
-            f"with the {_SLICE_OF.get(cfg.family, cfg.family)!r} slice of "
-            "ROADMAP.md")
-
-
-def require_trainable(cfg: ModelConfig) -> None:
-    """Training is ported for every family that is ported (dense, moe, ssm,
-    hybrid); the others raise, naming the slice that brings them."""
-    _require_ported(cfg)
-    if cfg.family not in TRAINED_FAMILIES:
-        raise NotImplementedError(
-            f"training {cfg.family!r} models ({cfg.name}) is not ported yet: "
-            f"it comes with the {_SLICE_OF.get(cfg.family, cfg.family)!r} slice of "
-            "ROADMAP.md")
+def _require_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
 
 
 # ------------------------------------------------------------------ specs
 
 def build_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    _require_ported(cfg)
+    _require_family(cfg)
     d, L = cfg.d_model, cfg.n_layers
     specs: Dict[str, Any] = {
         "embed": p((cfg.vocab, d), ("embed_vocab", "embed"), scale=1.0),
@@ -81,7 +62,7 @@ def build_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = p((d, cfg.vocab), ("embed", "vocab"))
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "audio", "vlm"):
         specs["blocks"] = {**attention_specs(cfg, L), **mlp_specs(cfg, L)}
     elif cfg.family == "moe":
         specs["blocks"] = {**attention_specs(cfg, L), **moe_specs(cfg, L)}
@@ -91,6 +72,11 @@ def build_specs(cfg: ModelConfig) -> Dict[str, Any]:
         shared = {**attention_specs(cfg, 1), **mlp_specs(cfg, 1)}
         specs["shared"] = {k: p(v.shape[1:], v.axes[1:], v.init, v.scale)
                            for k, v in shared.items()}
+    if cfg.family == "vlm":
+        n_ca = cfg.n_layers // cfg.cross_attn_every
+        ca = {f"ca_{k}": v for k, v in attention_specs(cfg, n_ca).items()}
+        ca["ca_gate"] = p((n_ca,), ("layers",), init="zeros")
+        specs["cross"] = ca
     return specs
 
 
@@ -152,22 +138,84 @@ def _shared_block(x, sp, cfg: ModelConfig, positions, cache=None,
     return x, new_cache
 
 
+def _fires_cross(cfg: ModelConfig, i: int) -> bool:
+    return cfg.family == "vlm" and i % cfg.cross_attn_every == 0
+
+
+def _cross_index(cfg: ModelConfig, i: int, n_ca: int) -> int:
+    """The cross layer that layer ``i`` uses: ``i // cross_attn_every``,
+    clamped to the last one as ``lax.dynamic_index_in_dim`` clamps it (with
+    ``n_layers % cross_attn_every != 0`` the last firing layer reuses it)."""
+    return min(i // cfg.cross_attn_every, n_ca - 1)
+
+
+def _cross_attention(x, cap, cfg: ModelConfig, img_kv,
+                     force_ref: bool = False):
+    """Gated cross-attention to precomputed image K/V (one layer's params):
+    no RoPE, no q/k norm, full (non-causal) attention over the image."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    h = rmsnorm(x, cap["ca_attn_norm"], cfg.norm_eps, force_ref=force_ref)
+    q = matmul(h, cap["ca_wq"]).reshape(B, S, H, hd)
+    k, v = img_kv                                     # (B, n_img, KV, hd)
+    attn = flash_attention(q, k, v, causal=False, force_ref=force_ref)
+    out = matmul(attn.reshape(B, S, H * hd), cap["ca_wo"])
+    gate = torch.tanh(cap["ca_gate"].float()).to(x.dtype)
+    return out * gate
+
+
+def _image_kv(cross, cfg: ModelConfig, img_embeds):
+    """Cross-attention K and V of every cross layer, from one stacked
+    product each: ``((n_ca, B, n_img, KV, hd),) * 2``, contiguous (einsum
+    may return a permuted view; each layer's slice goes to the kernel)."""
+    B, n_img, _ = img_embeds.shape
+    KV, hd = cfg.n_kv_heads, cfg.hd
+
+    def proj(w):                                      # w: (n_ca, d, KV * hd)
+        img, w = promoted(img_embeds, w)
+        return torch.einsum("bnd,cde->cbne", img, w).contiguous().reshape(
+            w.shape[0], B, n_img, KV, hd)
+    return proj(cross["ca_wk"]), proj(cross["ca_wv"])
+
+
+def _embed(params, tokens, inputs_embeds):
+    """The layers' input: ``inputs_embeds`` cast to bf16 whatever the
+    params' type (as JAX casts it), else the embedding rows of ``tokens``;
+    contiguous, as the kernels take it (a caller's one-frame slice of a
+    longer sequence is not)."""
+    if inputs_embeds is not None:
+        return inputs_embeds.to(torch.bfloat16).contiguous()
+    return params["embed"][tokens]
+
+
 # ------------------------------------------------------------------ forward
 
-def forward(params, cfg: ModelConfig, tokens, *, remat: str = "full",
-            force_ref: bool = False,
+def forward(params, cfg: ModelConfig, tokens=None, *, inputs_embeds=None,
+            img_embeds=None, remat: str = "full", force_ref: bool = False,
             return_hidden: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward (train / prefill).  Returns (logits, aux_loss),
-    or (final-normed hidden states, aux_loss) with ``return_hidden``."""
-    _require_ported(cfg)
-    x = params["embed"][tokens]
+    or (final-normed hidden states, aux_loss) with ``return_hidden``.
+    ``inputs_embeds`` (B, S, d) replaces the token embedding (audio's frame
+    embeddings); ``img_embeds`` (B, n_image_tokens, d) are a vlm's image
+    embeddings, zeros in the activations' type when not given."""
+    _require_family(cfg)
+    x = _embed(params, tokens, inputs_embeds)
     B, S, d = x.shape
     positions = torch.arange(S, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    cross, img_k, img_v = [], None, None
+    if cfg.family == "vlm":
+        if img_embeds is None:
+            img_embeds = torch.zeros((B, cfg.n_image_tokens, d),
+                                     dtype=x.dtype, device=x.device)
+        img_k, img_v = _image_kv(params["cross"], cfg, img_embeds)
+        cross = _layers(params["cross"])
 
     def body(x, lp, i):
         a = None                         # the layer's MoE aux loss
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("ssm", "hybrid"):
+            x, _ = mamba_block(x, lp, cfg, force_ref=force_ref)
+        else:
             out, _ = attention(x, lp, cfg, positions=positions,
                                force_ref=force_ref)
             x = x + out
@@ -176,11 +224,13 @@ def forward(params, cfg: ModelConfig, tokens, *, remat: str = "full",
             else:
                 ffn = swiglu(x, lp, cfg, force_ref=force_ref)
             x = x + ffn
-        else:
-            x, _ = mamba_block(x, lp, cfg, force_ref=force_ref)
         if _fires_shared(cfg, i):
             x, _ = _shared_block(x, params["shared"], cfg, positions,
                                  force_ref=force_ref)
+        if _fires_cross(cfg, i):
+            c = _cross_index(cfg, i, len(cross))
+            x = x + _cross_attention(x, cross[c], cfg, (img_k[c], img_v[c]),
+                                     force_ref=force_ref)
         return x, a
 
     layer = _remat(body, remat)
@@ -191,40 +241,52 @@ def forward(params, cfg: ModelConfig, tokens, *, remat: str = "full",
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, force_ref=force_ref)
     if return_hidden:
         return x, aux
-    return x @ _head(params, cfg), aux
+    return matmul(x, _head(params, cfg)), aux
 
 
 # ------------------------------------------------------------------ decode
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
-                      device="cuda") -> Dict[str, Any]:
-    """Decode cache (zeros).  dense and moe: k/v (L, B, max_seq, KV, hd) in
-    bf16 whatever the params' type; ssm/hybrid: conv (L, B, W-1, conv_ch) in
-    bf16 and ssd (L, B, nh, p, n) in f32; hybrid also shared_k/v
-    (n_inv, B, max_seq, KV, hd) in bf16, n_inv = ceil(L / every).  ``pos``
-    is a Python int shared by the whole batch, as the JAX scalar is."""
-    _require_ported(cfg)
+                      device="cuda", img_embeds=None,
+                      params=None) -> Dict[str, Any]:
+    """Decode cache (zeros).  dense, audio, vlm and moe: k/v (L, B, max_seq,
+    KV, hd) in bf16 whatever the params' type; ssm/hybrid: conv (L, B, W-1,
+    conv_ch) in bf16 and ssd (L, B, nh, p, n) in f32; hybrid also
+    shared_k/v (n_inv, B, max_seq, KV, hd) in bf16, n_inv = ceil(L / every);
+    vlm also img_kv, a (k, v) pair of (n_ca, B, n_image_tokens, KV, hd):
+    ``_image_kv`` of ``img_embeds`` when both they and ``params`` are given,
+    else bf16 zeros.  ``pos`` is a Python int shared by the whole batch, as
+    the JAX scalar is."""
+    _require_family(cfg)
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     state: Dict[str, Any] = {"pos": 0}
 
-    def kv(n):
-        return torch.zeros((n, batch, max_seq, KV, hd), dtype=torch.bfloat16,
+    def kv(n, seq=max_seq):
+        return torch.zeros((n, batch, seq, KV, hd), dtype=torch.bfloat16,
                            device=device)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "audio", "vlm", "moe"):
         state["k"], state["v"] = kv(L), kv(L)
-        return state
-    conv, ssd_st = init_ssm_state(cfg, batch, device=device)
-    state["conv"] = conv[None].repeat(L, 1, 1, 1)
-    state["ssd"] = ssd_st[None].repeat(L, 1, 1, 1, 1)
+    else:
+        conv, ssd_st = init_ssm_state(cfg, batch, device=device)
+        state["conv"] = conv[None].repeat(L, 1, 1, 1)
+        state["ssd"] = ssd_st[None].repeat(L, 1, 1, 1, 1)
     if cfg.family == "hybrid":
         n_inv = -(-L // cfg.shared_attn_every)
         state["shared_k"], state["shared_v"] = kv(n_inv), kv(n_inv)
+    if cfg.family == "vlm":
+        if params is not None and img_embeds is not None:
+            state["img_kv"] = _image_kv(params["cross"], cfg, img_embeds)
+        else:
+            z = kv(L // cfg.cross_attn_every, cfg.n_image_tokens)
+            state["img_kv"] = (z, z)
     return state
 
 
-def decode_step(params, cfg: ModelConfig, state, tokens, *,
+def decode_step(params, cfg: ModelConfig, state, tokens=None, *,
+                inputs_embeds=None,
                 force_ref: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One token for every sequence in the batch.  tokens: (B, 1).
+    """One token for every sequence in the batch: tokens (B, 1), or
+    ``inputs_embeds`` (B, 1, d) cast to bf16 as in ``forward``.
 
     The stacked caches in ``state`` (k/v; conv, ssd and shared_k/v) are
     updated in place (the JAX version returns new arrays; copying a cache
@@ -232,14 +294,17 @@ def decode_step(params, cfg: ModelConfig, state, tokens, *,
     holding the same cache tensors and ``pos + 1``.  One exception, as in
     JAX, where the scan's output takes the activations' type: a conv state
     of another dtype than the activations (bf16 zeros under f32 weights) is
-    replaced by a converted copy on the first step."""
-    _require_ported(cfg)
-    x = params["embed"][tokens]
+    replaced by a converted copy on the first step.  A vlm's cross-attention
+    reads ``img_kv`` through the flash kernel (q of one row, non-causal), as
+    JAX runs ``flash_attention`` there."""
+    _require_family(cfg)
+    x = _embed(params, tokens, inputs_embeds)
     pos = int(state["pos"])
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     blocks = params["blocks"]
     new_state = dict(state, pos=pos + 1)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "audio", "vlm", "moe"):
+        cross = _layers(params["cross"]) if cfg.family == "vlm" else []
         for i, lp in enumerate(_layers(blocks)):
             out, _ = attention(x, lp, cfg, positions=positions,
                                cache=(state["k"][i], state["v"][i]),
@@ -249,6 +314,12 @@ def decode_step(params, cfg: ModelConfig, state, tokens, *,
                 x = x + moe_ffn(x, lp, cfg, force_ref=force_ref)[0]
             else:
                 x = x + swiglu(x, lp, cfg, force_ref=force_ref)
+            if _fires_cross(cfg, i):
+                c = _cross_index(cfg, i, len(cross))
+                img_k, img_v = state["img_kv"]
+                x = x + _cross_attention(x, cross[c], cfg,
+                                         (img_k[c], img_v[c]),
+                                         force_ref=force_ref)
     else:
         conv, ssd_st = state["conv"], state["ssd"]
         if conv.dtype != x.dtype:
@@ -266,7 +337,7 @@ def decode_step(params, cfg: ModelConfig, state, tokens, *,
                     cache=(state["shared_k"][inv], state["shared_v"][inv]),
                     cache_len=pos, force_ref=force_ref)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, force_ref=force_ref)
-    return x @ _head(params, cfg), new_state
+    return matmul(x, _head(params, cfg)), new_state
 
 
 # ------------------------------------------------------------------- loss

@@ -5,7 +5,9 @@ Counterpart of ``repro.train.train_step``.  PyTorch runs eagerly, so the
 returned step is a plain function; ``mesh`` and ``rules`` are accepted only
 as ``None`` until the sharding slice.  Grads come from
 ``torch.autograd.grad`` on detached views of the params (nothing lands in
-``.grad``).  With ``microbatches > 1`` each microbatch's grads are added as
+``.grad``); a param the loss does not reach (audio's ``embed`` under
+``inputs_embeds``) gets zeros, as ``jax.value_and_grad`` gives it.  With
+``microbatches > 1`` each microbatch's grads are added as
 ``g.float() / microbatches`` into f32 buffers, as the JAX scan does; with one
 microbatch the optimizer receives grads in the params' dtype.
 """
@@ -17,8 +19,7 @@ import torch
 
 from ..models.config import ModelConfig, ShapeSpec
 from ..models.params import tree_leaves, tree_unflatten
-from ..models.transformer import (forward, lm_loss, lm_loss_chunked,
-                                  require_trainable)
+from ..models.transformer import forward, lm_loss, lm_loss_chunked
 from .optimizer import AdamWConfig, AdamWState, apply_updates, tree_map
 
 LOSS_IMPLS = ("dense", "chunked")
@@ -47,14 +48,17 @@ def make_value_and_grad(cfg: ModelConfig, *, remat: str = "full",
                         loss_impl: str = "dense", force_ref: bool = False):
     """``value_and_grad(params, batch) -> (loss, grads)``: the loss of one
     batch and its grads (a tree like ``params``, in the params' dtypes),
-    from ``torch.autograd.grad`` on detached views of the params.
-    ``force_ref`` runs the kernels' plain versions (on-card comparisons)."""
-    require_trainable(cfg)
+    from ``torch.autograd.grad`` on detached views of the params.  The
+    batch holds ``labels`` and ``tokens`` or ``inputs_embeds``, and a vlm's
+    ``img_embeds`` where given.  ``force_ref`` runs the kernels' plain
+    versions (on-card comparisons)."""
     if loss_impl not in LOSS_IMPLS:
         raise ValueError(f"loss_impl {loss_impl!r} not in {LOSS_IMPLS}")
 
     def loss_fn(params, batch):
-        out, aux = forward(params, cfg, batch["tokens"], remat=remat,
+        out, aux = forward(params, cfg, batch.get("tokens"),
+                           inputs_embeds=batch.get("inputs_embeds"),
+                           img_embeds=batch.get("img_embeds"), remat=remat,
                            force_ref=force_ref,
                            return_hidden=(loss_impl == "chunked"))
         maux = aux if cfg.family == "moe" else None
@@ -67,7 +71,9 @@ def make_value_and_grad(cfg: ModelConfig, *, remat: str = "full",
         req = [t.detach().requires_grad_(True) for t in leaves]
         with torch.enable_grad():
             loss = loss_fn(tree_unflatten(zip(paths, req)), batch)
-            grads = torch.autograd.grad(loss, req)
+            grads = torch.autograd.grad(loss, req, allow_unused=True)
+        grads = [torch.zeros_like(r) if g is None else g
+                 for g, r in zip(grads, req)]
         return loss.detach(), tree_unflatten(zip(paths, grads))
     return value_and_grad
 
@@ -76,8 +82,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None,
                     rules=None, *, remat: str = "full", microbatches: int = 1,
                     unroll: int = 1, loss_impl: str = "dense"):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``; ``batch`` holds ``tokens`` and ``labels`` on the params'
-    device.  Params and moments are updated in place.  ``unroll`` is
+    metrics)``; ``batch`` (``batch_structs``' keys) lies on the params'
+    device, and microbatching splits each of its tensors.  Params and moments are updated in place.  ``unroll`` is
     accepted for the reference's signature (a Python loop has nothing to
     unroll)."""
     if mesh is not None or rules is not None:

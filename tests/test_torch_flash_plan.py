@@ -138,6 +138,8 @@ def test_kv_tiles_match_a_brute_force_mask(Sq, Skv, q_offset, causal, dtype,
     ((1024, 1024), 0, True),      # qwen3 / zamba2 prefill
     ((256, 1024), 768, True),     # a chunk after 768 cached tokens
     ((128, 1601), 0, False),      # 1601 image tokens, no mask
+    ((1024, 1601), 0, False),     # llama-vision's cross-attention prefill
+    ((1, 1601), 0, False),        # ... and its decode step (Sq = 1)
     ((1000, 1000), 0, True)])     # ragged last q tile
 def test_kv_tiles_on_the_main_path_shapes(shape, q_offset, causal):
     Sq, Skv = shape
@@ -152,6 +154,22 @@ def test_kv_tiles_on_the_main_path_shapes(shape, q_offset, causal):
     full = -(-Sq // p.block_q) * -(-Skv // p.block_kv)
     # Causal prefill loads a little more than half of the tiles.
     assert loaded <= full and (not causal or q_offset or loaded < 0.6 * full)
+
+
+def test_single_row_plan_for_decode_cross_attention():
+    """Decode's cross-attention (llama-3.2-vision-90b: q (4, 1, 64, 128) over
+    1601 image tokens in 8 KV heads) takes the ``wgmma`` variant: one 128-row
+    Q tile per (head, b) holding one valid row, 256 items on the persistent
+    grid, every one of the 13 KV tiles loaded and only the last (65 keys)
+    masked."""
+    p = plan(torch.bfloat16, 128, 4, 1, 64, sms=132)
+    assert (p.variant, p.block_q, p.block_kv) == ("wgmma", 128, 128)
+    assert p.grid == (132, 1, 1)
+    items = wgmma_items(p, 4, 1, 64)
+    assert sorted(it for cta in items for it in cta) == sorted(
+        (0, h, b) for h in range(64) for b in range(4))
+    assert kv_tiles(0, p.block_q, p.block_kv, 1, 1601, False, 0) == (13, 12)
+    assert 1601 - 12 * p.block_kv == 65
 
 
 def test_cpu_path_counts_no_variant_launch():
