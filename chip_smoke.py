@@ -65,6 +65,20 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 loss-and-grads on its first ``GRAD_DEPTH`` layers (the
                 non-causal flash backward), held against plain versions in
                 bf16.
+  6b. unified — ``unified/qwen3-1.7b``: qwen3-1.7b at full width and depth
+                (bf16, seed 0) trains and serves through ONE process-driver
+                cache client (``open_cache(driver="process", n_procs=2)``,
+                the process executor, demand bytes through the
+                shared-memory arena) over ``tiered+sim://`` (a 16 MB RAM
+                and 256 MB disk tier) holding the launcher's 64 MB token
+                corpus and the 32 MB knowledge set, with a 48 MB cache: 4
+                train steps from ``CachedTokenPipeline``, a
+                ``ServingEngine`` answering 8 requests with 4 retrievals
+                each, 4 more train steps (``run_unified`` lists its checks).
+  6c. cache   — host phase, no GPU: the daemon walkthrough (a
+                ``CacheDaemon`` over two shard worker processes, two
+                ``cache://`` sessions) and the ``tiered+mock-s3://``
+                walkthrough of examples/quickstart_torch.py.
   7. profile  — one traced prefill and decode step of each model: device
                 time by kernel (and summed for each of the port's kernels)
                 and the device's busy share (not part of the main path).
@@ -72,9 +86,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 step (on a random batch) alone; copied into an older
                 checkout, it profiles that checkout's package.
   8. the ``{"kernels": [...]}`` line: launches on the main path (each
-     model's prefill and serving, and each model's train steps
-     (``train/<arch>``), each counted from 0 and summed; flash attention's
-     forward and backward also by variant,
+     model's prefill and serving, each model's train steps
+     (``train/<arch>``) and ``unified/qwen3-1.7b``, each counted from 0 and
+     summed; flash attention's forward and backward also by variant,
      and every prefill and training flash launch must be the ``wgmma``
      one), errors, times and bounds, for the three forward kernels and the
      three backward ones.
@@ -1794,7 +1808,8 @@ def run_train(arch: str) -> dict:
     profile_train(cfg, params, tr["batch"])
     del params, tr["batch"]
     torch.cuda.empty_cache()
-    return {"launches": launches, "per_train_step": tr["launches"]}
+    return {"launches": launches, "per_train_step": tr["launches"],
+            "ms": tr["ms"]}
 
 
 def run_grads(arch: str) -> dict:
@@ -1848,6 +1863,298 @@ def run_grads(arch: str) -> dict:
     del params, batch
     torch.cuda.empty_cache()
     return {"launches": launches, "per_train_step": per_call}
+
+
+# --------------------------------------------------------------- phase 6b
+
+UNIFIED = "unified/qwen3-1.7b"
+UNIFIED_STEPS = 4                 # train steps before serving, and after
+UNIFIED_CACHE_MB, UNIFIED_PROCS = 48, 2
+UNIFIED_TIERS = "ram_mb=16&disk_mb=256"
+UNIFIED_ARENA_MIN = 4 << 20       # many times a batch's demand misses
+
+
+def shm_free_bytes() -> int:
+    import shutil
+    return shutil.disk_usage("/dev/shm").free
+
+
+def unified_arena_bytes() -> int:
+    """The process driver's default demand-byte arena (one shared-memory
+    block) where ``/dev/shm`` holds it, else half of its free bytes; raises
+    below ``UNIFIED_ARENA_MIN`` (no fallback to pickled replies)."""
+    from repro_torch.core.procdriver import DEFAULT_ARENA_BYTES
+    arena = min(DEFAULT_ARENA_BYTES, shm_free_bytes() // 2 >> 20 << 20)
+    if arena < UNIFIED_ARENA_MIN:
+        raise AssertionError(f"/dev/shm has {shm_free_bytes()} bytes free: "
+                             f"no room for a {UNIFIED_ARENA_MIN}-byte arena")
+    return arena
+
+
+def unified_datasets() -> list:
+    """The launcher's token corpus, sized as ``build_pipeline`` sizes it
+    for the path's steps (8 shards of 8 MB), and ``retrieval_client``'s
+    knowledge set (500 passages of 64 KB)."""
+    from repro_torch.core.types import MB
+    from repro_torch.data.pipeline import make_token_dataset
+    from repro_torch.launch.train import N_SHARDS
+    from repro_torch.storage import make_dataset
+    shard = max(8 * MB, TRAIN_B * (TRAIN_S + 1) * 4 * 2 * UNIFIED_STEPS
+                // N_SHARDS)
+    return [make_token_dataset("train_corpus", N_SHARDS, shard),
+            make_dataset("knowledge", "flat_files", n_files=500,
+                         small_file_size=64 * 1024)]
+
+
+def unified_cache_cfg():
+    from repro_torch.core import CacheConfig
+    from repro_torch.core.types import MB
+    return CacheConfig(min_share=2 * MB, rebalance_quantum=2 * MB)
+
+
+def plain_batches(vocab: int, n: int) -> list:
+    """The pipeline's first ``n`` batches, same seed, over a plain
+    ``RemoteStore`` through an in-process ``bundle_client``."""
+    from repro_torch.core import bundle_client
+    from repro_torch.core.types import MB
+    from repro_torch.data.pipeline import CachedTokenPipeline
+    from repro_torch.storage import RemoteStore
+    store = RemoteStore()
+    store.add(unified_datasets()[0])
+    client = bundle_client("igtcache", store, UNIFIED_CACHE_MB * MB,
+                           cfg=unified_cache_cfg(), executor="sim")
+    pipe = CachedTokenPipeline(store, client, "train_corpus", seq_len=TRAIN_S,
+                               batch=TRAIN_B, vocab=vocab)
+    it = pipe.batches(epochs=1000)
+    out = [next(it) for _ in range(n)]
+    pipe.close()
+    client.close()
+    return out
+
+
+def run_unified(paths: dict) -> dict:
+    """qwen3-1.7b at full width and depth (bf16, seed 0) trains and serves
+    through ONE process-driver cache client over a ``tiered+sim://`` store:
+    two shard worker processes, the process executor, demand bytes through
+    the shared-memory arena (``fetch_bytes``: without it no byte would cross
+    the arena).  4 train steps fed by ``CachedTokenPipeline``, a
+    ``ServingEngine`` answering 8 requests of 16 tokens with 4 retrievals
+    each, 4 more train steps; counted from 0 as a path.  Checks: (a) the 8
+    batches equal the plain pipeline's and every retrieved passage equals
+    a plain store's bytes; (b) launches per train step and per decode step
+    equal those of this run's ``train/qwen3-1.7b`` and qwen3 serve paths;
+    (c) 8 requests done, 32 retrievals; (d) no arena spill, no worker kill
+    or respawn, and after ``close`` every worker exited 0, no child process
+    is left and the arena's segment is gone."""
+    import multiprocessing
+    import os
+    import tempfile
+    from repro_torch.core import open_cache
+    from repro_torch.core.types import MB, block_key
+    from repro_torch.data.pipeline import CachedTokenPipeline
+    from repro_torch.serve.engine import Request, ServingEngine
+    from repro_torch.storage import RemoteStore, open_store
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_step import make_train_step
+    arch = UNIFIED.split("/", 1)[1]
+    cfg, params = init_model(arch)
+    spill = tempfile.mkdtemp(prefix="igt-spill-")
+    store = open_store(f"tiered+sim://default?{UNIFIED_TIERS}"
+                       f"&spill_dir={spill}")
+    held = {}
+    for ds in unified_datasets():
+        store.add(ds)
+        held[ds.name] = sum(f.size for f in ds.files)
+    arena, shm_free = unified_arena_bytes(), shm_free_bytes()
+    t0 = time.perf_counter()
+    client = open_cache(store, UNIFIED_CACHE_MB * MB, driver="process",
+                        n_procs=UNIFIED_PROCS, arena_bytes=arena,
+                        fetch_bytes=True, cfg=unified_cache_cfg())
+    open_s = time.perf_counter() - t0
+    engine = client.engine
+    procs = [ch.proc for ch in engine._channels]
+    start_method = engine._spawn["ctx"].get_start_method()
+    emit("unified", arch=cfg.name, check="set-up", store=type(store).__name__,
+         tiers=UNIFIED_TIERS, spill_dir=spill, dataset_bytes=held,
+         cache_bytes=UNIFIED_CACHE_MB * MB, workers=len(procs),
+         worker_pids=[w["pid"] for w in engine.worker_info],
+         start_method=start_method, executor=type(client.executor).__name__,
+         arena_bytes=arena, dev_shm_free_bytes=shm_free,
+         open_cache_s=open_s)
+    retrieved = []            # (path, size, bytes, hits, blocks, ms)
+    read = client.read
+
+    def logged_read(*a, **kw):
+        t1 = time.perf_counter()
+        r = read(*a, **kw)
+        ms = (time.perf_counter() - t1) * 1e3
+        retrieved.append((a[0], a[2], bytes(r.data),
+                          sum(b.hit for b in r.blocks), len(r.blocks), ms))
+        return r
+    client.read = logged_read
+    steps = 2 * UNIFIED_STEPS
+    pipe = CachedTokenPipeline(store, client, "train_corpus",
+                               seq_len=TRAIN_S, batch=TRAIN_B,
+                               vocab=cfg.vocab)
+    it = pipe.batches(epochs=1000)
+    opt_state = init_state(params)
+    step = make_train_step(cfg, AdamWConfig(total_steps=steps), remat="full")
+    batches, step_ms, draw_ms, losses = [], [], [], []
+    train_launches = {}
+
+    def train(n):
+        nonlocal params, opt_state
+        for _ in range(n):
+            before = counts()
+            t1 = time.perf_counter()
+            b = next(it)
+            draw_ms.append((time.perf_counter() - t1) * 1e3)
+            batches.append({k: v.copy() for k, v in b.items()})
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state,
+                                        train_batch(cfg, b, len(batches)))
+            losses.append(float(m["loss"]))
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            for k, v in counts().items():
+                train_launches[k] = train_launches.get(k, 0) + v - before[k]
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                       # the unified path starts here
+    train(UNIFIED_STEPS)
+    n_req, max_new = 8, 16
+    eng = ServingEngine(params, cfg, batch=4, max_seq=512, device="cuda",
+                        cache_engine=client, knowledge_dataset="knowledge")
+    rng = np.random.default_rng(0)
+    for rid in range(n_req):
+        prompt = rng.integers(0, cfg.vocab, rng.integers(16, 65))
+        eng.submit(Request(rid, prompt, max_new=max_new))
+    before = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = {k: v - before[k] for k, v in counts().items()}
+    decode_steps = eng.steps
+    train(UNIFIED_STEPS)
+    launches = counts()                  # ... and ends here
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pipe.close()
+    pipe_stats = dataclasses.asdict(pipe.stats)
+    snap = client.snapshot()
+    by_dataset = {"train_corpus": pipe.stats.hit_ratio,
+                  "knowledge": sum(r[3] for r in retrieved)
+                  / max(1, sum(r[4] for r in retrieved))}
+    spills = engine.arena_spills()
+    faults = engine.fault_stats()
+    demand_fetches = client.executor.stats.demand_fetches
+    segment = os.path.join("/dev/shm", engine.arena.name.lstrip("/"))
+    client.close()
+    exitcodes = [p.exitcode for p in procs]
+    children = [p.name for p in multiprocessing.active_children()]
+    segment_left = os.path.exists(segment)
+    del opt_state, eng, params
+    torch.cuda.empty_cache()
+    # (a) the tiers and the workers change no byte
+    want = plain_batches(cfg.vocab, steps)
+    batches_equal = len(batches) == len(want) == steps and all(
+        sorted(g) == sorted(w) and all(
+            g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k])
+            for k in w) for g, w in zip(batches, want))
+    plain = RemoteStore()
+    plain.add(unified_datasets()[1])
+    passages_equal = len(retrieved) > 0 and all(
+        data == bytes(plain.fetch_range(block_key(path, 0), 0, size))
+        for path, size, data, _, _, _ in retrieved)
+    # (b) launches against this run's qwen3 train and serve paths
+    per_train = {k: v / steps for k, v in train_launches.items()}
+    per_decode = {k: v / max(1, decode_steps)
+                  for k, v in serve_launches.items()}
+    ref_train = paths[f"train/{arch}"]["per_train_step"]
+    ref_decode = paths[arch]["per_decode_step"]
+    # (c) serving completes
+    retrievals = sum(r.retrieved for r in done)
+    checks = {
+        "a_batches_equal": batches_equal, "a_passages_equal": passages_equal,
+        "b_train_launches": per_train == ref_train
+        == expected_per_train_step(cfg),
+        "b_decode_launches": per_decode == ref_decode,
+        "c_serving": len(done) == n_req and retrievals == 4 * n_req
+        and all(len(r.output) == max_new for r in done),
+        "d_no_arena_spill": spills == 0,
+        "d_no_kill_or_respawn": not faults["events"]
+        and faults["restarts"] == 0,
+        "d_workers_exited_0": exitcodes == [0] * len(procs),
+        "d_no_children": children == [],
+        "d_arena_segment_gone": not segment_left,
+        "losses_finite": bool(np.all(np.isfinite(losses))),
+    }
+    tiers = snap["store"]["tiers"]
+    ms_train = float(np.mean(step_ms[1:]))     # the first one warms up
+    out = {
+        "arch": cfg.name, "path": UNIFIED, "ok": all(checks.values()),
+        "checks": checks, "steps": steps, "batch": TRAIN_B, "seq": TRAIN_S,
+        "ms_per_train_step": ms_train,
+        "ms_per_train_step_each": step_ms,
+        "train_qwen3_ms_per_train_step": paths[f"train/{arch}"]["ms"],
+        "ms_per_decode_step": serve_s / max(1, decode_steps) * 1e3,
+        "serve_qwen3_ms_per_decode_step": paths[arch]["ms_per_decode_step"],
+        "decode_steps": decode_steps, "requests": len(done),
+        "retrievals": retrievals,
+        "host_ms_per_retrieval": float(np.mean([r[5] for r in retrieved])),
+        "retrieval_ms_per_decode_step": sum(r[5] for r in retrieved)
+        / max(1, decode_steps),
+        "host_ms_per_batch_draw": float(np.mean(draw_ms)),
+        "host_ms_per_batch_draw_each": draw_ms, "losses": losses,
+        "cache_hit_ratio": snap["hit_ratio"],
+        "cache_hits": snap["hits"], "cache_misses": snap["misses"],
+        "hit_ratio_by_dataset": by_dataset,
+        "pipeline": pipe_stats,
+        "tiers": {k: tiers[k] for k in ("ram_hits", "disk_hits", "spills",
+                                        "remote_bytes", "pass_through",
+                                        "misses")},
+        "tier_counters_of": "the client process's TieredStore (each worker "
+                            "holds its own copy)",
+        "workers": len(procs), "start_method": start_method,
+        "arena_bytes": arena, "arena_spills": spills,
+        "demand_fetches": demand_fetches, "worker_exitcodes": exitcodes,
+        "per_train_step": per_train, "per_decode_step": per_decode,
+        "peak_mem_gb": peak}
+    emit("unified", **out)
+    if not out["ok"]:
+        raise AssertionError(f"{UNIFIED} failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return {"launches": launches, "per_train_step": per_train,
+            "per_decode_step": per_decode}
+
+
+def phase_cache() -> dict:
+    """Host phase on the card's machine (no GPU): two walkthroughs of
+    examples/quickstart_torch.py, each checking itself: a ``CacheDaemon``
+    over two shard worker processes with two ``cache://`` sessions (the
+    second hits every block the first read, with no demand fetch), and a
+    ``tiered+mock-s3://`` stack (every payload equals ``mock_object_bytes``;
+    pass 2 from the tiers, ``remote_bytes`` frozen at the pass-1 total)."""
+    import importlib.util
+    import multiprocessing
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    qs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qs)
+    t0 = time.perf_counter()
+    daemon = qs.daemon_walkthrough()
+    t1 = time.perf_counter()
+    tiered = qs.tiered_s3_walkthrough()
+    t2 = time.perf_counter()
+    children = [p.name for p in multiprocessing.active_children()]
+    out = {"ok": children == [], "daemon": daemon, "tiered": tiered,
+           "daemon_s": t1 - t0, "tiered_s": t2 - t1,
+           "children_left": children, "dev_shm_free_bytes": shm_free_bytes()}
+    emit("cache", **out)
+    if not out["ok"]:
+        raise AssertionError(f"cache phase left child processes: {children}")
+    return out
 
 
 # --------------------------------------------------------------- phase 7
@@ -1956,7 +2263,12 @@ def run_model(arch: str) -> dict:
     del params, state
     torch.cuda.empty_cache()
     return {"launches": launches, "per_prefill": pre["launches"],
-            "serve": srv["launches"] if srv is not None else None}
+            "serve": srv["launches"] if srv is not None else None,
+            "per_decode_step": None if srv is None else {
+                k: v / max(1, srv["steps"])
+                for k, v in srv["launches"].items()},
+            "ms_per_decode_step": None if srv is None
+            else srv["seconds"] / max(1, srv["steps"]) * 1e3}
 
 
 def main() -> int:
@@ -2000,6 +2312,8 @@ def main() -> int:
         paths[f"train/{arch}"] = run_train(arch)
     for arch in GRAD_ARCHS:
         paths[f"train/{arch}"] = run_grads(arch)
+    paths[UNIFIED] = run_unified(paths)
+    phase_cache()
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -2024,6 +2338,10 @@ def main() -> int:
                 arch: ({"path": p["launches"][name],
                         "per_train_step": p["per_train_step"][name]}
                        if arch.startswith("train/") else
+                       {"path": p["launches"][name],
+                        "per_train_step": p["per_train_step"][name],
+                        "per_decode_step": p["per_decode_step"][name]}
+                       if arch == UNIFIED else
                        {"path": p["launches"][name],
                         "per_prefill": p["per_prefill"][name],
                         "serve": None if p["serve"] is None

@@ -25,6 +25,7 @@ from .meta import LevelCache
 from .pattern import (PatternResult, classify, classify_batch,
                       detect_sequential, fit_adaptive_ttl,
                       fit_adaptive_ttl_batch)
+from .procdriver import ProcessExecutor, ProcessShardedCache, ShmArena
 from .sharded import (DemandSummary, GlobalRebalancer, ShardDemandTracker,
                       ShardRouting, ShardedIGTCache, make_engine,
                       shard_index, split_capacity)
@@ -39,11 +40,11 @@ __all__ = [
     "GlobalRebalancer", "IGTCache", "KernelGuard", "LevelCache", "MB",
     "NullExecutor", "ObservedChain",
     "PathT", "Pattern", "PatternResult", "PrefetchExecutor",
-    "ReadOutcome",
+    "ProcessExecutor", "ProcessShardedCache", "ReadOutcome",
     "ReadResult", "RestartBudget", "SHARD_DOWN", "SHARD_RESTARTING",
     "SHARD_UP", "ShardDemandTracker", "ShardRouting", "ShardUnavailableError",
     "ShardedIGTCache",
-    "SimExecutor", "ThreadedExecutor",
+    "ShmArena", "SimExecutor", "ThreadedExecutor",
     "UnifiedCache", "analyze_streams", "block_key", "bundle",
     "bundle_client", "bundle_engine", "classify",
     "classify_batch", "detect_sequential", "fit_adaptive_ttl",

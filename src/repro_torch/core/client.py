@@ -1149,9 +1149,25 @@ def open_cache(store, capacity: Optional[int] = None, *,
         # executor), so the answer is a thin connected session, not a
         # locally constructed stack.  URI query params (?fetch_bytes=
         # true&label=trainer0) merge under explicit kwargs.
-        raise NotImplementedError(
-            "cache:// is not ported yet: it comes with ROADMAP.md Queue 1 "
-            "item 4 (the daemon, s3, tiers and the process driver)")
+        from ..daemon.client import RemoteCacheClient
+        if capacity is not None:
+            raise ValueError(
+                "capacity is owned by the daemon for cache:// stores — "
+                "configure it where the CacheDaemon is constructed")
+        params = dict(store.params)
+        params.setdefault("fetch_bytes", fetch_bytes)
+        allowed = ("fetch_bytes", "label", "heartbeat", "shm",
+                   "connect_timeout", "reconnect", "degraded",
+                   "max_backoff_s", "rpc_timeout_s")
+        kw = {k: v for k, v in params.items() if k in allowed}
+        if backing is not None:
+            # degraded reads while the daemon is away need a local byte
+            # path; a backing store (object or URI) provides it
+            if isinstance(backing, str):
+                from ..storage.api import open_store
+                backing = open_store(backing)
+            kw["backing"] = backing
+        return RemoteCacheClient(store, **kw)
     if capacity is None:
         raise TypeError("open_cache() missing required argument: "
                         "'capacity' (only cache:// stores omit it)")
@@ -1167,13 +1183,23 @@ def open_cache(store, capacity: Optional[int] = None, *,
             f"unknown executor {executor!r}; expected one of "
             f"{sorted(_EXECUTORS)} or a PrefetchExecutor instance")
     if driver == "process":
-        raise NotImplementedError(
-            "driver='process' is not ported yet: it comes with ROADMAP.md "
-            "Queue 1 item 4 (the daemon, s3, tiers and the process driver)")
-    if n_procs is not None:
-        raise ValueError("n_procs only applies to driver='process'")
-    engine = make_engine(store, capacity, cfg=cfg, options=options,
-                         n_shards=n_shards)
+        from .procdriver import DEFAULT_ARENA_BYTES, ProcessShardedCache
+        if n_procs is None:
+            n_procs = n_shards if n_shards > 1 else 2
+        engine: Engine = ProcessShardedCache(
+            store, capacity, cfg=cfg, options=options, n_procs=n_procs,
+            arena_bytes=(DEFAULT_ARENA_BYTES if arena_bytes is None
+                         else arena_bytes),
+            backing=backing,     # workers serve demand misses from it
+            retry=retry,
+            supervise=supervise, restart_budget=restart_budget,
+            restart_window_s=restart_window_s, heartbeat_s=heartbeat_s,
+            rpc_timeout_s=rpc_timeout_s)
+    else:
+        if n_procs is not None:
+            raise ValueError("n_procs only applies to driver='process'")
+        engine = make_engine(store, capacity, cfg=cfg, options=options,
+                             n_shards=n_shards)
     if backing is None:
         backing = store          # normalized (or rejected) by CacheClient
     if isinstance(executor, str):
@@ -1181,10 +1207,9 @@ def open_cache(store, capacity: Optional[int] = None, *,
             executor = ThreadedExecutor(queue_depth=queue_depth,
                                         max_fetch_bytes=max_fetch_bytes)
         elif executor == "process":
-            raise NotImplementedError(
-                "executor='process' is not ported yet: it comes with "
-                "ROADMAP.md Queue 1 item 4 (the daemon, s3, tiers and the "
-                "process driver)")
+            from .procdriver import ProcessExecutor
+            executor = ProcessExecutor(queue_depth=queue_depth,
+                                       max_fetch_bytes=max_fetch_bytes)
         elif executor == "sim":
             executor = SimExecutor()
         else:

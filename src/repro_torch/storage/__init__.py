@@ -20,12 +20,15 @@ from .api import (BackingStore, CircuitBreaker, CircuitOpenError,
 from .datasets import DatasetSpec, make_dataset
 from .local_fs import LocalFSStore
 from .object_store import ObjectStoreSim, RemoteStore, TransferModel
+from .s3 import MockS3Server, S3Store
+from .tiers import DiskTier, TieredStore, TierStats
 
 __all__ = [
     "BackingStore", "CircuitBreaker", "CircuitOpenError", "DatasetSpec",
-    "DeadlineError", "FaultyStore", "LegacyStoreAdapter",
-    "LocalFSStore", "MemStore", "ObjectStoreSim",
-    "RemoteStore", "RetryPolicy", "StoreCapabilities",
-    "StoreError", "StoreMetaIndex", "TransferModel", "TransientStoreError", "as_backing_store",
+    "DeadlineError", "DiskTier", "FaultyStore", "LegacyStoreAdapter",
+    "LocalFSStore", "MemStore", "MockS3Server", "ObjectStoreSim",
+    "RemoteStore", "RetryPolicy", "S3Store", "StoreCapabilities",
+    "StoreError", "StoreMetaIndex", "TieredStore", "TierStats",
+    "TransferModel", "TransientStoreError", "as_backing_store",
     "make_dataset", "open_store", "register_scheme", "registered_schemes",
 ]

@@ -650,8 +650,11 @@ def _ensure_builtin_schemes() -> None:
         return
     _BUILTINS_LOADED = True
     from . import local_fs, object_store  # noqa: F401  (register on import)
-    # s3:// and mock-s3://, and cache:// (daemon endpoints), come with
-    # ROADMAP.md Queue 1 item 4.
+    from . import s3  # noqa: F401  (s3:// + mock-s3://)
+    # cache:// — daemon endpoint addresses (repro.daemon), resolving to
+    # a DaemonAddress handle rather than a byte store; open_cache turns
+    # one into a connected RemoteCacheClient
+    from ..daemon import uri as _daemon_uri  # noqa: F401
 
 
 def _coerce(value: str):
@@ -730,9 +733,14 @@ def open_store(uri: str, **overrides):
         _record_uri(wrapper, uri)
         return wrapper
     if url.scheme.startswith("tiered+"):
-        raise NotImplementedError(
-            "tiered+ stores are not ported yet: they come with ROADMAP.md "
-            "Queue 1 item 4 (the daemon, s3, tiers and the process driver)")
+        from .tiers import TIER_KEYS, TieredStore
+        inner_uri = urlunsplit((url.scheme[len("tiered+"):], url.netloc,
+                                url.path, "", ""))
+        tier_kw = {k: params.pop(k) for k in TIER_KEYS if k in params}
+        inner = open_store(inner_uri, **params)
+        wrapper = TieredStore(inner, **tier_kw)
+        _record_uri(wrapper, uri)
+        return wrapper
     factory = _SCHEMES.get(url.scheme)
     if factory is None:
         raise ValueError(f"unknown store scheme {url.scheme!r}; registered: "

@@ -154,12 +154,38 @@ def test_pipeline_batches_and_stats_match_reference(monkeypatch):
     assert got[2] == want[2]
 
 
-def test_unported_drivers_raise():
-    from repro_torch.core import open_cache
-    from repro_torch.storage import open_store
+def test_port_opens_every_scheme_and_driver(tmp_path):
+    """``tiered+``, ``mock-s3://`` and ``s3://`` open as stores,
+    ``cache://`` as a daemon session, and ``driver="process"`` /
+    ``executor="process"`` as engines, on the port as in the reference: no
+    scheme is refused, and none falls through to ``unknown store scheme``."""
+    from repro_torch.core import (ProcessExecutor, ProcessShardedCache,
+                                  open_cache)
+    from repro_torch.daemon import CacheDaemon, RemoteCacheClient
+    from repro_torch.storage import S3Store, TieredStore, open_store
+    from repro_torch.storage.api import registered_schemes
+    assert {"s3", "mock-s3", "cache"} <= set(registered_schemes())
+    tiered = open_store(
+        f"tiered+mem://x?ram_mb=1&disk_mb=2&spill_dir={tmp_path}")
+    assert isinstance(tiered, TieredStore)
+    assert tiered.spill_dir == str(tmp_path)
+    mock = open_store("mock-s3://t/bkt?dirs=1&files=2&file_kb=64")
+    assert isinstance(mock, S3Store)
+    direct = open_store(f"s3://{mock.host}:{mock.port}/bkt")
+    path = ("bkt", "00", "000.bin")
+    assert direct.file_size(path) == mock.file_size(path) == 64 * 1024
     store = _store("torch")
-    for kw in ({"driver": "process"}, {"executor": "process"}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            open_cache(store, CAPACITY, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        open_store("tiered+mem://x")
+    c = open_cache(store, CAPACITY, driver="process", n_procs=2)
+    try:
+        assert isinstance(c.engine, ProcessShardedCache)
+        assert isinstance(c.executor, ProcessExecutor)
+    finally:
+        c.close()
+    c = open_cache(store, CAPACITY, driver="process", n_procs=1,
+                   executor="process")
+    c.close()
+    with CacheDaemon(store, CAPACITY) as d:
+        with open_cache(d.uri) as session:
+            assert isinstance(session, RemoteCacheClient)
+            fp = store.datasets["seqset"].files[0].path
+            assert session.read(fp, 0, 4096).outcome.blocks

@@ -54,9 +54,15 @@ def test_port_modules_exist():
                  *(f"repro_torch.core.{m}" for m in (
                      "types", "ks", "pattern", "access_stream_tree", "meta",
                      "prefetch", "eviction", "allocation", "sketch", "cache",
-                     "igtcache", "sharded", "faults", "client", "baselines")),
+                     "igtcache", "sharded", "faults", "client", "baselines",
+                     "wire", "procdriver")),
                  *(f"repro_torch.storage.{m}" for m in (
-                     "api", "datasets", "object_store", "local_fs"))):
+                     "api", "datasets", "object_store", "local_fs", "tiers",
+                     "s3")),
+                 "repro_torch.daemon",
+                 *(f"repro_torch.daemon.{m}" for m in (
+                     "wire", "uri", "journal", "server", "client",
+                     "supervisor"))):
         assert name in mods
 
 
@@ -75,6 +81,40 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                          text=True, timeout=120, env=env, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+
+
+def test_process_driver_worker_loads_no_jax_and_no_repro():
+    """A shard worker of the port's process driver (forked, the default
+    start method, by a parent that imported only the port) reports its own
+    ``sys.modules`` through the ``hello`` command's capability snapshot."""
+    code = (
+        "import sys\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}]\n"
+        "from repro_torch.core import open_cache\n"
+        "from repro_torch.core.types import MB\n"
+        "from repro_torch.storage import MemStore\n"
+        "class Caps:\n"
+        "    def snapshot(self):\n"
+        "        import os\n"
+        "        return {'pid': os.getpid(), 'bad': sorted(\n"
+        "            m for m in sys.modules if m == 'jax' or\n"
+        "            m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
+        "            m.startswith('repro.'))}\n"
+        "class Store(MemStore):\n"
+        "    def capabilities(self):\n"
+        "        return Caps()\n"
+        "c = open_cache(Store(block_size=MB), 64 * MB, driver='process',\n"
+        "               n_procs=2)\n"
+        "info = [w['capabilities'] for w in c.engine.worker_info]\n"
+        "c.close()\n"
+        "import os\n"
+        "assert all(i['pid'] != os.getpid() for i in info), info\n"
+        "print('WORKERS', len(info), 'BAD', [i['bad'] for i in info])\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert "WORKERS 2 BAD [[], []]" in out.stdout, out.stdout
 
 
 def test_static_scan_finds_no_jax_or_repro_import():
