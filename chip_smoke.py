@@ -65,7 +65,17 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 loss-and-grads on its first ``GRAD_DEPTH`` layers (the
                 non-causal flash backward), held against plain versions in
                 bf16.
-  6b. unified — ``unified/qwen3-1.7b``: qwen3-1.7b at full width and depth
+  6b. mesh    — ``mesh/qwen3-1.7b``: qwen3-1.7b at full
+                width and depth through a one-device mesh
+                (``make_local_mesh("cuda")``, ``DEFAULT_RULES``): prefill,
+                8 decode steps and 2 train steps through the mesh steps,
+                logits and the first loss bitwise equal to the unmeshed
+                steps', params within twice two unmeshed runs' spread,
+                launches equal to the qwen3 paths', a checkpoint restored
+                with shardings (``run_mesh`` lists its checks).  Its
+                process group is destroyed when it ends, so no later fork
+                inherits a live group.
+  6c. unified — ``unified/qwen3-1.7b``: qwen3-1.7b at full width and depth
                 (bf16, seed 0) trains and serves through ONE process-driver
                 cache client (``open_cache(driver="process", n_procs=2)``,
                 the process executor, demand bytes through the
@@ -75,10 +85,16 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 train steps from ``CachedTokenPipeline``, a
                 ``ServingEngine`` answering 8 requests with 4 retrievals
                 each, 4 more train steps (``run_unified`` lists its checks).
-  6c. cache   — host phase, no GPU: the daemon walkthrough (a
+  6d. cache   — host phase, no GPU: the daemon walkthrough (a
                 ``CacheDaemon`` over two shard worker processes, two
                 ``cache://`` sessions) and the ``tiered+mock-s3://``
                 walkthrough of examples/quickstart_torch.py.
+  6e. sim     — host phase, no GPU, in this CUDA-holding process: the
+                paper's 18-job mixed cluster on the port's simulator at a
+                quarter scale (igtcache, juicefs, nocache, igtcache again;
+                examples/mixed_cluster_torch.py), then a worker of a
+                process-driver client killed mid-trace
+                (``phase_sim`` lists its checks).
   7. profile  — one traced prefill and decode step of each model: device
                 time by kernel (and summed for each of the port's kernels)
                 and the device's busy share (not part of the main path).
@@ -87,8 +103,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 checkout, it profiles that checkout's package.
   8. the ``{"kernels": [...]}`` line: launches on the main path (each
      model's prefill and serving, each model's train steps
-     (``train/<arch>``) and ``unified/qwen3-1.7b``, each counted from 0 and
-     summed; flash attention's forward and backward also by variant,
+     (``train/<arch>``), ``mesh/qwen3-1.7b`` and ``unified/qwen3-1.7b``,
+     each counted from 0 and summed; flash attention's forward and backward also by variant,
      and every prefill and training flash launch must be the ``wgmma``
      one), errors, times and bounds, for the three forward kernels and the
      three backward ones.
@@ -1865,7 +1881,7 @@ def run_grads(arch: str) -> dict:
     return {"launches": launches, "per_train_step": per_call}
 
 
-# --------------------------------------------------------------- phase 6b
+# --------------------------------------------------------------- phase 6c
 
 UNIFIED = "unified/qwen3-1.7b"
 UNIFIED_STEPS = 4                 # train steps before serving, and after
@@ -2136,12 +2152,8 @@ def phase_cache() -> dict:
     second hits every block the first read, with no demand fetch), and a
     ``tiered+mock-s3://`` stack (every payload equals ``mock_object_bytes``;
     pass 2 from the tiers, ``remote_bytes`` frozen at the pass-1 total)."""
-    import importlib.util
     import multiprocessing
-    spec = importlib.util.spec_from_file_location(
-        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
-    qs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(qs)
+    qs = load_example("quickstart_torch")
     t0 = time.perf_counter()
     daemon = qs.daemon_walkthrough()
     t1 = time.perf_counter()
@@ -2154,6 +2166,394 @@ def phase_cache() -> dict:
     emit("cache", **out)
     if not out["ok"]:
         raise AssertionError(f"cache phase left child processes: {children}")
+    return out
+
+
+# --------------------------------------------------------------- phase 6b
+
+MESH = "mesh/qwen3-1.7b"
+MESH_DECODE_STEPS, MESH_TRAIN_STEPS = 8, 2
+MESH_CKPT_DEPTH = 2               # layers in the checkpoint round trip
+
+
+def leaf_gaps(a: dict, b: dict) -> dict:
+    """Each parameter's largest absolute difference between two trees."""
+    from repro_torch.models.params import tree_leaves
+    right = dict(tree_leaves(b))
+    return {"/".join(k): float((v.float() - right[k].float()).abs().max())
+            for k, v in tree_leaves(a)}
+
+
+def run_mesh(paths: dict) -> dict:
+    """qwen3-1.7b at full width and depth (bf16, seed 0: the weights the
+    qwen3 path drew, drawn again) through a one-device mesh
+    (``make_local_mesh("cuda")``, ``DEFAULT_RULES``): a prefill of 4 x 1024
+    tokens, ``MESH_DECODE_STEPS`` decode steps of a batch of 4 and
+    ``MESH_TRAIN_STEPS`` train steps (remat "full", AdamW), all through the
+    mesh steps, counted from 0 as a path.  Outside the count the same
+    inputs go through the unmeshed steps: the prefill's and every decode
+    step's logits must be equal bit for bit, and the first train step's
+    loss; after the train steps every parameter must lie within
+    ``FLOOR_FACTOR`` times the spread of two unmeshed runs from the same
+    params and batches, and never less than one bf16 ulp of its largest
+    magnitude (the flash backward's dQ reduce-add sums in a varying
+    order).  Launches per prefill, decode step and train step must equal
+    the qwen3 paths'.  Last, the trained params cut to ``MESH_CKPT_DEPTH``
+    layers are saved and restored with ``shardings_for`` the mesh: the
+    same bits, plain tensors on the card.
+
+    The one-rank process group that ``make_local_mesh`` starts is
+    destroyed when this path ends (``release_local_mesh``), so that the
+    later paths and phases, which fork shard workers, fork a process with
+    no live group."""
+    import tempfile
+    from repro_torch.launch.mesh import make_local_mesh, release_local_mesh
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import build_specs, init_decode_state
+    from repro_torch.serve.serve_step import make_prefill, make_serve_step
+    from repro_torch.sharding import DEFAULT_RULES, shardings_for
+    from repro_torch.sharding.rules import NamedSharding, P, mesh_axes
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import (AdamWConfig, AdamWState,
+                                             init_state)
+    from repro_torch.train.train_step import make_train_step
+    arch = MESH.split("/", 1)[1]
+    cfg, params = init_model(arch)
+    inputs = model_inputs(cfg, 4, 1024, 0)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab,
+                                             (4, MESH_DECODE_STEPS))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batches = []
+    for _ in range(MESH_TRAIN_STEPS):
+        t = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S + 1), generator=gen,
+                          device="cuda")
+        batches.append({"tokens": t[:, :-1].contiguous(),
+                        "labels": t[:, 1:].contiguous()})
+    opt_cfg = AdamWConfig(total_steps=MESH_TRAIN_STEPS)
+
+    def serve(prefill, step, marks):
+        logits = [prefill(params, **inputs)]
+        marks.append(counts())
+        state = init_decode_state(cfg, 4, 64, device="cuda")
+        for i in range(MESH_DECODE_STEPS):
+            out, state = step(params, state, toks[:, i:i + 1])
+            logits.append(out)
+        return logits
+
+    def train(step):
+        p = tree_to(params, torch.clone)
+        opt = init_state(p)
+        losses = []
+        for b in batches:
+            p, opt, m = step(p, opt, b)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        return p, opt, losses
+
+    mesh = make_local_mesh("cuda")
+    try:
+        t0 = time.perf_counter()
+        reset_counts()                   # the mesh path starts here
+        marks = []
+        got = serve(make_prefill(cfg, mesh, DEFAULT_RULES),
+                    make_serve_step(cfg, mesh, DEFAULT_RULES), marks)
+        marks.append(counts())
+        p_mesh, opt_mesh, loss_mesh = train(make_train_step(
+            cfg, opt_cfg, mesh, DEFAULT_RULES, remat="full"))
+        launches = counts()              # ... and ends here
+        path_s = time.perf_counter() - t0
+        want = serve(make_prefill(cfg, "cuda"), make_serve_step(cfg, "cuda"),
+                     [])
+        plain = make_train_step(cfg, opt_cfg, remat="full")
+        p_a, _, loss_a = train(plain)
+        p_b, _, loss_b = train(plain)
+        # the checkpoint round trip, on the mesh
+        ccfg, cut = cut_depth(cfg, p_mesh, MESH_CKPT_DEPTH)
+        psh = shardings_for(build_specs(ccfg), mesh, DEFAULT_RULES)
+        like = (cut, AdamWState(opt_mesh.step, {}, {}))
+        with tempfile.TemporaryDirectory(prefix="repro_torch_mesh") as d:
+            ck = CheckpointManager(d)
+            t1 = time.perf_counter()
+            ck.save(MESH_TRAIN_STEPS, like)
+            (back, back_opt), _ = ck.restore(like, shardings=(
+                psh, AdamWState(NamedSharding(mesh, P()), {}, {})))
+            ckpt_s = time.perf_counter() - t1
+        ckpt_equal = all(
+            type(b) is torch.Tensor and b.device.type == "cuda"
+            and b.dtype == a.dtype and torch.equal(a, b)
+            for (_, a), (_, b) in zip(tree_leaves(cut), tree_leaves(back))) \
+            and int(back_opt.step) == MESH_TRAIN_STEPS
+        axes = mesh_axes(mesh)
+        device_type = mesh.device_type
+    finally:
+        released = release_local_mesh(mesh)
+    # launches per prefill / decode step / train step
+    n = MESH_DECODE_STEPS
+    per_prefill, served = marks
+    per_decode = {k: (v - per_prefill[k]) / n for k, v in served.items()}
+    per_train = {k: (v - served[k]) / MESH_TRAIN_STEPS
+                 for k, v in launches.items()}
+    gap = leaf_gaps(p_mesh, p_a)
+    spread = leaf_gaps(p_a, p_b)
+    floor = {k: BF16_ULP * float(v.float().abs().max())
+             for k, v in (("/".join(k), v) for k, v in tree_leaves(p_a))}
+    bound = {k: max(FLOOR_FACTOR * spread[k], floor[k]) for k in gap}
+    worst = max(gap, key=lambda k: gap[k] / bound[k])
+    checks = {
+        "prefill_logits_bitwise": torch.equal(got[0], want[0]),
+        "decode_logits_bitwise": all(torch.equal(a, b)
+                                     for a, b in zip(got[1:], want[1:])),
+        "first_loss_bitwise": torch.equal(loss_mesh[0], loss_a[0]),
+        "params_within_spread": all(gap[k] <= bound[k] for k in gap),
+        "prefill_launches": per_prefill == paths[arch]["per_prefill"]
+        == expected_per_forward(cfg),
+        "decode_launches": per_decode == paths[arch]["per_decode_step"],
+        "train_launches": per_train
+        == paths[f"train/{arch}"]["per_train_step"]
+        == expected_per_train_step(cfg),
+        "checkpoint_bitwise": ckpt_equal,
+        "one_device_mesh": axes == {"data": 1, "model": 1}
+        and device_type == "cuda",
+        "group_released": released,
+        "losses_finite": all(bool(torch.isfinite(x)) for x in loss_mesh),
+    }
+    out = {"arch": cfg.name, "path": MESH, "ok": all(checks.values()),
+           "checks": checks, "mesh": axes, "rules": "DEFAULT_RULES",
+           "decode_steps": n, "train_steps": MESH_TRAIN_STEPS,
+           "losses_mesh": [float(x) for x in loss_mesh],
+           "losses_plain": [[float(x) for x in loss_a],
+                            [float(x) for x in loss_b]],
+           "worst_leaf": worst, "worst_gap": gap[worst],
+           "worst_spread": spread[worst], "worst_bound": bound[worst],
+           "leaves_bitwise": sum(v == 0 for v in gap.values()),
+           "leaves": len(gap),
+           "leaves_plain_runs_bitwise": sum(v == 0 for v in spread.values()),
+           "path_s": path_s, "checkpoint_s": ckpt_s,
+           "per_prefill": {k: v for k, v in per_prefill.items() if v},
+           "per_decode_step": {k: v for k, v in per_decode.items() if v},
+           "per_train_step": {k: v for k, v in per_train.items() if v}}
+    emit("mesh", **out)
+    del params, p_mesh, opt_mesh, p_a, p_b, got, want, back
+    torch.cuda.empty_cache()
+    if not out["ok"]:
+        raise AssertionError(f"{MESH} failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return {"launches": launches, "per_prefill": per_prefill,
+            "per_decode_step": per_decode, "per_train_step": per_train}
+
+
+# --------------------------------------------------------------- phase 6e
+
+SIM_SCALE, SIM_SEED = 0.25, 0
+SIM_CHAOS_PROCS = 2
+SIM_PROBE_S = 0.25         # virtual seconds between chaos probes
+SIM_RESPAWN_BOUND_S = 1.0  # five of the supervisor's 0.2 s polls
+
+
+def load_example(name: str):
+    """A module of ``examples/`` by file name."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def chaos_sim_run(chaos_events=(), window_from=None,
+                  strike_at=None) -> dict:
+    """tests/test_chaos.py's end-to-end world (the paper suite at 0.15,
+    jobs 2, 8 and 9, a cache of 35 % of the data) through ``ClusterSim``
+    over a process-driver client of ``SIM_CHAOS_PROCS`` workers: the
+    result, the kernel's stats at ``window_from`` and at the end, the
+    fault and client stats, the workers' exit codes.  From ``strike_at``
+    a probe runs every ``SIM_PROBE_S`` virtual seconds; the first one that
+    finds degraded reads waits on the wall clock until every kill has its
+    respawn and every shard is up (``barrier``: its virtual time, wall
+    wait and the degraded reads before it).  The respawn runs on the wall
+    clock (the supervisor polls every 0.2 s) while the trace runs on
+    virtual time, and reads that find the shard down are served from the
+    store without being admitted, so without the wait the virtual length
+    of the outage, and the next epoch's hits, would follow the host's
+    speed (PERF.md §6); with it, the outage spans the reads up to the
+    first probe after the first degraded one, on any host whose respawn
+    outlasts that probe step."""
+    from repro_torch.core import CacheConfig, open_cache
+    from repro_torch.core.faults import SHARD_UP
+    from repro_torch.core.types import MB
+    from repro_torch.sim import ClusterSim, make_paper_suite
+    from repro_torch.storage import RemoteStore
+    suite = make_paper_suite(scale=0.15, seed=0, job_filter=[2, 8, 9])
+    store = RemoteStore()
+    for ds in suite.datasets.values():
+        store.add(ds)
+    cap = int(0.35 * suite.total_bytes())
+    cfg = CacheConfig(min_share=4 * MB, rebalance_quantum=4 * MB,
+                      window=40, reanalyze_every=20, node_cap=500)
+    client = open_cache(store, cap, cfg=cfg, driver="process",
+                        n_procs=SIM_CHAOS_PROCS, rpc_timeout_s=15.0)
+    out = {"snaps": {}, "barrier": None}
+
+    def recovered() -> bool:
+        kinds = [e["kind"] for e in client.fault_stats()["events"]]
+        return kinds.count("respawn") >= kinds.count("kill") and all(
+            st == SHARD_UP for st in client.shard_states())
+
+    def barrier(sim):
+        degraded = client.client_stats.snapshot()["degraded_reads"]
+        if out["barrier"] is not None or not degraded:
+            return
+        t0 = time.monotonic()
+        while not recovered():
+            if time.monotonic() - t0 > 60:
+                raise AssertionError("no respawn within 60 s")
+            time.sleep(0.01)
+        out["barrier"] = {"at": sim.now, "wait_s": time.monotonic() - t0,
+                          "degraded_reads": degraded}
+    try:
+        sim = ClusterSim(suite, client, chaos_events=list(chaos_events))
+        if window_from is not None:
+            sim.at(window_from, lambda s: out["snaps"].__setitem__(
+                "w", s.engine.stats.snapshot()))
+        if strike_at is not None:
+            n = int((window_from - strike_at) / SIM_PROBE_S)
+            for k in range(1, n + 1):
+                sim.at(strike_at + k * SIM_PROBE_S, barrier)
+        out["res"] = sim.run()
+        out["snaps"]["end"] = client.stats.snapshot()
+        out["fault"] = client.fault_stats()
+        out["cstats"] = client.client_stats.snapshot()
+        procs = [ch.proc for ch in client.engine._channels]
+    finally:
+        client.close()
+    out["exitcodes"] = [p.exitcode for p in procs]
+    return out
+
+
+def host_rss_gb() -> float:
+    """This process's resident host memory (what a fork's page tables
+    copy)."""
+    with open("/proc/self/status") as f:
+        kb = next(int(line.split()[1]) for line in f
+                  if line.startswith("VmRSS:"))
+    return kb / 1e6
+
+
+def window_chr(snaps) -> float:
+    s0, s1 = snaps["w"], snaps["end"]
+    hits = s1["hits"] - s0["hits"]
+    total = hits + s1["misses"] - s0["misses"]
+    return hits / total if total else 0.0
+
+
+def phase_sim() -> dict:
+    """Host phase, in this process (which holds a CUDA context): the paper's
+    mixed-cluster scenario on the port's simulator
+    (examples/mixed_cluster_torch.py) at ``SIM_SCALE``, seed 0: the 18
+    jobs through igtcache, juicefs and nocache, then igtcache again.
+    Checks (tests/test_sim.py's): every job finishes, nocache's CHR is 0,
+    both caches' average JCT is below nocache's, and the second igtcache
+    run gives the first's ``jct`` and ``hit_ratio``.  Then tests/
+    test_chaos.py's end-to-end recipe on a process-driver client (its shard
+    workers forked from this process): a run without faults, and one with
+    a ``kill`` strike at a third of its makespan, which waits on the wall
+    clock for the worker at the first probe after the first degraded read
+    (``chaos_sim_run``); the same jobs complete, reads were served
+    degraded before that wait, the driver respawns the worker once within
+    ``SIM_RESPAWN_BOUND_S``, every shard ends up, and the CHR of the last
+    third lies within 0.05 of the fault-free run's.  The
+    simulator's numbers depend on the interpreter's string hashing (set
+    order), so they vary with ``PYTHONHASHSEED`` and are compared within
+    this run only."""
+    import hashlib
+    import multiprocessing
+    import os
+    from repro_torch.core.faults import SHARD_UP
+    mc = load_example("mixed_cluster_torch")
+    t0 = time.perf_counter()
+    suite, store, cap, cfg = mc.build(SIM_SCALE, SIM_SEED)
+    build_s = time.perf_counter() - t0
+    # the workload itself, to set beside another machine's
+    digest = hashlib.sha256(repr([(j.job_id, j.submit_time, j.steps)
+                                  for j in suite.jobs]).encode()).hexdigest()
+    results, rows = {}, {}
+    for name in mc.BUNDLES + ("igtcache",):
+        res, wall = mc.simulate(suite, store, cap, cfg, name)
+        key = name if name not in results else f"{name}_again"
+        results[key] = res
+        rows[key] = {"avg_jct_s": res.avg_jct, "chr": res.hit_ratio,
+                     "makespan_s": res.makespan,
+                     "link_utilization": res.link_utilization,
+                     "link_bytes": res.link_bytes, "jobs": len(res.jct),
+                     "wall_s": wall}
+    ig, ju, nc = (results[k] for k in mc.BUNDLES)
+    jobs = {j.job_id for j in suite.jobs}
+    base = chaos_sim_run()["res"]
+    kill_at = base.makespan / 3.0
+    window_from = 2.0 * base.makespan / 3.0
+    base2 = chaos_sim_run(window_from=window_from, strike_at=kill_at)
+    t1 = time.perf_counter()
+    run = chaos_sim_run(chaos_events=[(kill_at, "kill", 0)],
+                        window_from=window_from, strike_at=kill_at)
+    chaos_s = time.perf_counter() - t1
+    res, fault = run["res"], run["fault"]
+    chr_base = window_chr(base2["snaps"])
+    chr_chaos = window_chr(run["snaps"])
+    respawns = [e for e in fault["events"] if e["kind"] == "respawn"]
+    checks = {
+        "all_jobs_finish": all(set(r.jct) == jobs and all(
+            v > 0 for v in r.jct.values()) for r in results.values()),
+        "eighteen_jobs": len(jobs) == 18,
+        "nocache_chr_0": nc.hit_ratio == 0.0,
+        "caches_beat_nocache": ig.avg_jct < nc.avg_jct
+        and ju.avg_jct < nc.avg_jct,
+        "igtcache_deterministic":
+        results["igtcache_again"].jct == ig.jct
+        and results["igtcache_again"].hit_ratio == ig.hit_ratio,
+        "chaos_same_jobs": set(res.jct) == set(base2["res"].jct)
+        and bool(res.jct),
+        "chaos_struck": [e["kind"] for e in res.chaos_log] == ["kill"],
+        "chaos_one_respawn": len(respawns) == 1,
+        "chaos_degraded_before_barrier": run["barrier"] is not None
+        and run["barrier"]["degraded_reads"] > 0,
+        "chaos_respawn_in_bound": all(e["recovery_s"] <= SIM_RESPAWN_BOUND_S
+                                      for e in respawns),
+        "chaos_shards_up": all(s["state"] == SHARD_UP
+                               for s in fault["shards"].values()),
+        "chaos_window_chr": abs(chr_base - chr_chaos) <= 0.05,
+        "chaos_workers_exited_0": run["exitcodes"]
+        == [0] * SIM_CHAOS_PROCS,
+        "no_children": multiprocessing.active_children() == [],
+    }
+    out = {"ok": all(checks.values()), "checks": checks,
+           "scale": SIM_SCALE, "seed": SIM_SEED, "jobs": len(jobs),
+           "data_bytes": suite.total_bytes(), "cache_bytes": cap,
+           "build_s": build_s, "bundles": rows,
+           "igtcache_vs_juicefs_jct": 1 - ig.avg_jct / ju.avg_jct,
+           "juicefs_vs_nocache_jct": 1 - ju.avg_jct / nc.avg_jct,
+           "suite_sha256": digest, "python": sys.version.split()[0],
+           "numpy": np.__version__,
+           "pythonhashseed": os.environ.get("PYTHONHASHSEED"),
+           "chaos": {"workers": SIM_CHAOS_PROCS, "kill_at": kill_at,
+                     "window_from": window_from,
+                     "probe_s": SIM_PROBE_S,
+                     "recovery_s": [e["recovery_s"] for e in respawns],
+                     "recovery_bound_s": SIM_RESPAWN_BOUND_S,
+                     "barrier": run["barrier"],
+                     "host_rss_gb": host_rss_gb(),
+                     "makespan_base": base.makespan,
+                     "makespan_chaos": res.makespan,
+                     "window_chr_base": chr_base,
+                     "window_chr_chaos": chr_chaos,
+                     "degraded_reads": run["cstats"]["degraded_reads"],
+                     "respawns": len(respawns),
+                     "fault_events": [e["kind"] for e in fault["events"]],
+                     "worker_exitcodes": run["exitcodes"],
+                     "wall_s": chaos_s}}
+    emit("sim", **out)
+    if not out["ok"]:
+        raise AssertionError(f"sim phase failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
     return out
 
 
@@ -2312,8 +2712,10 @@ def main() -> int:
         paths[f"train/{arch}"] = run_train(arch)
     for arch in GRAD_ARCHS:
         paths[f"train/{arch}"] = run_grads(arch)
-    paths[UNIFIED] = run_unified(paths)
+    paths[MESH] = run_mesh(paths)        # destroys its process group
+    paths[UNIFIED] = run_unified(paths)  # ... before these fork workers
     phase_cache()
+    phase_sim()
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -2342,6 +2744,11 @@ def main() -> int:
                         "per_train_step": p["per_train_step"][name],
                         "per_decode_step": p["per_decode_step"][name]}
                        if arch == UNIFIED else
+                       {"path": p["launches"][name],
+                        "per_prefill": p["per_prefill"][name],
+                        "per_decode_step": p["per_decode_step"][name],
+                        "per_train_step": p["per_train_step"][name]}
+                       if arch == MESH else
                        {"path": p["launches"][name],
                         "per_prefill": p["per_prefill"][name],
                         "serve": None if p["serve"] is None

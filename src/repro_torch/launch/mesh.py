@@ -1,0 +1,100 @@
+"""Mesh construction (torch): ``DeviceMesh``es with the reference's axis names.
+
+Counterpart of ``repro.launch.mesh``.  FUNCTIONS (not module-level
+constants), so importing this module never touches ``torch.distributed``.
+
+A ``DeviceMesh`` needs a default process group, even for one device.
+``make_local_mesh`` starts a one-rank group (over an in-process
+``HashStore``: no port, no other process) only when none exists, and
+``release_local_mesh(mesh)`` destroys that group if the call that returned
+``mesh`` started it.  A process that forks after a mesh (the process
+driver's shard workers) should release it first, so that no child inherits
+a live group.
+
+``make_production_mesh`` builds the (16, 16) or (2, 16, 16) mesh over
+torch's fake process group (one process stands in for every rank, and
+collectives do nothing), the counterpart of the reference's forced host
+devices: enough to place and shard tensors, not to compute across ranks.
+A process has one default group, so one that built a local mesh cannot then
+build a production mesh (and the reverse): run such code in its own process.
+"""
+from __future__ import annotations
+
+from .. import resolve_device
+
+LOCAL_AXES = ("data", "model")
+_STARTED = None          # the local mesh whose call started the group
+
+
+def _have_group(kind: str):
+    """Whether a default group exists; raises if it is not one a ``kind``
+    mesh can use."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return False
+    backend = dist.get_backend()
+    if (kind == "production") != (backend == "fake"):
+        raise RuntimeError(
+            f"this process already has a {backend!r} default process group "
+            f"(world size {dist.get_world_size()}); a {kind} mesh needs "
+            f"{'the fake' if kind == 'production' else 'a real'} one: build "
+            "it in a process of its own")
+    return True
+
+
+def make_local_mesh(device="cuda"):
+    """1-device mesh (same axis names, all size 1) on ``device``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    global _STARTED
+    dev = resolve_device(device)
+    started = not _have_group("local")
+    if started:
+        backend = ("nccl" if dev.type == "cuda" and dist.is_nccl_available()
+                   else "gloo")
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    if dist.get_world_size() != 1:
+        raise RuntimeError(f"make_local_mesh: the default group has "
+                           f"{dist.get_world_size()} ranks, not 1")
+    mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=LOCAL_AXES)
+    if started:
+        _STARTED = mesh
+    return mesh
+
+
+def release_local_mesh(mesh) -> bool:
+    """Destroy the default group if ``make_local_mesh`` started it when it
+    returned ``mesh`` (every mesh on the group becomes unusable); a group
+    that was there before is left alone.  Returns whether it destroyed
+    one."""
+    import torch.distributed as dist
+    global _STARTED
+    if mesh is None or mesh is not _STARTED:
+        return False
+    _STARTED = None
+    if not dist.is_initialized():
+        return False
+    dist.destroy_process_group()
+    return True
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The (16, 16) ("data", "model") mesh, or (2, 16, 16) ("pod", "data",
+    "model") with ``multi_pod``, on CPU ranks of the fake process group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = 1
+    for n in shape:
+        world *= n
+    if not _have_group("production"):
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+    if dist.get_world_size() != world:
+        raise RuntimeError(
+            f"the fake group has {dist.get_world_size()} ranks; a {shape} "
+            f"mesh needs {world}: build it in a process of its own")
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)

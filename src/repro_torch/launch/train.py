@@ -17,8 +17,10 @@ as in the reference, every family trains on the pipeline's token ids
 Every batch is read through the port's own cache client
 (``core.bundle_client``) by ``CachedTokenPipeline``, which yields NumPy; the
 loop moves it to the device.  The model is initialised from seed 0 on the
-device (a full-width model is drawn on the card).  No mesh: sharding comes
-with a later slice.
+device (a full-width model is drawn on the card).  The step runs through a
+one-device mesh (``make_local_mesh(device)``), as the reference's does on one
+device; the one-rank process group that the mesh starts is released when the
+run ends.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from ..train.checkpoint import CheckpointManager
 from ..train.fault import PreemptionGuard, StragglerDetector
 from ..train.optimizer import AdamWConfig, init_state
 from ..train.train_step import make_train_step
+from .mesh import make_local_mesh, release_local_mesh
 
 N_SHARDS = 8
 
@@ -101,7 +104,8 @@ def main(argv=None) -> int:
     params = init_params(cfg, gen, device)
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps)
     opt_state = init_state(params)
-    step_fn = make_train_step(cfg, opt_cfg, remat="full")
+    mesh = make_local_mesh(device)
+    step_fn = make_train_step(cfg, opt_cfg, mesh, None, remat="full")
 
     ckpt = CheckpointManager(args.ckpt_dir)
     start_step = 0
@@ -142,6 +146,7 @@ def main(argv=None) -> int:
     ckpt.save(args.steps, (params, opt_state), {"step": args.steps})
     pipe.close()
     client.close()
+    release_local_mesh(mesh)
     s = engine.snapshot()
     dt = time.time() - t_start
     if losses:

@@ -9,9 +9,9 @@ Switch-style load-balancing loss (E * f . P).
 
 The ``ffn_norm`` RMSNorm goes through the port's kernel; the dispatch, the
 expert products and the combine stay plain torch, as the JAX package has no
-Pallas kernel for them.  The reference's ``constrain`` calls (sharding hints
-for the expert axis) are left out: the port has no sharding yet (ROADMAP
-Queue 1 item 4).
+Pallas kernel for them.  The dispatch buffer and the expert outputs carry the
+reference's ``constrain`` hints (experts over the model axis, the capacity
+dim per the ``moe_capacity`` rule).
 
 The combine gives the same bits on every run: each token's k rows are
 gathered back and added in ascending expert id, the order in which the
@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import rmsnorm
+from ..sharding.context import constrain
 from .config import ModelConfig
 from .params import p
 
@@ -106,11 +107,13 @@ def moe_ffn(x: torch.Tensor, lp, cfg: ModelConfig,
         0, order)
     buf = h.new_zeros((E * C + 1, d)).index_copy(
         0, slot, hs * keep[:, None].to(h.dtype))
-    eh = buf[:E * C].reshape(E, C, d)
+    eh = constrain(buf[:E * C].reshape(E, C, d),
+                   ("act_experts", "moe_capacity", None))
 
     g = F.silu(torch.bmm(eh, lp["w_gate"]).float()).to(x.dtype)
     u = torch.bmm(eh, lp["w_up"])
     o = torch.bmm(g * u, lp["w_down"])                    # (E, C, d)
+    o = constrain(o, ("act_experts", "moe_capacity", None))
 
     flat_o = torch.cat([o.reshape(E * C, d), o.new_zeros((1, d))]
                        ).index_select(0, slot)

@@ -5,8 +5,9 @@ dict of ``ParamSpec``; the same tree materializes two ways:
   * ``tree_init(specs, generator)`` — real tensors on the generator's device,
     with the JAX init rule (normal × ``scale/sqrt(fan_in)``, zeros, ones);
   * ``tree_abstract(specs)`` — ``meta``-device tensors (shapes and dtypes,
-    no allocation).
-The logical axis names are kept for the sharding slice.
+    no allocation);
+and ``tree_axes(specs)`` gives each leaf's logical axis names, which
+``repro_torch.sharding.shardings_for`` maps onto a mesh.
 """
 from __future__ import annotations
 
@@ -65,6 +66,10 @@ def tree_unflatten(pairs) -> dict:
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
     return out
+
+
+def tree_axes(specs):
+    return tree_map(lambda s: s.axes, specs)
 
 
 def tree_abstract(specs):

@@ -35,6 +35,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..kernels import flash_attention, rmsnorm
+from ..sharding.context import constrain
 from .config import ModelConfig
 from .layers import (attention, attention_specs, matmul, mlp_specs, promoted,
                      swiglu)
@@ -199,7 +200,8 @@ def forward(params, cfg: ModelConfig, tokens=None, *, inputs_embeds=None,
     embeddings); ``img_embeds`` (B, n_image_tokens, d) are a vlm's image
     embeddings, zeros in the activations' type when not given."""
     _require_family(cfg)
-    x = _embed(params, tokens, inputs_embeds)
+    x = constrain(_embed(params, tokens, inputs_embeds),
+                  ("batch", "seq", "act_embed"))
     B, S, d = x.shape
     positions = torch.arange(S, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -215,15 +217,16 @@ def forward(params, cfg: ModelConfig, tokens=None, *, inputs_embeds=None,
         a = None                         # the layer's MoE aux loss
         if cfg.family in ("ssm", "hybrid"):
             x, _ = mamba_block(x, lp, cfg, force_ref=force_ref)
+            x = constrain(x, ("batch", "seq", "act_embed"))
         else:
             out, _ = attention(x, lp, cfg, positions=positions,
                                force_ref=force_ref)
-            x = x + out
+            x = constrain(x + out, ("batch", "seq", "act_embed"))
             if cfg.family == "moe":
                 ffn, a = moe_ffn(x, lp, cfg, force_ref=force_ref)
             else:
                 ffn = swiglu(x, lp, cfg, force_ref=force_ref)
-            x = x + ffn
+            x = constrain(x + ffn, ("batch", "seq", "act_embed"))
         if _fires_shared(cfg, i):
             x, _ = _shared_block(x, params["shared"], cfg, positions,
                                  force_ref=force_ref)
@@ -241,7 +244,8 @@ def forward(params, cfg: ModelConfig, tokens=None, *, inputs_embeds=None,
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, force_ref=force_ref)
     if return_hidden:
         return x, aux
-    return matmul(x, _head(params, cfg)), aux
+    return constrain(matmul(x, _head(params, cfg)),
+                     ("batch", "seq", "act_vocab")), aux
 
 
 # ------------------------------------------------------------------ decode

@@ -13,7 +13,9 @@ Leaves are flattened in JAX's order (dict keys sorted; tuple and NamedTuple
 fields in order) under JAX's ``keystr`` keys (``[0]['embed']``,
 ``[1].mu['blocks']['wq']``).  bf16 leaves are stored as f32 (npz cannot hold
 bf16; the upcast is lossless) and cast back on restore, as the reference
-does.  ``restore`` takes no shardings until the sharding slice.
+does.  ``restore`` places each leaf by its sharding where given: on a
+one-device mesh a plain tensor on the mesh's device, on a larger one a
+DTensor with the sharding's placements.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..sharding.rules import mesh_size
 
 
 def _flatten_with_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -61,6 +65,18 @@ def _to_host(leaf) -> np.ndarray:
         t = leaf.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return np.asarray(leaf)
+
+
+def _place(t: torch.Tensor, sharding) -> torch.Tensor:
+    """``t`` placed by a ``sharding.NamedSharding``."""
+    mesh = sharding.mesh
+    on = getattr(mesh, "device_type", None)
+    if on is not None:
+        t = t.to(on)
+    if mesh_size(mesh) == 1:
+        return t
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, mesh, sharding.placements)
 
 
 def _dtype_name(leaf) -> str:
@@ -139,10 +155,13 @@ class CheckpointManager:
             return None
         return int(ptr.read_text().strip().split("_")[-1])
 
-    def restore(self, tree_like: Any,
-                step: Optional[int] = None) -> tuple[Any, dict]:
+    def restore(self, tree_like: Any, step: Optional[int] = None,
+                shardings: Any = None) -> tuple[Any, dict]:
         """Restore into the structure of ``tree_like``: each leaf takes the
-        dtype and device of the tensor in its place."""
+        dtype and device of the tensor in its place.  If ``shardings`` is
+        given (a matching tree of ``NamedSharding``, ``None`` leaves kept
+        where they are), each leaf is placed by its sharding — on any mesh,
+        regardless of the mesh at save time."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -157,10 +176,15 @@ class CheckpointManager:
             raise ValueError(
                 f"checkpoint has {len(arrays)} leaves, target structure has "
                 f"{len(flat_like)} — incompatible trees")
+        flat_sh = ([sh for _, sh in _flatten_with_paths(shardings)]
+                   if shardings is not None else [None] * len(arrays))
+        if len(flat_sh) != len(arrays):
+            raise ValueError(f"shardings have {len(flat_sh)} leaves, the "
+                             f"checkpoint {len(arrays)}")
         out = []
-        for (_, like), arr in zip(flat_like, arrays):
+        for (_, like), arr, sh in zip(flat_like, arrays, flat_sh):
             t = torch.from_numpy(arr.copy())      # 0-d stays 0-d
             if isinstance(like, torch.Tensor):
                 t = t.to(device=like.device, dtype=like.dtype)
-            out.append(t)
+            out.append(t if sh is None else _place(t, sh))
         return _unflatten_like(tree_like, iter(out)), manifest["extra"]

@@ -2,8 +2,11 @@
 and per-layer remat (torch).
 
 Counterpart of ``repro.train.train_step``.  PyTorch runs eagerly, so the
-returned step is a plain function; ``mesh`` and ``rules`` are accepted only
-as ``None`` until the sharding slice.  Grads come from
+returned step is a plain function.  Given a ``mesh`` (and ``rules``), the
+step runs inside ``sharding_ctx`` with the batch on the mesh's device; on a
+one-device mesh the params and moments stay plain tensors and every result
+equals the unmeshed step's; rules without a mesh, and a mesh of more than
+one device, raise (``sharding.context.step_target``).  Grads come from
 ``torch.autograd.grad`` on detached views of the params (nothing lands in
 ``.grad``); a param the loss does not reach (audio's ``embed`` under
 ``inputs_embeds``) gets zeros, as ``jax.value_and_grad`` gives it.  With
@@ -13,13 +16,15 @@ microbatch the optimizer receives grads in the params' dtype.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from ..models.config import ModelConfig, ShapeSpec
 from ..models.params import tree_leaves, tree_unflatten
 from ..models.transformer import forward, lm_loss, lm_loss_chunked
+from ..sharding import LogicalRules, logical_sharding, sharding_ctx
+from ..sharding.context import step_target
 from .optimizer import AdamWConfig, AdamWState, apply_updates, tree_map
 
 LOSS_IMPLS = ("dense", "chunked")
@@ -42,6 +47,19 @@ def batch_structs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
                                            cfg.d_model),
                                           dtype=torch.bfloat16, device="meta")
     return batch
+
+
+def batch_shardings(cfg: ModelConfig, shape: ShapeSpec, mesh,
+                    rules: Optional[LogicalRules] = None):
+    structs = batch_structs(cfg, shape)
+    names = {
+        "labels": ("batch", "seq"),
+        "tokens": ("batch", "seq"),
+        "inputs_embeds": ("batch", "seq", "act_embed"),
+        "img_embeds": ("batch", "seq", "act_embed"),
+    }
+    return {k: logical_sharding(names[k], v.shape, mesh, rules)
+            for k, v in structs.items()}
 
 
 def make_value_and_grad(cfg: ModelConfig, *, remat: str = "full",
@@ -83,19 +101,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None,
                     unroll: int = 1, loss_impl: str = "dense"):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``batch`` (``batch_structs``' keys) lies on the params'
-    device, and microbatching splits each of its tensors.  Params and moments are updated in place.  ``unroll`` is
-    accepted for the reference's signature (a Python loop has nothing to
-    unroll)."""
+    device (with a mesh: is moved to the mesh's), and microbatching splits
+    each of its tensors.  Params and moments are updated in place.
+    ``unroll`` is accepted for the reference's signature (a Python loop has
+    nothing to unroll)."""
+    dev = None
     if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "mesh / rules: sharding is not ported yet; it comes with "
-            "ROADMAP.md Queue 1 item 4")
+        mesh, dev = step_target(mesh, rules)
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     value_and_grad = make_value_and_grad(cfg, remat=remat,
                                          loss_impl=loss_impl)
 
-    def train_step(params, opt_state: AdamWState, batch):
+    def step(params, opt_state: AdamWState, batch):
         if microbatches > 1:
             g_acc = tree_map(lambda a: torch.zeros(a.shape,
                                                    dtype=torch.float32,
@@ -117,5 +135,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None,
                                                    opt_cfg)
         metrics["loss"] = loss
         return params, opt_state, metrics
+
+    def train_step(params, opt_state: AdamWState, batch):
+        if dev is not None:
+            batch = {k: v.to(dev) for k, v in batch.items()}
+        with sharding_ctx(mesh, rules):
+            return step(params, opt_state, batch)
 
     return train_step

@@ -5,9 +5,10 @@ unchanged: the shared reply codec round-trips bitwise, ``open_cache(
 over the same store and trace, two clients racing one dataset keep
 identity-hit accounting exact, and a client that dies mid-read (lease
 expiry or EOF) leaks nothing, under the in-process and the process
-driver.  The cluster-simulator chaos cases come with the port's
-simulator.  Cross-package cases at the end hold a port client and daemon
-against the reference pair.
+driver, and the chaos harness's ``client_kill`` strike (planned
+deterministically, and landing mid-trace in the port's cluster simulator
+against the daemon's own cache).  Cross-package cases at the end hold a
+port client and daemon against the reference pair.
 
 Every test runs under a hard SIGALRM guard: a deadlocked serve thread
 or a lost reply must fail the test, not hang the suite.
@@ -28,6 +29,9 @@ from repro_torch.core.igtcache import BlockResult, ReadOutcome
 from repro_torch.core.wire import WireOutcome, encode_outcome
 from repro_torch.daemon import CacheDaemon, RemoteCacheClient
 from repro_torch.daemon.wire import PROTO_VERSION, recv_msg, send_msg
+from repro_torch.sim.chaos import ChaosMonkey, plan_strikes
+from repro_torch.sim.cluster import ClusterSim
+from repro_torch.sim.workloads import make_paper_suite
 from repro_torch.storage import RemoteStore, make_dataset
 
 
@@ -413,6 +417,66 @@ def test_lease_expiry_races_reconnect_no_double_free():
 # ---------------------------------------------------------------------------
 # chaos harness: the client_kill strike
 # ---------------------------------------------------------------------------
+
+def test_plan_strikes_client_kill_deterministic():
+    a = plan_strikes(60, n_shards=4, seed=3, n_strikes=6,
+                     kinds=("kill", "client_kill"), n_clients=3)
+    b = plan_strikes(60, n_shards=4, seed=3, n_strikes=6,
+                     kinds=("kill", "client_kill"), n_clients=3)
+    assert a == b
+    kinds = {s.kind for s in a}
+    assert kinds <= {"kill", "client_kill"}
+    for s in a:
+        if s.kind == "client_kill":
+            assert 0 <= s.sid < 3
+    with pytest.raises(ValueError, match="n_clients"):
+        plan_strikes(60, n_shards=4, kinds=("client_kill",))
+
+
+def test_chaos_monkey_client_kill_needs_victims():
+    with pytest.raises(TypeError):
+        ChaosMonkey(None)                      # nothing at all to strike
+    store = mk_store(1)
+    with CacheDaemon(store, 16 * MB, cfg=CFG, lease_s=0.3) as d:
+        victim = RemoteCacheClient(d.uri, heartbeat=False)
+        monkey = ChaosMonkey(None, clients=[victim])
+        with pytest.raises(RuntimeError, match="process driver"):
+            monkey.kill(0)                     # worker strikes untargeted
+        monkey.strike("client_kill", 0)
+        assert monkey.strikes[-1]["kind"] == "client_kill"
+        wait_until(lambda: d.daemon_stats()["reaped"] == 1,
+                   what="monkey-killed client reaped")
+
+
+def test_cluster_sim_client_kill_strike_mid_trace():
+    """The client-kill drill: a ``ClusterSim`` trace runs against the
+    daemon's own cache while a remote daemon client holds live arena
+    slots; a virtual-time ``client_kill`` strike fells it mid-trace and
+    the daemon's arena free-bytes and pending-prefetch tables return to
+    baseline once the lease expires."""
+    suite = make_paper_suite(scale=0.05, seed=0, job_filter=[2, 9])
+    store = mk_store(1)
+    for ds in suite.datasets.values():
+        store.add(ds)
+    cap = max(int(0.4 * suite.total_bytes()), 16 * MB)
+    with CacheDaemon(store, cap, cfg=CFG, lease_s=0.3) as d:
+        baseline = d.daemon_stats()["arena_total"]
+        victim = RemoteCacheClient(d.uri, fetch_bytes=True, heartbeat=False)
+        _read_some(victim, all_files(store)[:8], now=0.0)
+        assert d.daemon_stats()["live_slots"] > 0
+        sim = ClusterSim(suite, d.client,
+                         chaos_events=[(1.0, "client_kill", 0)],
+                         chaos_clients=[victim])
+        res = sim.run()
+        assert res.jct, "sim completed no jobs"
+        assert [e["kind"] for e in res.chaos_log] == ["client_kill"]
+        wait_until(lambda: d.daemon_stats()["sessions"] == 0,
+                   what="lease reclaim after sim strike")
+        st = d.daemon_stats()
+        assert st["arena_free"] == baseline
+        assert st["reaped"] == 1
+        wait_until(lambda: d.daemon_stats()["pending_prefetch"] == 0,
+                   what="pending-prefetch baseline")
 
 
 # ---------------------------------------------------------------------------

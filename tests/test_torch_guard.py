@@ -62,7 +62,13 @@ def test_port_modules_exist():
                  "repro_torch.daemon",
                  *(f"repro_torch.daemon.{m}" for m in (
                      "wire", "uri", "journal", "server", "client",
-                     "supervisor"))):
+                     "supervisor")),
+                 "repro_torch.sim",
+                 *(f"repro_torch.sim.{m}" for m in (
+                     "link", "workloads", "cluster", "chaos")),
+                 "repro_torch.sharding", "repro_torch.sharding.rules",
+                 "repro_torch.sharding.context", "repro_torch.launch.mesh",
+                 "repro_torch.launch.variants"):
         assert name in mods
 
 

@@ -16,8 +16,12 @@ unchanged:
 * **supervision**: ``DaemonSupervisor`` respawns a crashed daemon on the
   same socket within its budget and settles ``down`` after it.
 
-The cluster-simulator drills come with the port's simulator.  Every test
-runs under a hard SIGALRM guard.
+* **chaos drills**: a supervised daemon killed (or rolled gracefully)
+  mid-trace on the port's cluster simulator: the trace completes, the
+  client reconnects and the post-recovery windowed CHR lands within 5 %
+  of the fault-free run's.
+
+Every test runs under a hard SIGALRM guard.
 """
 import os
 import signal
@@ -36,6 +40,8 @@ from repro_torch.daemon import (CacheDaemon, CacheJournal, DaemonSupervisor,
                                 RemoteCacheClient)
 from repro_torch.daemon.journal import LOG_NAME, SNAP_NAME
 from repro_torch.daemon.wire import PROTO_VERSION, recv_msg, send_msg
+from repro_torch.sim.cluster import ClusterSim
+from repro_torch.sim.workloads import make_paper_suite
 from repro_torch.storage import RemoteStore, make_dataset
 
 
@@ -511,6 +517,135 @@ def test_supervisor_budget_exhaustion_stays_down_degraded(tmp_path):
 # ---------------------------------------------------------------------------
 # chaos drill: daemon_kill mid-trace on the cluster sim
 # ---------------------------------------------------------------------------
+
+def _sim_world():
+    suite = make_paper_suite(scale=0.12, seed=0, job_filter=[2, 8])
+    store = RemoteStore()
+    for ds in suite.datasets.values():
+        store.add(ds)
+    cap = int(0.35 * suite.total_bytes())
+    return suite, store, cap
+
+
+def _run_remote_sim(tmp_path, tag, *, strike=None, recover_by=None,
+                    window_from=None, poll_s=0.05):
+    """One ClusterSim pass in remote mode: supervised daemon on a UDS,
+    the sim driving a ``RemoteCacheClient``.  ``strike=(t, kind)``
+    schedules a daemon strike at virtual time ``t`` plus a probe at
+    virtual time ``recover_by`` (default just after the strike) that
+    *wall-blocks* until respawn + reconnect — virtual time cannot race
+    past the recovery, and every read event the sim pumps before
+    ``recover_by`` exercises the degraded path; ``window_from``
+    snapshots kernel stats at that virtual time for windowed-CHR
+    comparison.  ``poll_s`` is the supervisor's crash-detection cadence
+    (a slower poll widens the degraded window the drill drives reads
+    through)."""
+    suite, store, cap = _sim_world()
+    sock = str(tmp_path / f"{tag}.sock")
+    jdir = str(tmp_path / f"{tag}-journal")
+
+    def factory():
+        return CacheDaemon(store, cap, cfg=CFG, uds=sock,
+                           journal_dir=jdir, snapshot_every_s=0.1,
+                           lease_s=2.0).start()
+
+    sup = DaemonSupervisor(factory, restart_budget=3, poll_s=poll_s)
+    cli = RemoteCacheClient(sup.uri, backing=store, max_backoff_s=0.25)
+    snaps = {}
+    try:
+        chaos_events = []
+        probes = []
+        if strike is not None:
+            strike_at, kind = strike
+            chaos_events = [(strike_at, kind, 0)]
+
+            def await_recovery(sim):
+                # wall-clock pause inside virtual time: the drill's
+                # post-recovery window must contain post-recovery reads
+                wait_until(lambda: sup.restarts >= 1, what="daemon respawn")
+
+                def client_ok():
+                    try:
+                        cli.heartbeat()     # forces down-detection too
+                        return True
+                    except ConnectionError:
+                        return False
+
+                wait_until(client_ok, what="client reconnect")
+
+            probes.append((recover_by if recover_by is not None
+                           else strike_at + 1.0, await_recovery))
+        if window_from is not None:
+            probes.append((window_from,
+                           lambda sim: snaps.__setitem__(
+                               "w", sim.client.stats.snapshot())))
+        sim = ClusterSim(suite, cli, chaos_events=chaos_events,
+                         chaos_daemon=sup)
+        for t, fn in probes:
+            sim.at(t, fn)
+        res = sim.run()
+        snaps["end"] = cli.stats.snapshot()
+        return res, snaps, sup.supervisor_stats(), \
+            cli.client_stats.snapshot(), cli.connection_stats()
+    finally:
+        cli.close()
+        sup.close()
+
+
+def _window_chr(snaps):
+    s0, s1 = snaps["w"], snaps["end"]
+    hits = s1["hits"] - s0["hits"]
+    total = hits + s1["misses"] - s0["misses"]
+    return hits / total if total else 0.0
+
+
+def test_chaos_daemon_kill_drill(tmp_path):
+    """Acceptance: kill the daemon mid-trace.  The run completes with
+    zero hung or errored reads (SIGALRM guards hangs; an exception
+    would abort the sim loop), the supervisor respawns within budget,
+    the client reconnects, and post-recovery windowed CHR lands within
+    5 % of the fault-free run."""
+    base_res, _, base_sup, base_cstats, _ = _run_remote_sim(
+        tmp_path, "base")
+    assert base_res.jct, "baseline sim completed no jobs"
+    assert base_sup["restarts"] == 0 and base_cstats["degraded_reads"] == 0
+    kill_at = base_res.makespan / 3.0
+    window_from = 2.0 * base_res.makespan / 3.0
+
+    _, base_snaps, _, _, _ = _run_remote_sim(
+        tmp_path, "basew", window_from=window_from)
+
+    res, snaps, sup_stats, cstats, conn = _run_remote_sim(
+        tmp_path, "chaos", strike=(kill_at, "daemon_kill"),
+        recover_by=(kill_at + window_from) / 2.0,
+        window_from=window_from, poll_s=0.3)
+
+    assert set(res.jct) == set(base_res.jct)      # same jobs completed
+    assert res.chaos_log and res.chaos_log[0]["kind"] == "daemon_kill"
+    assert sup_stats["restarts"] == 1 and sup_stats["state"] == SHARD_UP
+    assert any(e["kind"] == "respawn_done" for e in sup_stats["events"])
+    assert conn["reconnects"] >= 1
+    assert cstats["degraded_reads"] > 0           # reads flowed while down
+    chr_base = _window_chr(base_snaps)
+    chr_chaos = _window_chr(snaps)
+    assert abs(chr_base - chr_chaos) <= 0.05, (
+        f"post-recovery CHR diverged: base={chr_base:.4f} "
+        f"chaos={chr_chaos:.4f}")
+
+
+def test_chaos_daemon_graceful_restart_drill(tmp_path):
+    """``daemon_restart``: the SIGTERM-shaped roll mid-trace — drain,
+    final snapshot, immediate respawn.  The successor warm-starts and
+    the trace completes with zero errors."""
+    probe_res, _, _, _, _ = _run_remote_sim(tmp_path, "probe")
+    res, _, sup_stats, _, conn = _run_remote_sim(
+        tmp_path, "roll",
+        strike=(probe_res.makespan / 2.0, "daemon_restart"))
+    assert set(res.jct) == set(probe_res.jct)
+    assert sup_stats["restarts"] == 1
+    done = [e for e in sup_stats["events"] if e["kind"] == "respawn_done"]
+    assert done and done[0]["restore"]["mode"] == "warm"
+
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,8 @@ tiers``, ``storage.s3``) under the JAX package's own tier tests, run
 against the port's modules with their bounds unchanged: RAM / disk
 placement, spills and promotion, checksummed spill files, warm re-index,
 the ``tiered+`` URI knobs, the mock S3 server, and a tiered client that
-is decision-identical to a flat one.  The cluster-simulator case comes
-with the port's simulator.  Cross-package cases at the end hold the port
+is decision-identical to a flat one, and (``tier_full``, opt-in) the
+index-mode tier under the port's cluster simulator.  Cross-package cases at the end hold the port
 against the reference on one seeded trace.
 """
 import json
@@ -552,6 +552,43 @@ def test_engine_pushes_placement_hints(tmp_path):
     pats = ts.tier_stats()["patterns"]
     assert pats.get("scan", ("", False))[0] == "sequential"
     client.close()
+
+
+@pytest.mark.tier_full
+def test_cluster_sim_tier_accounting():
+    """Index mode under the discrete-event sim: disk hits shortcut the
+    link, accounting lands in SimResult.tier_stats/link_bytes.  The world
+    and the config are benchmarks/common.py's ``build_world(0.02, 0,
+    cache_ratio=0.5)`` and ``scaled_cfg``, built from the port."""
+    from repro_torch.core import CacheConfig
+    from repro_torch.core.baselines import bundle_client
+    from repro_torch.sim.cluster import ClusterSim
+    from repro_torch.sim.workloads import make_paper_suite
+    from repro_torch.storage import RemoteStore
+
+    def scaled_cfg(capacity):
+        share = max(16 * MB, capacity // 128)
+        return CacheConfig(min_share=share, rebalance_quantum=share,
+                           rebalance_period=10.0,
+                           prefetch_budget_bytes=max(64 * MB, capacity // 8))
+
+    suite = make_paper_suite(scale=0.02, seed=0)
+    store = RemoteStore()
+    for ds in suite.datasets.values():
+        store.add(ds)
+    cap = int(0.5 * suite.total_bytes())
+    ram = int(cap * 0.8)
+    ts = TieredStore(store, mode="index", disk_bytes=cap - ram)
+    client = bundle_client("igtcache", ts, ram, cfg=scaled_cfg(ram))
+    res = ClusterSim(suite, client).run()
+    t = res.tier_stats
+    assert t["mode"] == "index"
+    assert t["disk_hits"] > 0
+    assert res.link_bytes > 0
+    kh, km = res.stats["hits"], res.stats["misses"]
+    combined = (kh + t["disk_hits"]) / max(1, kh + km)
+    assert combined > res.hit_ratio          # the tier added real hits
+    assert t["patterns"]                     # placement verdicts arrived
 
 
 def test_index_mode_needs_no_spill_dir():

@@ -300,14 +300,17 @@ def _check_remat_identity(arch):
 
 
 def test_other_families_refuse_to_train():
-    """ssm and hybrid build a step; a mesh refuses, naming the sharding
-    slice."""
+    """ssm and hybrid build a step; a mesh of more than one device refuses,
+    naming ROADMAP's multi-rank item (one-device meshes:
+    tests/test_torch_sharding.py)."""
+    class Mesh:                     # a mesh as the rules read one
+        shape = {"data": 16, "model": 16}
     for arch in SSM_ARCHS:
         assert callable(make_train_step(reduced_config(arch),
                                         topt.AdamWConfig()))
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(NotImplementedError, match="multi-rank execution"):
         make_train_step(reduced_config(ARCH), topt.AdamWConfig(),
-                        mesh=object())
+                        mesh=Mesh())
 
 
 # ----------------------------------------------------------- optimizer
