@@ -72,7 +72,12 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 logits and the first loss bitwise equal to the unmeshed
                 steps', params within twice two unmeshed runs' spread,
                 launches equal to the qwen3 paths', a checkpoint restored
-                with shardings (``run_mesh`` lists its checks).  Its
+                with shardings (``run_mesh`` lists its checks).  Each step
+                beside its lowered twin, traced on ``meta`` tensors on the
+                same mesh and rules (``mesh_twin`` lines: argument bytes
+                held equal to the real tensors'; predicted memory, roofline
+                ms and traced FLOPs printed beside the step's measured
+                footprint, event ms and ``train_step_flops``).  Its
                 process group is destroyed when it ends, so no later fork
                 inherits a live group.
   6c. unified — ``unified/qwen3-1.7b``: qwen3-1.7b at full width and depth
@@ -95,6 +100,13 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 examples/mixed_cluster_torch.py), then a worker of a
                 process-driver client killed mid-trace
                 (``phase_sim`` lists its checks).
+  6f. dryrun  — host phase, no GPU: ``python -m repro_torch.launch.dryrun
+                --all --mesh both`` and ``paper_cells`` (the cells one card
+                cannot hold, lowered on a 1 x 1 mesh), started before phase
+                2 in processes of their own with no card visible, so that
+                they run beside the card's phases; then
+                ``python -m repro_torch.roofline.report`` on the sweep's
+                rows (``phase_dryrun`` lists its checks).
   7. profile  — one traced prefill and decode step of each model: device
                 time by kernel (and summed for each of the port's kernels)
                 and the device's busy share (not part of the main path).
@@ -129,6 +141,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2173,7 +2186,135 @@ def phase_cache() -> dict:
 
 MESH = "mesh/qwen3-1.7b"
 MESH_DECODE_STEPS, MESH_TRAIN_STEPS = 8, 2
+MESH_MAX_SEQ = 64                 # the decode state's length
 MESH_CKPT_DEPTH = 2               # layers in the checkpoint round trip
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the tensors of nested dicts, lists and tuples (numpy arrays
+    too); a Python int counts as an int32, as the lowered steps declare the
+    decode state's ``pos``."""
+    if isinstance(tree, dict):
+        return sum(map(tree_bytes, tree.values()))
+    if isinstance(tree, (list, tuple)):
+        return sum(map(tree_bytes, tree))
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, np.ndarray):
+        return tree.nbytes
+    if isinstance(tree, int):
+        return 4
+    raise TypeError(type(tree).__name__)
+
+
+def measured(probe, name: str, fn, args):
+    """``fn()``; with a ``probe`` dict, between two CUDA events and after a
+    reset of the peak memory, recording under ``name`` its event ms, the
+    peak bytes allocated, the bytes of its arguments (``args``) and the
+    step's own footprint: those arguments plus what the peak adds to the
+    bytes allocated before it (the process holds other tensors too, such as
+    the prefill's logits during the decode steps)."""
+    if probe is None:
+        return fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    peak, arg_bytes = torch.cuda.max_memory_allocated(), tree_bytes(args)
+    probe[name] = {"ms": start.elapsed_time(end), "peak_bytes": peak,
+                   "argument_bytes": arg_bytes,
+                   "step_bytes": arg_bytes + peak - before}
+    return out
+
+
+def mesh_shapes():
+    """The mesh path's steps as ``ShapeSpec``s: a 4 x 1024 prefill, decode
+    steps of 4 over ``MESH_MAX_SEQ`` positions, 4 x 1024 train steps."""
+    from repro_torch.models.config import ShapeSpec
+    return {"prefill": ShapeSpec("mesh_prefill", 1024, 4, "prefill"),
+            "decode": ShapeSpec("mesh_decode", MESH_MAX_SEQ, 4, "decode"),
+            "train": ShapeSpec("mesh_train", TRAIN_S, TRAIN_B, "train")}
+
+
+def lowered_twins(cfg, mesh) -> dict:
+    """The mesh path's three steps lowered at their shapes, on the same mesh
+    and rules, and traced on ``meta`` tensors (the dry-run's
+    ``lower_prefill`` / ``lower_serve_step`` / ``lower_train_step``)."""
+    from repro_torch.serve.serve_step import lower_prefill, lower_serve_step
+    from repro_torch.sharding import DEFAULT_RULES
+    from repro_torch.train.train_step import lower_train_step
+    lower = {"prefill": lower_prefill, "decode": lower_serve_step,
+             "train": lower_train_step}
+    return {k: (shape, lower[k](cfg, shape, mesh, DEFAULT_RULES).compile())
+            for k, shape in mesh_shapes().items()}
+
+
+def roofline_of(cfg, shape, compiled, mesh_name: str = "local") -> dict:
+    """A traced step's memory analysis and roofline on the H100's constants
+    (``repro_torch.roofline.analysis``), as the dry-run computes a row."""
+    from repro_torch.roofline.analysis import analyze, model_flops
+    from repro_torch.sharding.rules import mesh_size
+    mem = compiled.memory_analysis()
+    stats = {k: getattr(mem, k) for k in (
+        "argument_size_in_bytes", "output_size_in_bytes",
+        "alias_size_in_bytes", "temp_size_in_bytes")}
+    stats["bytes_per_device"] = (
+        stats["argument_size_in_bytes"] + stats["temp_size_in_bytes"]
+        + stats["output_size_in_bytes"] - stats["alias_size_in_bytes"])
+    cost = compiled.cost_analysis()
+    roof = analyze(cfg.name, shape, mesh_name,
+                   mesh_size(compiled.lowered.mesh), cost,
+                   compiled.collectives(), cfg, stats)
+    return {"memory": stats, "flops": cost["flops"],
+            "bytes_accessed": cost["bytes accessed"],
+            "model_flops": model_flops(cfg, shape),
+            "roofline_ms": roof.step_time_s * 1e3,
+            "compute_ms": roof.compute_s * 1e3,
+            "memory_ms": roof.memory_s * 1e3, "dominant": roof.dominant,
+            "fits_hbm_80g": roof.fits_hbm,
+            "trace_s": compiled.trace.seconds}
+
+
+def twin_report(cfg, twins: dict, probe: dict) -> list:
+    """One line a step of the mesh path: its lowered twin's argument bytes
+    against the real tensors' (held equal), the twin's bytes per device
+    beside the real step's own footprint (``measured``) and the process's
+    peak allocation, the roofline ms beside the
+    measured event ms (a decode and a train step: the mean over the
+    path's steps), the traced FLOPs beside ``model_flops`` (and, for the
+    train step, ``train_step_flops``).  Only the argument bytes are
+    held; the ratios are written down."""
+    steps = {"prefill": 1, "decode": MESH_DECODE_STEPS,
+             "train": MESH_TRAIN_STEPS}
+    lines = []
+    for kind, (shape, compiled) in twins.items():
+        r = roofline_of(cfg, shape, compiled)
+        real = probe[kind]
+        ms = real["ms"] / steps[kind]
+        line = {"step": kind, "shape": [shape.global_batch, shape.seq_len],
+                "argument_bytes": r["memory"]["argument_size_in_bytes"],
+                "real_argument_bytes": real["argument_bytes"],
+                "argument_bytes_equal": r["memory"]["argument_size_in_bytes"]
+                == real["argument_bytes"],
+                "predicted_bytes": r["memory"]["bytes_per_device"],
+                "measured_peak_bytes": real["peak_bytes"],
+                "measured_step_bytes": real["step_bytes"],
+                "memory_ratio": real["step_bytes"]
+                / r["memory"]["bytes_per_device"],
+                "roofline_ms": r["roofline_ms"], "compute_ms": r["compute_ms"],
+                "memory_ms": r["memory_ms"], "dominant": r["dominant"],
+                "measured_ms": ms, "time_ratio": ms / r["roofline_ms"],
+                "traced_flops": r["flops"], "model_flops": r["model_flops"],
+                "trace_s": r["trace_s"]}
+        if kind == "train":
+            line["train_step_flops"] = train_step_flops(
+                cfg, shape.global_batch, shape.seq_len)
+        lines.append(line)
+    return lines
 
 
 def leaf_gaps(a: dict, b: dict) -> dict:
@@ -2219,47 +2360,62 @@ def run_mesh(paths: dict) -> dict:
     from repro_torch.train.train_step import make_train_step
     arch = MESH.split("/", 1)[1]
     cfg, params = init_model(arch)
-    inputs = model_inputs(cfg, 4, 1024, 0)
-    toks = np.random.default_rng(3).integers(0, cfg.vocab,
-                                             (4, MESH_DECODE_STEPS))
+    # token ids in int32, as batch_structs and the lowered twins declare them
+    inputs = {k: v.to(torch.int32)
+              for k, v in model_inputs(cfg, 4, 1024, 0).items()}
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab, (4, MESH_DECODE_STEPS)).astype(np.int32)
     gen = torch.Generator(device="cuda").manual_seed(7)
     batches = []
     for _ in range(MESH_TRAIN_STEPS):
         t = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S + 1), generator=gen,
-                          device="cuda")
+                          device="cuda").to(torch.int32)
         batches.append({"tokens": t[:, :-1].contiguous(),
                         "labels": t[:, 1:].contiguous()})
     opt_cfg = AdamWConfig(total_steps=MESH_TRAIN_STEPS)
 
-    def serve(prefill, step, marks):
-        logits = [prefill(params, **inputs)]
+    def serve(prefill, step, marks, probe=None):
+        logits = [measured(probe, "prefill",
+                           lambda: prefill(params, **inputs),
+                           (params, inputs))]
         marks.append(counts())
-        state = init_decode_state(cfg, 4, 64, device="cuda")
-        for i in range(MESH_DECODE_STEPS):
-            out, state = step(params, state, toks[:, i:i + 1])
-            logits.append(out)
+        state = init_decode_state(cfg, 4, MESH_MAX_SEQ, device="cuda")
+        tokens = [toks[:, i:i + 1] for i in range(MESH_DECODE_STEPS)]
+
+        def decode():
+            nonlocal state
+            for t in tokens:
+                out, state = step(params, state, t)
+                logits.append(out)
+        measured(probe, "decode", decode, (params, state, tokens[0]))
         return logits
 
-    def train(step):
+    def train(step, probe=None):
         p = tree_to(params, torch.clone)
         opt = init_state(p)
         losses = []
-        for b in batches:
-            p, opt, m = step(p, opt, b)
-            losses.append(m["loss"])
+
+        def steps():
+            nonlocal p, opt
+            for b in batches:
+                p, opt, m = step(p, opt, b)
+                losses.append(m["loss"])
+        measured(probe, "train", steps, (p, opt, batches[0]))
         torch.cuda.synchronize()
         return p, opt, losses
 
     mesh = make_local_mesh("cuda")
     try:
+        twins = lowered_twins(cfg, mesh)  # traced on meta: no launch
+        probe = {}
         t0 = time.perf_counter()
         reset_counts()                   # the mesh path starts here
         marks = []
         got = serve(make_prefill(cfg, mesh, DEFAULT_RULES),
-                    make_serve_step(cfg, mesh, DEFAULT_RULES), marks)
+                    make_serve_step(cfg, mesh, DEFAULT_RULES), marks, probe)
         marks.append(counts())
         p_mesh, opt_mesh, loss_mesh = train(make_train_step(
-            cfg, opt_cfg, mesh, DEFAULT_RULES, remat="full"))
+            cfg, opt_cfg, mesh, DEFAULT_RULES, remat="full"), probe)
         launches = counts()              # ... and ends here
         path_s = time.perf_counter() - t0
         want = serve(make_prefill(cfg, "cuda"), make_serve_step(cfg, "cuda"),
@@ -2293,6 +2449,7 @@ def run_mesh(paths: dict) -> dict:
     per_decode = {k: (v - per_prefill[k]) / n for k, v in served.items()}
     per_train = {k: (v - served[k]) / MESH_TRAIN_STEPS
                  for k, v in launches.items()}
+    twin_lines = twin_report(cfg, twins, probe)
     gap = leaf_gaps(p_mesh, p_a)
     spread = leaf_gaps(p_a, p_b)
     floor = {k: BF16_ULP * float(v.float().abs().max())
@@ -2316,6 +2473,8 @@ def run_mesh(paths: dict) -> dict:
         and device_type == "cuda",
         "group_released": released,
         "losses_finite": all(bool(torch.isfinite(x)) for x in loss_mesh),
+        "twin_argument_bytes": all(t["argument_bytes_equal"]
+                                   for t in twin_lines),
     }
     out = {"arch": cfg.name, "path": MESH, "ok": all(checks.values()),
            "checks": checks, "mesh": axes, "rules": "DEFAULT_RULES",
@@ -2332,6 +2491,8 @@ def run_mesh(paths: dict) -> dict:
            "per_prefill": {k: v for k, v in per_prefill.items() if v},
            "per_decode_step": {k: v for k, v in per_decode.items() if v},
            "per_train_step": {k: v for k, v in per_train.items() if v}}
+    for t in twin_lines:
+        emit("mesh_twin", arch=cfg.name, **t)
     emit("mesh", **out)
     del params, p_mesh, opt_mesh, p_a, p_b, got, want, back
     torch.cuda.empty_cache()
@@ -2557,6 +2718,139 @@ def phase_sim() -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 6f
+
+# The configurations one card cannot hold, lowered only (a one-device mesh,
+# chip_smoke's own shapes): qwen3-moe's 4 x 1024 train step (its AdamW
+# state alone is 244 GB) and llama-3.2-vision-90b's prefill and decode at
+# all 100 layers (177 GB of bf16 weights).
+PAPER_CELLS = (("qwen3-moe-30b-a3b", "train", TRAIN_S, TRAIN_B),
+               (VLM, "prefill", 1024, 4),
+               (VLM, "decode", 512, 4))
+DRYRUN_TIMEOUT_S = 900
+
+
+def paper_cells() -> None:
+    """Print one JSON line for each of ``PAPER_CELLS``: its step lowered on
+    a 1 x 1 mesh (``abstract_mesh(local=True)``) at full width and depth,
+    traced on ``meta`` tensors, with its memory and roofline on paper.
+    Runs on the host alone (``start_dryrun`` starts it in a process of its
+    own, with no card visible)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import _lower
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.sharding import DEFAULT_RULES
+    for arch, kind, S, B in PAPER_CELLS:
+        cfg = get_config(arch)
+        shape = ShapeSpec(f"chip_{kind}", S, B, kind)
+        compiled = _lower(cfg, shape, abstract_mesh(local=True),
+                          DEFAULT_RULES, "full").compile()
+        r = roofline_of(cfg, shape, compiled)
+        print(json.dumps({"arch": arch, "step": kind, "shape": [B, S],
+                          "n_layers": cfg.n_layers, **r}), flush=True)
+
+
+def start_dryrun() -> dict:
+    """Start the dry-run on the host, beside the card's phases, in two
+    processes with no card visible (``CUDA_VISIBLE_DEVICES`` empty, one
+    thread each): ``python -m repro_torch.launch.dryrun --all --mesh both``
+    into a temporary directory, and ``paper_cells``."""
+    import tempfile
+    out = Path(tempfile.mkdtemp(prefix="repro_torch_dryrun"))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for name, argv in (
+            ("sweep", ["-m", "repro_torch.launch.dryrun", "--all", "--mesh",
+                       "both", "--out", str(out / "dryrun_results.json")]),
+            ("paper", ["-c", "import chip_smoke; chip_smoke.paper_cells()"])):
+        log = open(out / f"{name}.log", "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, *argv], cwd=str(ROOT), env=env, stdout=log,
+            stderr=subprocess.STDOUT), log)
+    return {"dir": out, "procs": procs, "t0": time.perf_counter()}
+
+
+def stop_dryrun(bg) -> None:
+    """Kill whatever of ``start_dryrun``'s processes still runs."""
+    for proc, log in (bg or {}).get("procs", {}).values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def phase_dryrun(bg: dict) -> dict:
+    """Host phase: wait for ``start_dryrun``'s processes, then run
+    ``python -m repro_torch.roofline.report`` on the sweep's results.
+    Checks: both exit 0, the sweep recorded every (arch, shape, mesh) cell
+    ``ok`` or ``skipped`` (the full-attention configs skip ``long_500k``),
+    and the report's tables came out.  Prints one line a cell
+    (``dominant_adj``, ``step_ms_adj``, ``bytes_per_device_gb``,
+    ``fits_hbm_80g``, from the report's enriched rows) and one a
+    ``PAPER_CELLS`` step.  The sweep's wall time runs beside the card's
+    phases: ``wait_s`` is what this phase waited for it."""
+    t0 = time.perf_counter()
+    rcs = {}
+    for name, (proc, log) in bg["procs"].items():
+        rcs[name] = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        log.close()
+    wall_s = time.perf_counter() - bg["t0"]
+    wait_s = time.perf_counter() - t0
+    out = bg["dir"]
+    results = out / "dryrun_results.json"
+    report = subprocess.run(
+        [sys.executable, "-m", "repro_torch.roofline.report", str(results)],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                 PYTHONPATH=str(ROOT / "src")))
+    rcs["report"] = report.returncode
+    rows = (json.loads(results.with_suffix(".enriched.json").read_text())
+            if report.returncode == 0 else [])
+    for r in rows:
+        emit("dryrun_cell", **{k: r.get(k) for k in (
+            "arch", "shape", "mesh", "status", "dominant_adj", "step_ms_adj",
+            "bytes_per_device_gb", "fits_hbm_80g")})
+    paper = [json.loads(line) for line in
+             (out / "paper.log").read_text().splitlines()
+             if line.startswith("{")]
+    for line in paper:
+        emit("dryrun_paper", **line)
+    from repro_torch.configs import CONFIGS, SHAPES
+    cells = {(r["arch"], r["shape"], r["mesh"]) for r in rows}
+    want = {(a, s, m) for a in CONFIGS for s in SHAPES
+            for m in ("single", "multi")}
+    checks = {
+        "exit_codes": all(rc == 0 for rc in rcs.values()),
+        "every_cell": cells == want and len(rows) == len(want),
+        "ok_or_skipped": bool(rows) and all(
+            r.get("status") in ("ok", "skipped") for r in rows),
+        "skips_are_long_500k": all(
+            r["shape"] == "long_500k" for r in rows
+            if r.get("status") == "skipped"),
+        "tables": "### Roofline — single mesh" in report.stdout
+        and "### Roofline — multi mesh" in report.stdout,
+        "paper_cells": len(paper) == len(PAPER_CELLS),
+    }
+    summary = {"ok": all(checks.values()), "checks": checks, "rcs": rcs,
+               "cells": len(rows),
+               "ok_cells": sum(r.get("status") == "ok" for r in rows),
+               "skipped": sum(r.get("status") == "skipped" for r in rows),
+               "sweep_wall_s": wall_s, "wait_s": wait_s,
+               "trace_s_sum": sum(r.get("trace_s", 0) for r in rows
+                                  if r.get("mesh") == "single")}
+    emit("dryrun", **summary)
+    if not summary["ok"]:
+        tail = {n: (out / f"{n}.log").read_text()[-2000:]
+                for n in bg["procs"]}
+        raise AssertionError(f"dryrun phase failed: "
+                             f"{[k for k, v in checks.items() if not v]}; "
+                             f"{tail}; {report.stderr[-2000:]}")
+    return summary
+
+
 # --------------------------------------------------------------- phase 7
 
 def phase_profile(cfg, params) -> None:
@@ -2699,23 +2993,29 @@ def main() -> int:
             del params
             torch.cuda.empty_cache()
         return 0
-    cases = phase_kernels(phase_build())
     if "--kernels-only" in sys.argv[1:]:
+        phase_kernels(phase_build())
         return 0
-    for arch in ARCHS:
-        small_model_check(arch)
-    for arch in TRAIN_ARCHS + GRAD_ARCHS:
-        small_train_check(arch)
-    launcher_check()
-    paths = {arch: run_model(arch) for arch in ARCHS}
-    for arch in TRAIN_ARCHS:
-        paths[f"train/{arch}"] = run_train(arch)
-    for arch in GRAD_ARCHS:
-        paths[f"train/{arch}"] = run_grads(arch)
-    paths[MESH] = run_mesh(paths)        # destroys its process group
-    paths[UNIFIED] = run_unified(paths)  # ... before these fork workers
-    phase_cache()
-    phase_sim()
+    bg = start_dryrun()                  # host processes, beside the card
+    try:
+        cases = phase_kernels(phase_build())
+        for arch in ARCHS:
+            small_model_check(arch)
+        for arch in TRAIN_ARCHS + GRAD_ARCHS:
+            small_train_check(arch)
+        launcher_check()
+        paths = {arch: run_model(arch) for arch in ARCHS}
+        for arch in TRAIN_ARCHS:
+            paths[f"train/{arch}"] = run_train(arch)
+        for arch in GRAD_ARCHS:
+            paths[f"train/{arch}"] = run_grads(arch)
+        paths[MESH] = run_mesh(paths)    # destroys its process group
+        paths[UNIFIED] = run_unified(paths)  # ... before these fork workers
+        phase_cache()
+        phase_sim()
+        phase_dryrun(bg)
+    finally:
+        stop_dryrun(bg)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

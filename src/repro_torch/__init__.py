@@ -12,13 +12,14 @@ import torch
 
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises if it names CUDA and there is
-    none (no silent CPU fallback)."""
+    none (no silent CPU fallback).  ``meta`` (shapes and dtypes, no data) is
+    the dry-run's device: a step traced there executes nothing."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but CUDA is not available; "
             "pass device='cpu' to run the plain PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {str(dev)!r}")
     return dev
 

@@ -16,12 +16,16 @@ from .kernel import flash_attention_bwd_cuda, flash_attention_cuda
 from .ref import (decode_attention_ref, flash_attention_bwd_ref,
                   flash_attention_ref)
 
+# meta: the dry-run's trace (shapes only) counts the plain version, as the
+# JAX package's CPU dry-run counts its jnp oracles.
+PLAIN_DEVICES = ("cpu", "meta")
+
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, block_kv, softmax_scale,
                 force_ref):
-        if force_ref or q.device.type == "cpu":
+        if force_ref or q.device.type in PLAIN_DEVICES:
             ctx.plain = True
             o, lse = flash_attention_ref(
                 q, k, v, causal=causal, q_offset=q_offset, block_kv=block_kv,

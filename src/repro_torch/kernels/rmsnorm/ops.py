@@ -15,9 +15,13 @@ import torch
 from .kernel import rmsnorm_bwd_cuda, rmsnorm_cuda
 from .ref import gated_rmsnorm_ref, rmsnorm_bwd_ref, rmsnorm_ref
 
+# meta: the dry-run's trace (shapes only) counts the plain version, as the
+# JAX package's CPU dry-run counts its jnp oracles.
+PLAIN_DEVICES = ("cpu", "meta")
+
 
 def _plain(x, force_ref: bool) -> bool:
-    if force_ref or x.device.type == "cpu":
+    if force_ref or x.device.type in PLAIN_DEVICES:
         return True
     if x.device.type == "cuda":
         return False

@@ -16,9 +16,13 @@ from .kernel import ssd_chunk_bwd_cuda, ssd_chunk_cuda
 from .ref import (_inter_chunk, _pad_seq, ssd_chunk_bwd_ref, ssd_chunk_ref,
                   ssd_decode_ref, ssd_ref)
 
+# meta: the dry-run's trace (shapes only) counts the plain version, as the
+# JAX package's CPU dry-run counts its jnp oracles.
+PLAIN_DEVICES = ("cpu", "meta")
+
 
 def _plain(x, force_ref: bool) -> bool:
-    if force_ref or x.device.type == "cpu":
+    if force_ref or x.device.type in PLAIN_DEVICES:
         return True
     if x.device.type == "cuda":
         return False

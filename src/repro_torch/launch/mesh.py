@@ -17,8 +17,15 @@ collectives do nothing), the counterpart of the reference's forced host
 devices: enough to place and shard tensors, not to compute across ranks.
 A process has one default group, so one that built a local mesh cannot then
 build a production mesh (and the reverse): run such code in its own process.
+
+``abstract_mesh`` is a mesh's axis names and sizes alone (no device, no
+group): what the dry-run (``launch.dryrun``) lowers on, any number of them
+in one process.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Tuple
 
 from .. import resolve_device
 
@@ -98,3 +105,26 @@ def make_production_mesh(*, multi_pod: bool = False):
             f"the fake group has {dist.get_world_size()} ranks; a {shape} "
             f"mesh needs {world}: build it in a process of its own")
     return init_device_mesh("cpu", shape, mesh_dim_names=axes)
+
+
+@dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh as the rules read it: ``shape`` is the dict of axis name ->
+    size (as a JAX mesh's is); its tensors are ``meta`` ones."""
+    axes: Tuple[Tuple[str, int], ...]
+    device_type: str = "meta"
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(self.axes)
+
+
+def abstract_mesh(*, multi_pod: bool = False, local: bool = False
+                  ) -> AbstractMesh:
+    """The production mesh's axes ((16, 16), or (2, 16, 16) with
+    ``multi_pod``), or the local mesh's (1, 1), without devices."""
+    if local:
+        return AbstractMesh(tuple(zip(LOCAL_AXES, (1, 1))))
+    if multi_pod:
+        return AbstractMesh((("pod", 2), ("data", 16), ("model", 16)))
+    return AbstractMesh((("data", 16), ("model", 16)))

@@ -6,7 +6,10 @@ Counterpart of ``repro.serve.serve_step``.  ``make_prefill`` and
 ``make_serve_step`` take ``(mesh, rules)`` as the reference does and run
 inside ``sharding_ctx`` on the mesh's device; a device in the mesh's place
 builds the unmeshed step on that device.  Rules without a mesh, and a mesh
-of more than one device, raise (``sharding.context.step_target``).
+of more than one device, raise (``sharding.context.step_target``), except
+for the dry-run's steps (``trace=True``), which take any mesh and run on
+``meta`` tensors only.  ``lower_prefill`` and ``lower_serve_step`` return
+those steps with their abstract inputs (``roofline.trace.Lowered``).
 """
 from __future__ import annotations
 
@@ -15,9 +18,13 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..models.config import ModelConfig, ShapeSpec
-from ..models.transformer import decode_step, forward, init_decode_state
-from ..sharding import LogicalRules, logical_sharding, sharding_ctx
-from ..sharding.context import step_target
+from ..models.params import tree_axes
+from ..models.transformer import (abstract_params, build_specs, decode_step,
+                                  forward, init_decode_state)
+from ..roofline.trace import Lowered
+from ..sharding import (LogicalRules, logical_sharding, sharding_ctx,
+                        shardings_for)
+from ..sharding.context import step_target, traced_input, traced_inputs
 
 CACHE_AXES = {
     "pos": (),
@@ -68,39 +75,127 @@ def decode_state_shardings(cfg: ModelConfig, shape: ShapeSpec, mesh,
             for k, v in structs.items()}
 
 
-def _on(t, dev):
-    return None if t is None else torch.as_tensor(t, device=dev)
+def _mover(dev, trace: bool):
+    """The step's input mover: to the device, or (a traced step) checked to
+    be ``meta`` and passed as it is."""
+    if trace:
+        return traced_input
+    return lambda t: None if t is None else torch.as_tensor(t, device=dev)
 
 
 def make_serve_step(cfg: ModelConfig, mesh="cuda",
                     rules: Optional[LogicalRules] = None, *,
-                    force_ref: bool = False):
+                    force_ref: bool = False, trace: bool = False):
     """``serve_step(params, state, tokens=None, inputs_embeds=None) ->
     (logits, state)``; tokens (B, 1) or inputs_embeds (B, 1, d), as arrays
-    or tensors, moved to the device."""
-    mesh, dev = step_target(mesh, rules)
+    or tensors, moved to the device.  ``trace`` builds the dry-run's step
+    (``lower_serve_step``): ``meta`` tensors only, on any mesh."""
+    mesh, dev = step_target(mesh, rules, trace)
+    on = _mover(dev, trace)
 
     def serve_step(params, state, tokens=None, inputs_embeds=None):
+        if trace:
+            traced_inputs((params, state))
         with torch.inference_mode(), sharding_ctx(mesh, rules):
-            return decode_step(params, cfg, state, _on(tokens, dev),
-                               inputs_embeds=_on(inputs_embeds, dev),
+            return decode_step(params, cfg, state, on(tokens),
+                               inputs_embeds=on(inputs_embeds),
                                force_ref=force_ref)
     return serve_step
 
 
 def make_prefill(cfg: ModelConfig, mesh="cuda",
                  rules: Optional[LogicalRules] = None, *,
-                 force_ref: bool = False):
+                 force_ref: bool = False, trace: bool = False):
     """``prefill(params, tokens=None, inputs_embeds=None, img_embeds=None)
     -> logits``; tokens (B, S) or inputs_embeds (B, S, d), and a vlm's
-    img_embeds (B, n_image_tokens, d)."""
-    mesh, dev = step_target(mesh, rules)
+    img_embeds (B, n_image_tokens, d).  ``trace`` as in
+    ``make_serve_step``."""
+    mesh, dev = step_target(mesh, rules, trace)
+    on = _mover(dev, trace)
 
     def prefill(params, tokens=None, inputs_embeds=None, img_embeds=None):
+        if trace:
+            traced_inputs(params)
         with torch.inference_mode(), sharding_ctx(mesh, rules):
-            logits, _ = forward(params, cfg, _on(tokens, dev),
-                                inputs_embeds=_on(inputs_embeds, dev),
-                                img_embeds=_on(img_embeds, dev),
+            logits, _ = forward(params, cfg, on(tokens),
+                                inputs_embeds=on(inputs_embeds),
+                                img_embeds=on(img_embeds),
                                 remat="none", force_ref=force_ref)
         return logits
     return prefill
+
+
+def lower_serve_step(cfg: ModelConfig, shape: ShapeSpec, mesh,
+                     rules: Optional[LogicalRules] = None,
+                     unroll: int = 1) -> Lowered:
+    """One decode step at (batch, kv_len = shape.seq_len) on abstract
+    inputs, the state donated; audio on a frame embedding (B, 1, d).  The
+    traced step writes position ``seq_len - 1`` (the cost of a step does
+    not depend on it).  ``unroll`` is accepted for the reference's
+    signature."""
+    specs = build_specs(cfg)
+    params_s = abstract_params(cfg)
+    params_sh = shardings_for(specs, mesh, rules)
+    state_s = decode_state_structs(cfg, shape)
+    state_sh = decode_state_shardings(cfg, shape, mesh, rules)
+    B = shape.global_batch
+    step = make_serve_step(cfg, mesh, rules, trace=True)
+    key = "inputs_embeds" if cfg.family == "audio" else "tokens"
+    if key == "inputs_embeds":
+        x_s = torch.empty((B, 1, cfg.d_model), dtype=torch.bfloat16,
+                          device="meta")
+        names = ("batch", "seq", "act_embed")
+    else:
+        x_s = torch.empty((B, 1), dtype=torch.int32, device="meta")
+        names = ("batch", "seq")
+
+    def traced(params, state, x):
+        return step(params, dict(state, pos=shape.seq_len - 1), **{key: x})
+    logits_sh = logical_sharding(("batch", "seq", "act_vocab"),
+                                 (B, 1, cfg.vocab), mesh, rules)
+    return Lowered(traced, (params_s, state_s, x_s),
+                   (params_sh, state_sh,
+                    logical_sharding(names, x_s.shape, mesh, rules)),
+                   out_shardings=(logits_sh, state_sh), donate_argnums=(1,),
+                   mesh=mesh, rules=rules, kind="decode",
+                   axes=tree_axes(specs))
+
+
+def lower_prefill(cfg: ModelConfig, shape: ShapeSpec, mesh,
+                  rules: Optional[LogicalRules] = None,
+                  unroll: int = 1) -> Lowered:
+    """The prefill (a full-sequence forward) on abstract inputs: tokens
+    (B, S), or audio's ``inputs_embeds`` (B, S, d), and a vlm's
+    ``img_embeds`` (B, n_image_tokens, d).  ``unroll`` is accepted for the
+    reference's signature."""
+    specs = build_specs(cfg)
+    params_s = abstract_params(cfg)
+    params_sh = shardings_for(specs, mesh, rules)
+    B, S = shape.global_batch, shape.seq_len
+    fn = make_prefill(cfg, mesh, rules, trace=True)
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    kwargs_s = {}
+    if cfg.family == "audio":
+        kwargs_s["inputs_embeds"] = meta((B, S, cfg.d_model), torch.bfloat16)
+    else:
+        kwargs_s["tokens"] = meta((B, S), torch.int32)
+    if cfg.family == "vlm":
+        kwargs_s["img_embeds"] = meta((B, cfg.n_image_tokens, cfg.d_model),
+                                      torch.bfloat16)
+    names = {"tokens": ("batch", "seq"),
+             "inputs_embeds": ("batch", "seq", "act_embed"),
+             "img_embeds": ("batch", "seq", "act_embed")}
+    keys = sorted(kwargs_s)
+    args_sh = tuple(logical_sharding(names[k], kwargs_s[k].shape, mesh, rules)
+                    for k in keys)
+
+    def positional(p, *vals):
+        return fn(p, **dict(zip(keys, vals)))
+    logits_sh = logical_sharding(("batch", "seq", "act_vocab"),
+                                 (B, S, cfg.vocab), mesh, rules)
+    return Lowered(positional, (params_s,) + tuple(kwargs_s[k] for k in keys),
+                   (params_sh,) + args_sh, out_shardings=logits_sh,
+                   mesh=mesh, rules=rules, kind="prefill",
+                   axes=tree_axes(specs))

@@ -13,6 +13,8 @@ one device, raise (``sharding.context.step_target``).  Grads come from
 ``microbatches > 1`` each microbatch's grads are added as
 ``g.float() / microbatches`` into f32 buffers, as the JAX scan does; with one
 microbatch the optimizer receives grads in the params' dtype.
+``lower_train_step`` is the dry-run's entry: the step built with
+``trace=True`` (any mesh, ``meta`` tensors only) and its abstract inputs.
 """
 from __future__ import annotations
 
@@ -21,11 +23,16 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..models.config import ModelConfig, ShapeSpec
-from ..models.params import tree_leaves, tree_unflatten
-from ..models.transformer import forward, lm_loss, lm_loss_chunked
-from ..sharding import LogicalRules, logical_sharding, sharding_ctx
-from ..sharding.context import step_target
-from .optimizer import AdamWConfig, AdamWState, apply_updates, tree_map
+from ..models.params import tree_axes, tree_leaves, tree_unflatten
+from ..models.transformer import (abstract_params, build_specs, forward,
+                                  lm_loss, lm_loss_chunked)
+from ..roofline.trace import Lowered
+from ..sharding import (LogicalRules, logical_sharding, sharding_ctx,
+                        shardings_for)
+from ..sharding.context import step_target, traced_inputs
+from ..sharding.rules import NamedSharding, P
+from .optimizer import (AdamWConfig, AdamWState, abstract_state,
+                        apply_updates, tree_map)
 
 LOSS_IMPLS = ("dense", "chunked")
 
@@ -98,16 +105,18 @@ def make_value_and_grad(cfg: ModelConfig, *, remat: str = "full",
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None,
                     rules=None, *, remat: str = "full", microbatches: int = 1,
-                    unroll: int = 1, loss_impl: str = "dense"):
+                    unroll: int = 1, loss_impl: str = "dense",
+                    trace: bool = False):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``batch`` (``batch_structs``' keys) lies on the params'
     device (with a mesh: is moved to the mesh's), and microbatching splits
     each of its tensors.  Params and moments are updated in place.
     ``unroll`` is accepted for the reference's signature (a Python loop has
-    nothing to unroll)."""
+    nothing to unroll).  ``trace`` builds the dry-run's step
+    (``lower_train_step``): ``meta`` tensors only, on any mesh."""
     dev = None
-    if mesh is not None or rules is not None:
-        mesh, dev = step_target(mesh, rules)
+    if mesh is not None or rules is not None or trace:
+        mesh, dev = step_target(mesh, rules, trace)
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     value_and_grad = make_value_and_grad(cfg, remat=remat,
@@ -137,9 +146,38 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None,
         return params, opt_state, metrics
 
     def train_step(params, opt_state: AdamWState, batch):
-        if dev is not None:
+        if trace:
+            traced_inputs((params, opt_state, batch))
+        elif dev is not None:
             batch = {k: v.to(dev) for k, v in batch.items()}
         with sharding_ctx(mesh, rules):
             return step(params, opt_state, batch)
 
     return train_step
+
+
+def lower_train_step(cfg: ModelConfig, shape: ShapeSpec, mesh,
+                     rules: Optional[LogicalRules] = None, *,
+                     remat: str = "full", microbatches: int = 1,
+                     opt_cfg: Optional[AdamWConfig] = None, unroll: int = 1,
+                     loss_impl: str = "dense") -> Lowered:
+    """The train step on abstract inputs (the dry-run entry): params,
+    AdamW state and one global batch as ``meta`` tensors with their
+    shardings on ``mesh``, params and state donated, as the reference's
+    ``jax.jit(...).lower``; ``.compile()`` traces it
+    (``roofline.trace``)."""
+    opt_cfg = opt_cfg or AdamWConfig()
+    specs = build_specs(cfg)
+    params_s = abstract_params(cfg)
+    params_sh = shardings_for(specs, mesh, rules)
+    opt_s = abstract_state(params_s)
+    opt_sh = AdamWState(NamedSharding(mesh, P()), params_sh, params_sh)
+    step = make_train_step(cfg, opt_cfg, mesh, rules, remat=remat,
+                           microbatches=microbatches, unroll=unroll,
+                           loss_impl=loss_impl, trace=True)
+    return Lowered(step, (params_s, opt_s, batch_structs(cfg, shape)),
+                   (params_sh, opt_sh,
+                    batch_shardings(cfg, shape, mesh, rules)),
+                   out_shardings=(params_sh, opt_sh, None),
+                   donate_argnums=(0, 1), mesh=mesh, rules=rules,
+                   kind="train", axes=tree_axes(specs))

@@ -68,7 +68,11 @@ def test_port_modules_exist():
                      "link", "workloads", "cluster", "chaos")),
                  "repro_torch.sharding", "repro_torch.sharding.rules",
                  "repro_torch.sharding.context", "repro_torch.launch.mesh",
-                 "repro_torch.launch.variants"):
+                 "repro_torch.launch.variants", "repro_torch.launch.dryrun",
+                 "repro_torch.roofline",
+                 *(f"repro_torch.roofline.{m}" for m in (
+                     "analysis", "analytic", "report", "fill_repro",
+                     "trace"))):
         assert name in mods
 
 
@@ -164,3 +168,12 @@ def test_engine_refuses_params_on_another_device():
     params = {"embed": torch.zeros(cfg.vocab, cfg.d_model, device="meta")}
     with pytest.raises(ValueError):
         ServingEngine(params, cfg, device="cpu")
+
+
+def test_every_module_of_the_reference_has_a_counterpart():
+    """A ``comm`` of the two packages' file lists: every module of the JAX
+    package has the port's module of the same name."""
+    ref = ROOT / "src" / "repro"
+    missing = [str(f.relative_to(ref)) for f in sorted(ref.rglob("*.py"))
+               if not (PORT / f.relative_to(ref)).exists()]
+    assert missing == []
