@@ -80,6 +80,18 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 footprint, event ms and ``train_step_flops``).  Its
                 process group is destroyed when it ends, so no later fork
                 inherits a live group.
+  6b2. mesh2x2 — ``mesh2x2/qwen3-1.7b``: the same model and steps on a
+                real (2, 2) ("data", "model") ``DeviceMesh`` of four ranks
+                spawned on the one card (gloo with CUDA tensors, the
+                functional all-gather staged through the host), params,
+                batch and decode state DTensors placed by
+                ``DEFAULT_RULES``, the kernels run on each rank's local
+                shards: bf16 logits, first loss and first grad norm
+                within ``FLOOR_FACTOR`` times the unmeshed
+                kernels-against-plain gap (plus one ulp), f32 at 4
+                layers at 1e-4, each rank's launches equal to the qwen3
+                paths', collectives (``CommDebugMode``) beside the dry-run
+                twin's reckoned ones (``run_mesh2`` lists its checks).
   6c. unified — ``unified/qwen3-1.7b``: qwen3-1.7b at full width and depth
                 (bf16, seed 0) trains and serves through ONE process-driver
                 cache client (``open_cache(driver="process", n_procs=2)``,
@@ -115,7 +127,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 checkout, it profiles that checkout's package.
   8. the ``{"kernels": [...]}`` line: launches on the main path (each
      model's prefill and serving, each model's train steps
-     (``train/<arch>``), ``mesh/qwen3-1.7b`` and ``unified/qwen3-1.7b``,
+     (``train/<arch>``), ``mesh/qwen3-1.7b``, ``mesh2x2/qwen3-1.7b``
+     (its four ranks' launches summed) and ``unified/qwen3-1.7b``,
      each counted from 0 and summed; flash attention's forward and backward also by variant,
      and every prefill and training flash launch must be the ``wgmma``
      one), errors, times and bounds, for the three forward kernels and the
@@ -748,13 +761,18 @@ def phase_kernels(build: dict) -> list:
     # q_norm over B*S*16 rows, k_norm over B*S*8 rows, decode's 4 rows,
     # mamba2's layer norm, a ragged count, llama3-405b's d_model, granite's
     # d_model, and qwen3-moe's q / k norms (B*S*32, B*S*4 rows).
-    # llama-vision's d_model (4 x 1024 rows) and decode's 4 rows.
+    # llama-vision's d_model (4 x 1024 rows) and decode's 4 rows.  A rank's
+    # shard of qwen3 on the (2, 2) mesh: 2 x 1024 rows of d_model, its 4 KV
+    # heads' norms (its 8 q heads' 16384 rows are a case above) and
+    # decode's 2 rows.
     for rows, d, timed in [(4096, 2048, True), (65536, 128, True),
                            (32768, 128, True), (4, 2048, True),
                            (4096, 1024, True), (1000, 2048, False),
                            (64, 16384, False), (4096, 1536, True),
                            (131072, 128, True), (16384, 128, False),
-                           (4096, 8192, True), (4, 8192, False)]:
+                           (4096, 8192, True), (4, 8192, False),
+                           (2048, 2048, False), (8192, 128, False),
+                           (2, 2048, False)]:
         for dtype in (torch.bfloat16, torch.float32):
             results.append(rmsnorm_case(rows, d, dtype, gen, flush,
                                         timed and dtype == torch.bfloat16))
@@ -779,7 +797,8 @@ def phase_kernels(build: dict) -> list:
             # and whose last KV tile 65 keys), and its self-attention.
             ((4, 1024, 1601, 64, 8, 128), False, 0, (bf16,)),
             ((4, 1, 1601, 64, 8, 128), False, 0, (bf16,)),
-            ((4, 1024, 1024, 64, 8, 128), True, 0, (bf16,))]:
+            ((4, 1024, 1024, 64, 8, 128), True, 0, (bf16,)),
+            ((2, 1024, 1024, 8, 4, 128), True, 0, ())]:   # qwen3, 2x2 shard
         for dtype in (bf16, f32):
             results.append(flash_case(*shape, causal, off, dtype, gen, flush,
                                       dtype in timed))
@@ -814,19 +833,23 @@ def phase_kernels(build: dict) -> list:
     # norms), a ragged row count, the reduced config's d_model and head dim,
     # granite's d_model, llama-vision's d_model (the long-row kernel; in f32
     # eight vectors a thread), an f32 width just past the row groups' 512
-    # vectors, and fewer long rows than CTAs.
+    # vectors, fewer long rows than CTAs, and a rank's shard of qwen3 on the
+    # (2, 2) mesh (d_model, the q and the k norms).
     for rows, d, timed in [(4096, 2048, True), (65536, 128, True),
                            (32768, 128, False), (1000, 2048, False),
                            (80, 64, False), (640, 16, False),
                            (4096, 1536, True), (4096, 8192, True),
-                           (1000, 2056, False), (7, 8192, False)]:
+                           (1000, 2056, False), (7, 8192, False),
+                           (2048, 2048, False), (16384, 128, False),
+                           (8192, 128, False)]:
         for dtype in (bf16, f32):
             results.append(rmsnorm_bwd_case(rows, d, dtype, gen, flush,
                                             timed and dtype == bf16, build))
     # Flash: qwen3's train shape (timed in both types), zamba2's attention
     # (hd 64, timed in bf16), q_offset, non-causal over a ragged Skv, hd 64 /
     # 32 with ragged sequences, the reduced hd 16, granite's train shape
-    # (GQA group 3, hd 64, timed in bf16) and a ragged group 3.
+    # (GQA group 3, hd 64, timed in bf16), a ragged group 3 and a rank's
+    # shard of qwen3's on the (2, 2) mesh.
     for shape, causal, off, timed in [
             ((4, 1024, 1024, 16, 8, 128), True, 0, (bf16, f32)),
             ((4, 1024, 1024, 32, 32, 64), True, 0, (bf16,)),  # zamba2 shared
@@ -837,7 +860,8 @@ def phase_kernels(build: dict) -> list:
             ((2, 40, 40, 4, 2, 16), True, 0, ()),
             ((2, 16, 48, 4, 2, 16), False, 0, ()),
             ((4, 1024, 1024, 24, 8, 64), True, 0, (bf16,)),
-            ((2, 200, 200, 6, 2, 64), True, 0, ())]:
+            ((2, 200, 200, 6, 2, 64), True, 0, ()),
+            ((2, 1024, 1024, 8, 4, 128), True, 0, ())]:   # qwen3, 2x2 shard
         for dtype in (bf16, f32):
             results.append(flash_bwd_case(*shape, causal, off, dtype, gen,
                                           flush, dtype in timed, build))
@@ -2325,6 +2349,25 @@ def leaf_gaps(a: dict, b: dict) -> dict:
             for k, v in tree_leaves(a)}
 
 
+def mesh_inputs(cfg):
+    """The mesh paths' inputs: a 4 x 1024 prefill's token ids (int32, as
+    ``batch_structs`` and the lowered twins declare them; seed 0), the
+    decode steps' token ids (numpy, seed 3) and the train batches (seed
+    7), on the card."""
+    inputs = {k: v.to(torch.int32)
+              for k, v in model_inputs(cfg, 4, 1024, 0).items()}
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab, (4, MESH_DECODE_STEPS)).astype(np.int32)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batches = []
+    for _ in range(MESH_TRAIN_STEPS):
+        t = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S + 1), generator=gen,
+                          device="cuda").to(torch.int32)
+        batches.append({"tokens": t[:, :-1].contiguous(),
+                        "labels": t[:, 1:].contiguous()})
+    return inputs, toks, batches
+
+
 def run_mesh(paths: dict) -> dict:
     """qwen3-1.7b at full width and depth (bf16, seed 0: the weights the
     qwen3 path drew, drawn again) through a one-device mesh
@@ -2360,18 +2403,7 @@ def run_mesh(paths: dict) -> dict:
     from repro_torch.train.train_step import make_train_step
     arch = MESH.split("/", 1)[1]
     cfg, params = init_model(arch)
-    # token ids in int32, as batch_structs and the lowered twins declare them
-    inputs = {k: v.to(torch.int32)
-              for k, v in model_inputs(cfg, 4, 1024, 0).items()}
-    toks = np.random.default_rng(3).integers(
-        0, cfg.vocab, (4, MESH_DECODE_STEPS)).astype(np.int32)
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    batches = []
-    for _ in range(MESH_TRAIN_STEPS):
-        t = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S + 1), generator=gen,
-                          device="cuda").to(torch.int32)
-        batches.append({"tokens": t[:, :-1].contiguous(),
-                        "labels": t[:, 1:].contiguous()})
+    inputs, toks, batches = mesh_inputs(cfg)
     opt_cfg = AdamWConfig(total_steps=MESH_TRAIN_STEPS)
 
     def serve(prefill, step, marks, probe=None):
@@ -2500,7 +2532,467 @@ def run_mesh(paths: dict) -> dict:
         raise AssertionError(f"{MESH} failed: "
                              f"{[k for k, v in checks.items() if not v]}")
     return {"launches": launches, "per_prefill": per_prefill,
-            "per_decode_step": per_decode, "per_train_step": per_train}
+            "per_decode_step": per_decode, "per_train_step": per_train,
+            "step_ms": {"prefill": probe["prefill"]["ms"],
+                        "decode": probe["decode"]["ms"] / n,
+                        "train": probe["train"]["ms"] / MESH_TRAIN_STEPS}}
+
+
+MESH2 = "mesh2x2/qwen3-1.7b"
+MESH2_SHAPE = (2, 2)              # ("data", "model")
+MESH2_F32_DEPTH = 4               # layers of the f32 pairs (full width)
+MESH2_TIMEOUT_S = 900
+# unmeshed kernel runs of the first train step's grad norm: the bf16 flash
+# backward sums dQ in an order that varies, which moves qwen3-1.7b's norm
+# by up to ~6e-4 between runs on an H100 (as much as the
+# kernels-against-plain gap itself)
+MESH2_NORM_RUNS = 3
+
+
+def mesh2_steps(cfg, params, inputs, toks, batches, prefill, step, train,
+                force_ref: bool = False) -> dict:
+    """One run of the mesh paths' steps: the prefill's logits, each decode
+    step's (from an empty state of ``MESH_MAX_SEQ`` positions, in the
+    params' type: an f32 run keeps its KV cache in f32, since a bf16 cache
+    rounds each new k / v, and a last-bit difference that crosses a
+    rounding midpoint moves a logit by ~1e-4), and the losses and grad
+    norms of ``MESH_TRAIN_STEPS`` train steps from a copy of ``params``
+    (``train`` builds the step; None: the first loss and grad norm alone,
+    by ``make_value_and_grad``, ``force_ref`` as asked)."""
+    from repro_torch import is_dtensor
+    from repro_torch.models.transformer import init_decode_state
+    from repro_torch.train.optimizer import global_norm, init_state
+    from repro_torch.train.train_step import make_value_and_grad
+
+    def scalar(t):
+        return float(t.full_tensor() if is_dtensor(t) else t)
+    out = {"prefill": prefill(params, **inputs), "decode": []}
+    state = init_decode_state(cfg, 4, MESH_MAX_SEQ, device="cuda")
+    dtype = params["final_norm"].dtype
+    state = {k: v.to(dtype) if torch.is_tensor(v) else v
+             for k, v in state.items()}
+    for i in range(MESH_DECODE_STEPS):
+        logits, state = step(params, state, toks[:, i:i + 1])
+        out["decode"].append(logits)
+    if train is None:
+        loss, grads = make_value_and_grad(cfg, remat="full",
+                                          force_ref=force_ref)(params,
+                                                               batches[0])
+        out["losses"] = [scalar(loss)]
+        out["grad_norms"] = [scalar(global_norm(grads))]
+        return out
+    p = tree_to(params, torch.clone)
+    opt = init_state(p)
+    out["losses"], out["grad_norms"] = [], []
+    for b in batches:
+        p, opt, m = train(p, opt, b)
+        out["losses"].append(scalar(m["loss"]))
+        out["grad_norms"].append(scalar(m["grad_norm"]))
+    return out
+
+
+def gap(got, want) -> float:
+    """Largest absolute difference of two logits, one sequence at a time
+    on the card (``held``'s walk)."""
+    err = 0.0
+    for g, w in zip(got, want):
+        g, w = g.cuda().float(), w.cuda().float()
+        err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def mesh2_references(cfg, params, inputs, toks, batches, dtype) -> dict:
+    """The unmeshed steps on the card, on the host: the kernels' outputs
+    and, in bf16, their gap to the plain versions' on the same weights (the
+    floor of ``run_mesh2``'s bf16 bounds: logits, the first loss and the
+    first step's grad norm, the latter from ``MESH2_NORM_RUNS`` kernel
+    runs, each in ``first_grad_norms``, its floor the largest of their
+    gaps to the plain run's); in f32 the train steps too."""
+    from repro_torch.serve.serve_step import make_prefill, make_serve_step
+    from repro_torch.train.optimizer import AdamWConfig, global_norm
+    from repro_torch.train.train_step import (make_train_step,
+                                              make_value_and_grad)
+
+    def run(force_ref, train):
+        return mesh2_steps(
+            cfg, params, inputs, toks, batches,
+            make_prefill(cfg, "cuda", force_ref=force_ref),
+            make_serve_step(cfg, "cuda", force_ref=force_ref), train,
+            force_ref=force_ref)
+    f32 = dtype == torch.float32
+    kern = run(False, make_train_step(
+        cfg, AdamWConfig(total_steps=MESH_TRAIN_STEPS), remat="full")
+        if f32 else None)
+    ref = {"prefill": kern["prefill"].cpu(),
+           "decode": [t.cpu() for t in kern["decode"]],
+           "losses": kern["losses"], "grad_norms": kern["grad_norms"]}
+    if not f32:
+        plain = run(True, None)
+        vg = make_value_and_grad(cfg, remat="full")
+        norms = ref["first_grad_norms"] = kern["grad_norms"] + [
+            float(global_norm(vg(params, batches[0])[1]))
+            for _ in range(MESH2_NORM_RUNS - 1)]
+        ref["floor"] = {
+            "prefill": gap(kern["prefill"], plain["prefill"]),
+            "decode": max(gap(a, b) for a, b in zip(kern["decode"],
+                                                    plain["decode"])),
+            "first_loss": abs(kern["losses"][0] - plain["losses"][0]),
+            "first_grad_norm": max(abs(n - plain["grad_norms"][0])
+                                   for n in norms)}
+        del plain
+    del kern
+    torch.cuda.empty_cache()
+    return ref
+
+
+def mesh2_rank(rank: int, job: dict) -> dict:
+    """One rank of ``run_mesh2``: qwen3-1.7b (seed 0, bf16, full width and
+    depth) placed on the (2, 2) mesh by ``DEFAULT_RULES``, then the mesh
+    paths' steps through ``make_prefill`` / ``make_serve_step`` /
+    ``make_train_step`` on it, counted from 0 (this process's counts); the
+    first prefill, decode step and train step under ``CollectiveTally``,
+    the second prefill and train step and the last decode step timed
+    (every rank starts each at a barrier); then the same steps with the
+    weights cut to ``MESH2_F32_DEPTH`` layers and cast to f32.  Returns
+    this rank's blocks of every logits tensor, the losses and grad norms,
+    its launches, times and collectives."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import (build_specs,
+                                                init_decode_state,
+                                                init_params)
+    from repro_torch.serve.serve_step import make_prefill, make_serve_step
+    from repro_torch.sharding import (DEFAULT_RULES, distribute_tree,
+                                      shardings_for)
+    from repro_torch.sharding.collectives import (STAGED, CollectiveTally,
+                                                  stage_through_host)
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_step import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stage_through_host()
+    mesh = make_mesh(MESH2_SHAPE, ("data", "model"), "cuda")
+    out = {"coord": tuple(mesh.get_coordinate()), "backend":
+           dist.get_backend(), "device": torch.cuda.get_device_name(0)}
+
+    def placed(cfg, dtype, depth=None):
+        """The seed's weights (the parent's: drawn at full depth, then cut
+        and cast) placed on the mesh; the full copy is freed."""
+        full = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        if depth is not None:
+            cfg, full = cut_depth(cfg, full, depth, clone=True)
+        full = tree_to(full, lambda t: t.to(dtype))
+        p = distribute_tree(full, shardings_for(build_specs(cfg), mesh,
+                                                DEFAULT_RULES))
+        del full
+        torch.cuda.empty_cache()
+        return cfg, p
+
+    def timed(fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    def local(t):
+        """(global offset, this rank's block on the host) of a DTensor; a
+        partial sum (the decode step's head leaves its logits partial over
+        "data") is reduced first."""
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset)
+        t = t.redistribute(t.device_mesh, [
+            Replicate() if p.is_partial() else p for p in t.placements])
+        _, offset = compute_local_shape_and_global_offset(
+            t.shape, t.device_mesh, t.placements)
+        return tuple(offset), t.to_local().cpu()
+
+    cfg, params = placed(get_config(job["arch"]), torch.bfloat16)
+    inputs, toks, batches = mesh_inputs(cfg)
+    prefill = make_prefill(cfg, mesh, DEFAULT_RULES)
+    step = make_serve_step(cfg, mesh, DEFAULT_RULES)
+    train = make_train_step(cfg, AdamWConfig(total_steps=MESH_TRAIN_STEPS),
+                            mesh, DEFAULT_RULES, remat="full")
+    comm, ms = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                       # this rank's path starts here
+    with CollectiveTally() as tally:
+        first = prefill(params, **inputs)
+    comm["prefill"] = tally
+    logits, ms["prefill"] = timed(lambda: prefill(params, **inputs))
+    marks = [counts()]
+    state = init_decode_state(cfg, 4, MESH_MAX_SEQ, device="cuda")
+    decode = []
+    for i in range(MESH_DECODE_STEPS):
+        feed = toks[:, i:i + 1]
+        if i == 0:
+            with CollectiveTally() as tally:
+                lg, state = step(params, state, feed)
+            comm["decode"] = tally
+        elif i == MESH_DECODE_STEPS - 1:
+            (lg, state), ms["decode"] = timed(
+                lambda: step(params, state, feed))
+        else:
+            lg, state = step(params, state, feed)
+        decode.append(local(lg))
+    marks.append(counts())
+    p = tree_to(params, torch.clone)
+    opt = init_state(p)
+    losses, norms = [], []
+    for i, b in enumerate(batches):
+        if i == 0:
+            with CollectiveTally() as tally:
+                p, opt, m = train(p, opt, b)
+            comm["train"] = tally
+        else:
+            (p, opt, m), ms["train"] = timed(lambda: train(p, opt, b))
+        losses.append(float(m["loss"].full_tensor()))
+        norms.append(float(m["grad_norm"].full_tensor()))
+    launches = counts()                  # ... and ends here
+    out.update(
+        prefill=local(logits), prefill_first_equal=bool(torch.equal(
+            first.to_local(), logits.to_local())),
+        placements={"prefill": list(map(repr, logits.placements)),
+                    "decode": list(map(repr, lg.placements))},
+        decode=decode, losses=losses, grad_norms=norms, ms=ms,
+        launches=launches, marks=marks,
+        comm={k: {"counts": {str(op).rsplit(".", 1)[-1]: n for op, n in
+                             t.get_comm_counts().items()},
+                  "bytes": dict(t.comm_bytes)} for k, t in comm.items()},
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, p, opt, first, logits, state, m
+    torch.cuda.empty_cache()
+    # the f32 pairs, on the first MESH2_F32_DEPTH layers
+    cfg32, p32 = placed(cfg, torch.float32, MESH2_F32_DEPTH)
+    r32 = mesh2_steps(cfg32, p32, inputs, toks, batches,
+                      make_prefill(cfg32, mesh, DEFAULT_RULES),
+                      make_serve_step(cfg32, mesh, DEFAULT_RULES),
+                      make_train_step(cfg32, AdamWConfig(
+                          total_steps=MESH_TRAIN_STEPS), mesh,
+                          DEFAULT_RULES, remat="full"))
+    out["f32"] = {"prefill": local(r32["prefill"]),
+                  "decode": [local(t) for t in r32["decode"]],
+                  "losses": r32["losses"], "grad_norms": r32["grad_norms"]}
+    out["staged"] = {k: dict(v) for k, v in STAGED.items()}
+    return out
+
+
+def mesh2_assemble(blocks: list, shape) -> torch.Tensor:
+    """A full tensor of ``shape`` from the ranks' (global offset, block)
+    pairs; a block that several ranks hold (a replicated dimension) must
+    be the same bits on each, and every element must be covered."""
+    full = torch.empty(shape, dtype=blocks[0][1].dtype)
+    seen = torch.zeros(shape, dtype=torch.bool)
+    for offset, blk in blocks:
+        where = tuple(slice(o, o + n) for o, n in zip(offset, blk.shape))
+        if seen[where].any() and not torch.equal(full[where], blk):
+            raise AssertionError(f"ranks disagree on the block at {offset}")
+        full[where], seen[where] = blk, True
+    if not bool(seen.all()):
+        raise AssertionError("the ranks' blocks do not cover the tensor")
+    return full
+
+
+def run_mesh2(paths: dict) -> dict:
+    """``mesh2x2/qwen3-1.7b``: qwen3-1.7b at full width and depth (bf16,
+    seed 0) prefills 4 x 1024 tokens, takes ``MESH_DECODE_STEPS`` decode
+    steps of a batch of 4 and ``MESH_TRAIN_STEPS`` train steps (remat
+    "full", AdamW) through ``make_prefill`` / ``make_serve_step`` /
+    ``make_train_step`` on a real (2, 2) ("data", "model") ``DeviceMesh``
+    of four ranks under ``DEFAULT_RULES`` (``mesh2_rank``).  The four ranks
+    share the one card: spawned processes (``launch.ranks.run_ranks``),
+    gloo with CUDA tensors (NCCL refuses two ranks on one device), the
+    functional all-gather staged through the host
+    (``sharding.collectives``); they load the library phase 2 built.
+
+    Held, on the same inputs as ``mesh/qwen3-1.7b``:
+
+    * bf16: the prefill's and every decode step's logits, the first loss
+      and the first train step's grad norm, against the unmeshed steps on
+      the same weights, within ``FLOOR_FACTOR`` times the unmeshed
+      kernels-against-plain gap of the same run (``mesh2_references``;
+      the largest of each element's gaps, and of the grad norm's gaps to
+      each of the unmeshed kernel runs; a logit also gets one bf16 ulp of
+      its value, ``close_enough``'s rule for bf16, and the loss and the
+      grad norm, both f32, one f32 ulp of theirs);
+    * f32, the weights cut to ``MESH2_F32_DEPTH`` layers (and the decode
+      state in f32, ``mesh2_steps``): the same steps' logits, losses and
+      grad norms at ``SMALL_F32_TOL`` (1e-4);
+    * each rank's launches per prefill, decode step and train step equal
+      the qwen3 paths' (every flash launch the ``wgmma`` one);
+    * the ranks did not rebuild the kernels (``build.log`` untouched).
+
+    Printed, not held: each rank's step times, peak memory and collectives
+    (counts and bytes by kind, from ``CommDebugMode``) beside the dry-run
+    twin's reckoned collectives for the same step, mesh and rules, and the
+    host-staged all-gathers."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.serve.serve_step import lower_prefill, lower_serve_step
+    from repro_torch.sharding import DEFAULT_RULES
+    from repro_torch.train.train_step import lower_train_step
+    arch = MESH2.split("/", 1)[1]
+    cfg, params = init_model(arch)
+    inputs, toks, batches = mesh_inputs(cfg)
+    ref = mesh2_references(cfg, params, inputs, toks, batches, torch.bfloat16)
+    cfg32, cut = cut_depth(cfg, params, MESH2_F32_DEPTH, clone=True)
+    params.clear()
+    torch.cuda.empty_cache()
+    p32 = tree_to(cut, lambda t: t.float())
+    del cut
+    ref32 = mesh2_references(cfg32, p32, inputs, toks, batches, torch.float32)
+    del p32
+    mesh = AbstractMesh(tuple(zip(("data", "model"), MESH2_SHAPE)))
+    lower = {"prefill": lower_prefill, "decode": lower_serve_step,
+             "train": lower_train_step}
+    reckoned = {}
+    for kind, shape in mesh_shapes().items():
+        c = lower[kind](cfg, shape, mesh, DEFAULT_RULES).compile()
+        c = c.collectives()
+        reckoned[kind] = {"counts": c.counts, "bytes": c.bytes_by_kind}
+    del inputs, batches
+    torch.cuda.empty_cache()
+    log = _build.BUILD_DIR / "build.log"
+    stamp = log.stat().st_mtime_ns
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh2_rank, 4, {"arch": arch},
+                      timeout=MESH2_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    coords = [r["coord"] for r in ranks]
+    B, S, V = 4, 1024, cfg.vocab
+    pre = mesh2_assemble([r["prefill"] for r in ranks], (B, S, V))
+    dec = [mesh2_assemble([r["decode"][i] for r in ranks], (B, 1, V))
+           for i in range(MESH_DECODE_STEPS)]
+    floor = ref["floor"]
+    bounds = {k: FLOOR_FACTOR * v for k, v in floor.items()}
+    for k, want in (("first_loss", ref["losses"][0]),
+                    ("first_grad_norm", max(ref["first_grad_norms"]))):
+        bounds[k] += float(np.spacing(np.float32(abs(want))))
+    pre_ok, pre_gap = held_tol(pre, ref["prefill"], bounds["prefill"],
+                               torch.bfloat16)
+    dec_ok, dec_gap = True, 0.0
+    for a, b in zip(dec, ref["decode"]):
+        ok, err = held_tol(a, b, bounds["decode"], torch.bfloat16)
+        dec_ok, dec_gap = dec_ok and ok, max(dec_gap, err)
+    gaps = {"prefill": pre_gap, "decode": dec_gap,
+            "first_loss": abs(ranks[0]["losses"][0] - ref["losses"][0]),
+            "first_grad_norm": max(abs(ranks[0]["grad_norms"][0] - n)
+                                   for n in ref["first_grad_norms"])}
+    del pre, dec
+    pre32 = mesh2_assemble([r["f32"]["prefill"] for r in ranks], (B, S, V))
+    f32_pre_ok, f32_pre_err = held_tol(pre32, ref32["prefill"])
+    f32_dec_ok, f32_dec_err = True, 0.0
+    for i in range(MESH_DECODE_STEPS):
+        d = mesh2_assemble([r["f32"]["decode"][i] for r in ranks],
+                           (B, 1, V))
+        ok, err = held_tol(d, ref32["decode"][i])
+        f32_dec_ok, f32_dec_err = f32_dec_ok and ok, max(f32_dec_err, err)
+    del pre32
+    got32 = np.asarray(ranks[0]["f32"]["losses"]
+                       + ranks[0]["f32"]["grad_norms"])
+    want32 = np.asarray(ref32["losses"] + ref32["grad_norms"])
+    f32_scalars_ok = bool(np.allclose(got32, want32, atol=SMALL_F32_TOL,
+                                      rtol=SMALL_F32_TOL))
+    n = MESH_DECODE_STEPS
+    per = []
+    for r in ranks:
+        pre_m, dec_m = r["marks"]
+        per.append({
+            "prefill": {k: v / 2 for k, v in pre_m.items()},
+            "decode": {k: (v - pre_m[k]) / n for k, v in dec_m.items()},
+            "train": {k: (v - dec_m[k]) / MESH_TRAIN_STEPS
+                      for k, v in r["launches"].items()}})
+    qwen = paths[arch]
+    one = paths.get(MESH, {}).get("step_ms", {})     # the same card's
+    checks = {
+        "prefill_within_floor": pre_ok,
+        "decode_within_floor": dec_ok,
+        "first_loss_within_floor": gaps["first_loss"]
+        <= bounds["first_loss"],
+        "first_grad_norm_within_floor": gaps["first_grad_norm"]
+        <= bounds["first_grad_norm"],
+        "f32_prefill_logits": f32_pre_ok, "f32_decode_logits": f32_dec_ok,
+        "f32_losses_grad_norms": f32_scalars_ok,
+        "ranks_agree": all(r["losses"] == ranks[0]["losses"]
+                           for r in ranks),
+        "prefill_repeatable": all(r["prefill_first_equal"] for r in ranks),
+        "prefill_launches": all(q["prefill"] == qwen["per_prefill"]
+                                == expected_per_forward(cfg) for q in per),
+        "decode_launches": all(q["decode"] == qwen["per_decode_step"]
+                               for q in per),
+        "train_launches": all(q["train"]
+                              == paths[f"train/{arch}"]["per_train_step"]
+                              == expected_per_train_step(cfg) for q in per),
+        "four_ranks": sorted(coords) == [(0, 0), (0, 1), (1, 0), (1, 1)],
+        "gloo_on_the_card": all(r["backend"] == "gloo" for r in ranks),
+        "library_not_rebuilt": log.stat().st_mtime_ns == stamp,
+        "losses_finite": all(np.isfinite(r["losses"]).all() for r in ranks),
+    }
+    out = {"arch": cfg.name, "path": MESH2, "ok": all(checks.values()),
+           "checks": checks, "mesh": dict(zip(("data", "model"),
+                                              MESH2_SHAPE)),
+           "rules": "DEFAULT_RULES", "ranks": 4, "device": ranks[0]["device"],
+           "transport": {"backend": "gloo", "tensors": "cuda",
+                         "host_staged": ranks[0]["staged"],
+                         "why": "four ranks share one card: NCCL refuses "
+                                "two ranks on one device"},
+           "gaps": gaps, "floor": floor, "bounds": bounds,
+           "losses_mesh": ranks[0]["losses"], "losses_unmeshed_first":
+           ref["losses"][0], "grad_norms_mesh": ranks[0]["grad_norms"],
+           "grad_norms_unmeshed_first": ref["first_grad_norms"],
+           "f32": {"depth": MESH2_F32_DEPTH,
+                   "prefill_max_abs_err": f32_pre_err,
+                   "decode_max_abs_err": f32_dec_err,
+                   "tol": SMALL_F32_TOL, "losses": ranks[0]["f32"]["losses"],
+                   "losses_unmeshed": ref32["losses"],
+                   "grad_norms": ranks[0]["f32"]["grad_norms"],
+                   "grad_norms_unmeshed": ref32["grad_norms"]},
+           "ms_by_rank": [r["ms"] for r in ranks],
+           "one_device_mesh_ms": one, "slowdown": {
+               k: max(r["ms"][k] for r in ranks) / one[k] for k in one},
+           "placements": ranks[0]["placements"],
+           "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
+           "ranks_s": ranks_s,
+           "per_prefill": {k: v for k, v in per[0]["prefill"].items() if v},
+           "per_decode_step": {k: v for k, v in per[0]["decode"].items()
+                               if v},
+           "per_train_step": {k: v for k, v in per[0]["train"].items() if v}}
+    for kind in ("prefill", "decode", "train"):
+        emit("mesh2_collectives", arch=cfg.name, step=kind,
+             measured_by_rank=[r["comm"][kind] for r in ranks],
+             reckoned=reckoned[kind])
+    emit("mesh2", **out)
+    if not out["ok"]:
+        raise AssertionError(f"{MESH2} failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    return {"launches": launches, "per_prefill": per[0]["prefill"],
+            "per_decode_step": per[0]["decode"],
+            "per_train_step": per[0]["train"]}
+
+
+def held_tol(got, want, tol: float = SMALL_F32_TOL,
+             dtype=torch.float32) -> tuple:
+    """(ok, max abs error), one sequence at a time on the card: f32 within
+    ``tol`` absolute and relative; bf16 within ``tol`` plus one bf16 ulp of
+    the value (``close_enough``: the logits are bf16, so a gap is a whole
+    number of ulps of its element)."""
+    ok, err = True, 0.0
+    for g, w in zip(got, want):
+        g, w = g.cuda(), w.cuda()
+        if dtype == torch.float32:
+            g, w = g.float(), w.float()
+            one = bool(torch.allclose(g, w, atol=tol, rtol=tol))
+            one_err = float((g - w).abs().max())
+        else:
+            one, one_err = close_enough(g, w, tol, dtype)
+        ok, err = ok and one, max(err, one_err)
+    return ok, err
 
 
 # --------------------------------------------------------------- phase 6e
@@ -3010,6 +3502,7 @@ def main() -> int:
         for arch in GRAD_ARCHS:
             paths[f"train/{arch}"] = run_grads(arch)
         paths[MESH] = run_mesh(paths)    # destroys its process group
+        paths[MESH2] = run_mesh2(paths)  # spawned ranks, none left after
         paths[UNIFIED] = run_unified(paths)  # ... before these fork workers
         phase_cache()
         phase_sim()
@@ -3048,7 +3541,7 @@ def main() -> int:
                         "per_prefill": p["per_prefill"][name],
                         "per_decode_step": p["per_decode_step"][name],
                         "per_train_step": p["per_train_step"][name]}
-                       if arch == MESH else
+                       if arch in (MESH, MESH2) else
                        {"path": p["launches"][name],
                         "per_prefill": p["per_prefill"][name],
                         "serve": None if p["serve"] is None

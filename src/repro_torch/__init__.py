@@ -24,4 +24,13 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor.  The class is looked up only once
+    ``torch.distributed.tensor`` is loaded (before that nothing can be
+    one), so a plain caller never imports it."""
+    import sys
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+__all__ = ["is_dtensor", "resolve_device"]

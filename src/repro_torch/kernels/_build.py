@@ -138,5 +138,16 @@ def sm_count(device_index) -> int:
         device_index or 0).multi_processor_count
 
 
+def plain(what: str, *tensors) -> None:
+    """Raise if an operand is a DTensor: a launch reads ``data_ptr``, which
+    a DTensor's local shard answers for the whole tensor (the ops' DTensor
+    boundary hands the launchers local shards)."""
+    from .. import is_dtensor
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(f"{what}: a DTensor operand reached a CUDA launch; "
+                        "call the op (kernels.ops), which runs on its local "
+                        "shards")
+
+
 def aligned16(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)

@@ -1,0 +1,145 @@
+"""The kernels' DTensor boundary.
+
+The kernels run on plain tensors.  Given DTensor operands (a step on a mesh
+of more than one rank), ``ops.rmsnorm``, ``ops.flash_attention`` and
+``ops.decode_attention`` redistribute them to the placements the kernel
+needs, run it on each rank's local shards (the CUDA kernel on the card, the
+plain version on the CPU, by the local tensor's device) and wrap its result
+as a DTensor again, through ``torch.distributed.tensor.experimental.local_map``
+with each gradient's placements spelled out.  Only what the kernel
+needs whole is gathered: a row for RMSNorm; the sequence and the head
+dimension for attention, whose batch and heads stay sharded.
+
+Gradients: a weight or KV head that every local shard reads sums its
+gradient over those shards, so it leaves the local kernel as ``Partial()``
+over each mesh dimension that splits them (RMSNorm's ``dw`` over the
+sharded rows; K and V where the KV heads are replicated and each rank reads
+its own group's).  ``shard_calls()`` records each boundary call's local
+operand shapes.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Optional
+
+import torch
+
+from .. import is_dtensor
+
+_CALLS: Optional[list] = None
+
+
+@contextlib.contextmanager
+def shard_calls():
+    """Inside: ``(name, local operand shapes)`` of every boundary call, in
+    call order."""
+    global _CALLS
+    prev, _CALLS = _CALLS, []
+    try:
+        yield _CALLS
+    finally:
+        _CALLS = prev
+
+
+def _note(name: str, *tensors) -> None:
+    if _CALLS is not None:
+        _CALLS.append((name, tuple(tuple(t.shape) for t in tensors)))
+
+
+def _shard_dim(p, ndim: int) -> Optional[int]:
+    """The array dimension a plain ``Shard`` placement splits, else None."""
+    from torch.distributed.tensor import Shard
+    return p.dim % ndim if type(p) is Shard else None
+
+
+def _on_shards(name: str, fn: Callable, mesh, out_placements, operands,
+               in_placements, grad_placements, args=(), pick=None):
+    """``fn(*local operands, *args)`` through ``local_map``: each operand (a
+    DTensor) redistributed to its ``in_placements``, its local shard made
+    contiguous (the kernels take no strides) and its gradient given
+    ``grad_placements``; ``pick`` edits the local operands first; the result
+    wrapped on ``out_placements``."""
+    from torch.distributed.tensor.experimental import local_map
+    for t in operands:
+        if not is_dtensor(t):
+            raise TypeError(f"a plain {type(t).__name__} beside DTensor "
+                            "operands: place every operand on the mesh")
+    n = len(operands)
+
+    def local(*xs):
+        ops = [t.contiguous() for t in xs[:n]]
+        if pick is not None:
+            ops = pick(*ops)
+        _note(name, *ops)
+        return fn(*ops, *xs[n:])
+    none = (None,) * len(args)
+    return local_map(local, (out_placements,),     # one output
+                     tuple(in_placements) + none,
+                     tuple(grad_placements) + none, mesh,
+                     redistribute_inputs=True)(*operands, *args)
+
+
+def rows_on_shards(name: str, fn: Callable, x, weight, *args):
+    """``fn(x, weight, *args)`` of a row-wise op over the last dimension
+    (RMSNorm) on each rank's rows: x keeps every shard of a leading
+    dimension and gathers the last; the weight is whole on every rank, and
+    its gradient is partial over each mesh dimension that splits the
+    rows."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = x.device_mesh
+    last = x.ndim - 1
+    xp = tuple(p if _shard_dim(p, x.ndim) not in (None, last)
+               else Replicate() for p in x.placements)
+    wgrad = tuple(Replicate() if isinstance(p, Replicate) else Partial()
+                  for p in xp)
+    return _on_shards(name, fn, mesh, xp, (x, weight),
+                      (xp, (Replicate(),) * mesh.ndim), (xp, wgrad), args)
+
+
+def _kv_heads(H: int, KV: int, n: int, r: int):
+    """The KV heads of rank ``r``'s ``H / n`` q heads (q head h reads KV head
+    h // (H / KV)): a slice of whole groups, or of one head, where the local
+    q heads make a GQA layout with them; else an index of one KV head per
+    local q head (group 1)."""
+    hl, g = H // n, H // KV
+    heads = [(r * hl + i) // g for i in range(hl)]
+    lo, nkv = heads[0], heads[-1] - heads[0] + 1
+    if hl % nkv == 0 and heads == [lo + i // (hl // nkv) for i in range(hl)]:
+        return slice(lo, lo + nkv)
+    return torch.tensor(heads)
+
+
+def heads_on_shards(name: str, fn: Callable, q, k, v):
+    """``fn(q, k, v)`` of attention (q (B, Sq, H, hd), k / v (B, Skv, KV,
+    hd)) on each rank's batch rows and heads: the batch keeps its shards
+    (the same for q, k and v), the heads keep theirs on one mesh dimension
+    whose size divides H, and everything else is gathered.  KV heads shard
+    with the q heads where that mesh dimension divides KV as well (each
+    rank then holds whole GQA groups); else K and V are whole on that
+    dimension and each rank takes its own q heads' KV heads
+    (``_kv_heads``), with their gradients partial over it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = q.device_mesh
+    H, KV = q.shape[2], k.shape[2]
+    qp, kp, kg, pick = [], [], [], None    # q's, k / v's and their grads'
+    for m, p in enumerate(q.placements):
+        n, d = mesh.size(m), _shard_dim(p, q.ndim)
+        if d == 2 and (Shard(2) in qp or H % n):
+            d = None                           # heads on one mesh dim only
+        if d == 0 or (d == 2 and KV % n == 0):
+            place = (Shard(d),) * 3
+        elif d == 2:
+            place = (Shard(2), Replicate(), Partial())
+            pick = _kv_heads(H, KV, n, mesh.get_local_rank(m))
+        else:
+            place = (Replicate(),) * 3
+        for placements, x in zip((qp, kp, kg), place):
+            placements.append(x)
+
+    def take(ql, kl, vl):
+        sel = pick if isinstance(pick, slice) else pick.to(kl.device)
+        return ql, kl[:, :, sel].contiguous(), vl[:, :, sel].contiguous()
+    qp, kp = tuple(qp), tuple(kp)
+    return _on_shards(name, fn, mesh, qp, (q, k, v), (qp, kp, kp),
+                      (qp, tuple(kg), tuple(kg)),
+                      pick=None if pick is None else take)

@@ -196,6 +196,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          return_lse: bool = False):
     """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd). Returns (B, Sq, H, hd), and
     with ``return_lse`` also the rows' log-sum-exp (B, H, Sq) f32."""
+    _build.plain("flash_attention_cuda", q, k, v)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_cuda: q, k, v must be on one CUDA "
                          f"device (got {q.device}, {k.device}, {v.device})")
@@ -252,6 +253,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     """(dq, dk, dv) of ``flash_attention_cuda`` at ``do``, from its output
     ``o`` and ``lse`` (``return_lse=True``); each like its input."""
     ts = (q, k, v, o, lse, do)
+    _build.plain("flash_attention_bwd_cuda", *ts)
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise ValueError("flash_attention_bwd_cuda: q, k, v, o, lse, do must "
                          "be on one CUDA device (got "

@@ -7,11 +7,20 @@ rows' log-sum-exp beside q, k, v and o, and the backward dispatches the same
 way (``flash_attention_bwd_cuda`` or ``flash_attention_bwd_ref``).  q in
 f32 with k and v in bf16 (a vlm under f32 weights over the bf16 zero image
 state) casts k and v to f32 first, which is what the reference computes in;
-any other mix of types raises."""
+any other mix of types raises.
+
+DTensor operands (a step across ranks) run on each rank's batch rows and
+heads (``.._local.heads_on_shards``), decode attention too: the kernel on
+CUDA shards, the plain versions on CPU ones; the CUDA wrappers refuse a
+DTensor."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
+from ... import is_dtensor
+from .._local import heads_on_shards
 from .kernel import flash_attention_bwd_cuda, flash_attention_cuda
 from .ref import (decode_attention_ref, flash_attention_bwd_ref,
                   flash_attention_ref)
@@ -61,6 +70,11 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal=True, q_offset=0, block_kv=1024,
                     softmax_scale=None, force_ref=False):
+    if is_dtensor(q):
+        return heads_on_shards("flash_attention", functools.partial(
+            flash_attention, causal=causal, q_offset=q_offset,
+            block_kv=block_kv, softmax_scale=softmax_scale,
+            force_ref=force_ref), q, k, v)
     if not q.dtype == k.dtype == v.dtype:
         if not (q.dtype == torch.float32 and k.dtype == v.dtype
                 == torch.bfloat16):
@@ -74,4 +88,8 @@ def flash_attention(q, k, v, *, causal=True, q_offset=0, block_kv=1024,
 def decode_attention(q, k, v, kv_len, softmax_scale=None):
     # Single-query attention is memory-bound and the JAX package has no
     # kernel for it: plain torch on every device.
+    if is_dtensor(q):
+        return heads_on_shards("decode_attention", functools.partial(
+            decode_attention_ref, kv_len=kv_len,
+            softmax_scale=softmax_scale), q, k, v)
     return decode_attention_ref(q, k, v, kv_len, softmax_scale=softmax_scale)

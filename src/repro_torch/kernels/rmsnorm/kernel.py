@@ -37,6 +37,7 @@ BWD_DW_ROWS = 8         # csrc/rmsnorm.cu kDwRows
 
 def rmsnorm_cuda(x: torch.Tensor, weight: torch.Tensor,
                  eps: float = 1e-5) -> torch.Tensor:
+    _build.plain("rmsnorm_cuda", x, weight)
     if not x.is_cuda or weight.device != x.device:
         raise ValueError("rmsnorm_cuda: x and weight must be on one CUDA "
                          f"device (got {x.device}, {weight.device})")
@@ -101,6 +102,7 @@ def rmsnorm_bwd_plan(rows: int, d: int, itemsize: int,
 def rmsnorm_bwd_cuda(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
                      eps: float = 1e-5):
     """(dx, dw) of ``rmsnorm_cuda`` at ``dy``: dx like x, dw like weight."""
+    _build.plain("rmsnorm_bwd_cuda", x, weight, dy)
     if not (x.is_cuda and weight.device == x.device and dy.device == x.device):
         raise ValueError("rmsnorm_bwd_cuda: x, weight and dy must be on one "
                          f"CUDA device (got {x.device}, {weight.device}, "

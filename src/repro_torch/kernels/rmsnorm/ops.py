@@ -7,11 +7,17 @@ same way (``rmsnorm_bwd_cuda`` or ``rmsnorm_bwd_ref``) and recomputes r
 from the saved x and weight.  x in bf16 with an f32 weight (audio's bf16
 frame embeddings under f32 weights) runs the f32 path on ``x.float()`` and
 casts the result to bf16, which is ``rmsnorm_ref``'s arithmetic; its
-gradient comes back as dx in bf16 and dw in f32."""
+gradient comes back as dx in bf16 and dw in f32.
+
+DTensor operands (a step across ranks) run on each rank's rows
+(``.._local.rows_on_shards``): the kernel on a CUDA shard, the plain
+version on a CPU one; the CUDA wrappers refuse a DTensor."""
 from __future__ import annotations
 
 import torch
 
+from ... import is_dtensor
+from .._local import rows_on_shards
 from .kernel import rmsnorm_bwd_cuda, rmsnorm_cuda
 from .ref import gated_rmsnorm_ref, rmsnorm_bwd_ref, rmsnorm_ref
 
@@ -47,6 +53,8 @@ class _RMSNorm(torch.autograd.Function):
 
 
 def rmsnorm(x, weight, eps: float = 1e-5, force_ref: bool = False):
+    if is_dtensor(x):
+        return rows_on_shards("rmsnorm", rmsnorm, x, weight, eps, force_ref)
     if x.dtype == weight.dtype:
         return _RMSNorm.apply(x, weight, eps, force_ref)
     if x.dtype == torch.bfloat16 and weight.dtype == torch.float32:

@@ -107,6 +107,7 @@ def ssd_chunk_cuda(xc: torch.Tensor, ac: torch.Tensor, Bc: torch.Tensor,
     kernel splits exp(cum_i - cum_j) off the diagonal tile at the tile's
     first row into two factors <= 1, which a growing ``ac`` could overflow."""
     tensors = (xc, ac, Bc, Cc)
+    _build.plain("ssd_chunk_cuda", *tensors)
     if not all(t.is_cuda and t.device == xc.device for t in tensors):
         raise ValueError("ssd_chunk_cuda: xc, ac, Bc, Cc must be on one CUDA "
                          f"device (got {[str(t.device) for t in tensors]})")
@@ -228,6 +229,7 @@ def ssd_chunk_bwd_cuda(xc, ac, Bc, Cc, dy, dstates):
     p, n); all f32, contiguous, on one CUDA device.  Returns (dxc, dac, dBc,
     dCc) in the inputs' shapes.  Like the forward it assumes a <= 0."""
     tensors = (xc, ac, Bc, Cc, dy, dstates)
+    _build.plain("ssd_chunk_bwd_cuda", *tensors)
     if not all(t.is_cuda and t.device == xc.device for t in tensors):
         raise ValueError("ssd_chunk_bwd_cuda: xc, ac, Bc, Cc, dy, dstates "
                          "must be on one CUDA device (got "

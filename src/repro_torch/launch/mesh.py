@@ -18,6 +18,13 @@ devices: enough to place and shard tensors, not to compute across ranks.
 A process has one default group, so one that built a local mesh cannot then
 build a production mesh (and the reverse): run such code in its own process.
 
+``make_mesh(shape, axes)`` is the counterpart of ``jax.make_mesh`` on real
+devices: a ``DeviceMesh`` over the default process group that the caller
+started, one rank a device of the mesh.  Its backend is the group's, read
+and never chosen here: gloo for ranks on the CPU and for ranks that share
+one card (NCCL refuses two ranks on one device), NCCL for ranks on cards of
+their own.
+
 ``abstract_mesh`` is a mesh's axis names and sizes alone (no device, no
 group): what the dry-run (``launch.dryrun``) lowers on, any number of them
 in one process.
@@ -84,6 +91,32 @@ def release_local_mesh(mesh) -> bool:
         return False
     dist.destroy_process_group()
     return True
+
+
+def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
+              device="cuda"):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` (the reference's:
+    ("data", "model") or ("pod", "data", "model")) over the default group,
+    whose world size must be the product of ``shape``; rank r holds the
+    row-major r-th device of the mesh."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = resolve_device(device)
+    if len(shape) != len(axes):
+        raise ValueError(f"make_mesh: shape {shape} vs axes {axes}")
+    if not _have_group("local"):
+        raise RuntimeError("make_mesh: no default process group; start one "
+                           "(torch.distributed.init_process_group) on every "
+                           "rank first")
+    world = 1
+    for n in shape:
+        world *= n
+    if dist.get_world_size() != world:
+        raise RuntimeError(f"make_mesh: the default group has "
+                           f"{dist.get_world_size()} ranks; a {tuple(shape)} "
+                           f"mesh needs {world}")
+    return init_device_mesh(dev.type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
 
 
 def make_production_mesh(*, multi_pod: bool = False):

@@ -12,7 +12,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import is_dtensor
 from ..kernels import decode_attention, flash_attention, rmsnorm
+from ..sharding.context import replicated_like
 from .config import ModelConfig
 from .params import p
 
@@ -36,14 +38,15 @@ def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (S,) or (B, S).  Computed in f32."""
+    """x: (B, S, H, hd); positions: (S,) or (B, S).  Computed in f32.  On
+    a DTensor x the angles (the same on every rank) are replicated."""
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
     angles = positions[..., None].float() * freqs            # (..., S, hd/2)
     if angles.dim() == 2:
         angles = angles[None]                                # (1, S, hd/2)
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
+    cos = replicated_like(torch.cos(angles)[:, :, None, :], x)
+    sin = replicated_like(torch.sin(angles)[:, :, None, :], x)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -86,6 +89,74 @@ def mlp_specs(cfg: ModelConfig, layers: int, prefix_axes=("layers",)):
 
 # ----------------------------------------------------------------- compute
 
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  A DTensor table is read on each rank's rows of
+    the vocabulary (its vocab shards kept, the embedding dimension
+    gathered) for the tokens of its batch rows: a token outside the rank's
+    rows reads zeros, so the result is partial over the vocab's mesh
+    dimensions and their sum (the next ``constrain``) is exact.  The
+    table's gradient is partial over the mesh dimensions that split the
+    batch.  (DTensor's own sharding of the index fails its backward in
+    torch 2.11: ``index_put``'s rule asserts on a ``Shard(-1)``.)"""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = table.device_mesh
+
+    def first_dim(p, ndim):        # a Shard of dimension 0
+        return isinstance(p, Shard) and p.dim % ndim == 0
+    tp = tuple(p if first_dim(p, table.ndim) else Replicate()
+               for p in table.placements)
+    kp = tuple(Replicate() if isinstance(t, Shard)
+               or not first_dim(p, tokens.ndim) else p
+               for t, p in zip(tp, tokens.placements))
+    out = tuple(Partial() if isinstance(t, Shard) else k
+                for t, k in zip(tp, kp))
+    grad = tuple(Partial() if isinstance(k, Shard) else t
+                 for t, k in zip(tp, kp))
+    local = table.redistribute(mesh, tp).to_local(grad_placements=grad)
+    toks = tokens.redistribute(mesh, kp).to_local()
+    _, (lo, _) = compute_local_shape_and_global_offset(table.shape, mesh, tp)
+    idx = toks.long() - lo
+    hit = (idx >= 0) & (idx < local.shape[0])
+    rows = local[idx.clamp(0, local.shape[0] - 1)]
+    rows = torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                         device=rows.device))
+    return DTensor.from_local(rows, mesh, out, run_check=False)
+
+
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd).  A DTensor whose flat head
+    dimension is split by a mesh dimension that does not divide ``n`` (the
+    rules shard ``n * hd`` columns, which may cut a head: 2 KV heads over 4
+    ranks) is first gathered along that mesh dimension."""
+    B, S = t.shape[:2]
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = t.device_mesh
+        keep = tuple(Replicate() if isinstance(p, Shard) and p.dim % 3 == 2
+                     and n % mesh.size(m) else p
+                     for m, p in enumerate(t.placements))
+        if keep != tuple(t.placements):
+            t = t.redistribute(mesh, keep)
+    return t.reshape(B, S, n, hd)
+
+
+def write_cache(cache: torch.Tensor, start: int, new: torch.Tensor) -> None:
+    """``cache[:, start:start + S] = new`` in the cache's type, in place.  A
+    DTensor cache (batch and KV heads sharded) takes ``new`` at its own
+    placements and each rank writes its local shard."""
+    if is_dtensor(cache):
+        if any(getattr(p, "dim", None) == 1 for p in cache.placements):
+            raise NotImplementedError("a KV cache sharded along its "
+                                      "sequence: write_cache needs it whole")
+        new = new.redistribute(cache.device_mesh, cache.placements)
+        cache, new = cache.to_local(), new.to_local()
+    cache[:, start:start + new.shape[1]] = new.to(cache.dtype)
+
+
 def attention(x, lp, cfg: ModelConfig, *, positions, cache=None,
               cache_len=None, force_ref: bool = False):
     """Pre-norm attention sublayer.
@@ -107,9 +178,9 @@ def attention(x, lp, cfg: ModelConfig, *, positions, cache=None,
         q = q + lp["bq"]
         k = k + lp["bk"]
         v = v + lp["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    q = split_heads(q, H, hd)
+    k = split_heads(k, KV, hd)
+    v = split_heads(v, KV, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, lp["q_norm"], cfg.norm_eps, force_ref=force_ref)
         k = rmsnorm(k, lp["k_norm"], cfg.norm_eps, force_ref=force_ref)
@@ -120,8 +191,8 @@ def attention(x, lp, cfg: ModelConfig, *, positions, cache=None,
     else:
         k_cache, v_cache = cache
         start = min(max(int(cache_len), 0), k_cache.shape[1] - S)
-        k_cache[:, start:start + S] = k.to(k_cache.dtype)
-        v_cache[:, start:start + S] = v.to(v_cache.dtype)
+        write_cache(k_cache, start, k)
+        write_cache(v_cache, start, v)
         attn = decode_attention(q, k_cache, v_cache, int(cache_len) + S)
     out = matmul(attn.reshape(B, S, H * hd), lp["wo"])
     return out, cache

@@ -34,11 +34,12 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import is_dtensor
 from ..kernels import flash_attention, rmsnorm
-from ..sharding.context import constrain
+from ..sharding.context import carried, constrain, replicated_like, whole
 from .config import ModelConfig
-from .layers import (attention, attention_specs, matmul, mlp_specs, promoted,
-                     swiglu)
+from .layers import (attention, attention_specs, embed_rows, matmul, mlp_specs,
+                     promoted, swiglu)
 from .moe import moe_ffn, moe_specs
 from .params import p, tree_abstract, tree_init
 from .ssm import init_ssm_state, mamba_block, ssm_specs
@@ -108,9 +109,13 @@ def _save_mm(ctx, op, *args, **kwargs):
 
 
 def _remat(fn, remat: str):
-    """``fn`` under the per-layer checkpoint that ``remat`` names."""
+    """``fn`` under the per-layer checkpoint that ``remat`` names.  The
+    checkpointed function carries the sharding context it was wrapped in
+    (``carried``): the recompute runs in autograd's thread, where the
+    context is unset, and must constrain as the forward did."""
     if remat == "none":
         return fn
+    fn = carried(fn)
     if remat == "full":
         return functools.partial(checkpoint, fn, use_reentrant=False)
     if remat == "dots":
@@ -186,7 +191,7 @@ def _embed(params, tokens, inputs_embeds):
     longer sequence is not)."""
     if inputs_embeds is not None:
         return inputs_embeds.to(torch.bfloat16).contiguous()
-    return params["embed"][tokens]
+    return embed_rows(params["embed"], tokens)
 
 
 # ------------------------------------------------------------------ forward
@@ -260,7 +265,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     vlm also img_kv, a (k, v) pair of (n_ca, B, n_image_tokens, KV, hd):
     ``_image_kv`` of ``img_embeds`` when both they and ``params`` are given,
     else bf16 zeros.  ``pos`` is a Python int shared by the whole batch, as
-    the JAX scalar is."""
+    the JAX scalar is (on a mesh of more than one rank, a replicated 0-d
+    DTensor: ``decode_state_shardings``)."""
     _require_family(cfg)
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     state: Dict[str, Any] = {"pos": 0}
@@ -286,6 +292,17 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     return state
 
 
+def _positions(pos):
+    """(this step's position as an int, the state's next ``pos``): an int
+    or 0-d tensor gives ``pos + 1`` as an int, a 0-d DTensor a replicated
+    one."""
+    if not is_dtensor(pos):
+        return int(pos), int(pos) + 1
+    now = int(pos.to_local())
+    return now, replicated_like(torch.tensor(now + 1, dtype=torch.int32,
+                                             device=pos.device), pos)
+
+
 def decode_step(params, cfg: ModelConfig, state, tokens=None, *,
                 inputs_embeds=None,
                 force_ref: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -303,10 +320,10 @@ def decode_step(params, cfg: ModelConfig, state, tokens=None, *,
     JAX runs ``flash_attention`` there."""
     _require_family(cfg)
     x = _embed(params, tokens, inputs_embeds)
-    pos = int(state["pos"])
+    pos, new_pos = _positions(state["pos"])
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     blocks = params["blocks"]
-    new_state = dict(state, pos=pos + 1)
+    new_state = dict(state, pos=new_pos)
     if cfg.family in ("dense", "audio", "vlm", "moe"):
         cross = _layers(params["cross"]) if cfg.family == "vlm" else []
         for i, lp in enumerate(_layers(blocks)):
@@ -347,8 +364,10 @@ def decode_step(params, cfg: ModelConfig, state, tokens=None, *,
 # ------------------------------------------------------------------- loss
 
 def lm_loss(logits, labels, aux=None, aux_weight: float = 0.01):
-    """Token cross-entropy (f32) + optional MoE aux loss."""
-    logits = logits.float()
+    """Token cross-entropy (f32) + optional MoE aux loss.  Vocab-sharded
+    DTensor logits are gathered along the vocab first (in their own type),
+    so the log-sum-exp and the label's column are local to each row."""
+    logits = whole(logits, -1).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     loss = (logz - gold).mean()

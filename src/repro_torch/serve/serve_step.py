@@ -5,10 +5,15 @@ and shardings.
 Counterpart of ``repro.serve.serve_step``.  ``make_prefill`` and
 ``make_serve_step`` take ``(mesh, rules)`` as the reference does and run
 inside ``sharding_ctx`` on the mesh's device; a device in the mesh's place
-builds the unmeshed step on that device.  Rules without a mesh, and a mesh
-of more than one device, raise (``sharding.context.step_target``), except
-for the dry-run's steps (``trace=True``), which take any mesh and run on
-``meta`` tensors only.  ``lower_prefill`` and ``lower_serve_step`` return
+builds the unmeshed step on that device.  Rules without a mesh raise
+(``sharding.context.step_target``).  On a ``DeviceMesh`` of more than one
+rank (a dense model) the params are DTensors placed by the rules
+(``sharding.distribute_tree``); each rank passes the same global tokens and
+decode state, and the step distributes them (``sharding.distribute_inputs``,
+``decode_state_shardings``; a state's DTensor leaves stay as they are, so
+the returned state is updated in place from the first step on).  The
+dry-run's steps (``trace=True``) take any mesh and run on ``meta`` tensors
+only.  ``lower_prefill`` and ``lower_serve_step`` return
 those steps with their abstract inputs (``roofline.trace.Lowered``).
 """
 from __future__ import annotations
@@ -22,9 +27,10 @@ from ..models.params import tree_axes
 from ..models.transformer import (abstract_params, build_specs, decode_step,
                                   forward, init_decode_state)
 from ..roofline.trace import Lowered
-from ..sharding import (LogicalRules, logical_sharding, sharding_ctx,
-                        shardings_for)
-from ..sharding.context import step_target, traced_input, traced_inputs
+from ..sharding import (LogicalRules, distribute_inputs, distribute_tree,
+                        logical_sharding, sharding_ctx, shardings_for)
+from ..sharding.context import (multi_rank, require_distributed,
+                                step_target, traced_input, traced_inputs)
 
 CACHE_AXES = {
     "pos": (),
@@ -75,12 +81,40 @@ def decode_state_shardings(cfg: ModelConfig, shape: ShapeSpec, mesh,
             for k, v in structs.items()}
 
 
-def _mover(dev, trace: bool):
-    """The step's input mover: to the device, or (a traced step) checked to
-    be ``meta`` and passed as it is."""
-    if trace:
-        return traced_input
-    return lambda t: None if t is None else torch.as_tensor(t, device=dev)
+def _placer(dev, trace: bool, mesh=None, rules=None):
+    """The step's input placer, ``place(**inputs) -> inputs``: each to the
+    device (and, across ranks, placed by ``distribute_inputs``), ``None``
+    kept; or (a traced step) each checked to be ``meta`` and passed as it
+    is."""
+    def place(**inputs):
+        if trace:
+            return {k: traced_input(v) for k, v in inputs.items()}
+        out = {k: torch.as_tensor(v, device=dev)
+               for k, v in inputs.items() if v is not None}
+        if mesh is not None:
+            out = distribute_inputs(out, mesh, rules)
+        return {k: out.get(k) for k in inputs}
+    return place
+
+
+def _grad_off(across: bool):
+    """``torch.inference_mode()``; across ranks ``torch.no_grad()``:
+    DTensor's view ops (``unbind`` of the stacked layers) cannot set an
+    inference tensor's version counter."""
+    return torch.no_grad() if across else torch.inference_mode()
+
+
+def distribute_state(cfg: ModelConfig, state, mesh,
+                     rules: Optional[LogicalRules] = None):
+    """A decode state (``init_decode_state``'s) placed by
+    ``decode_state_shardings`` at its own batch and length; DTensor
+    leaves are redistributed, so a placed state passes unchanged."""
+    lead = state["k"] if "k" in state else state["conv"]
+    B = lead.shape[1]
+    S = state["k"].shape[2] if "k" in state else 1
+    shard = decode_state_shardings(cfg, ShapeSpec("state", S, B, "decode"),
+                                   mesh, rules)
+    return distribute_tree(state, {k: shard[k] for k in state})
 
 
 def make_serve_step(cfg: ModelConfig, mesh="cuda",
@@ -90,15 +124,20 @@ def make_serve_step(cfg: ModelConfig, mesh="cuda",
     (logits, state)``; tokens (B, 1) or inputs_embeds (B, 1, d), as arrays
     or tensors, moved to the device.  ``trace`` builds the dry-run's step
     (``lower_serve_step``): ``meta`` tensors only, on any mesh."""
-    mesh, dev = step_target(mesh, rules, trace)
-    on = _mover(dev, trace)
+    mesh, dev = step_target(mesh, rules, trace, cfg.family)
+    across = multi_rank(mesh) and not trace
+    place = _placer(dev, trace, mesh if across else None, rules)
 
     def serve_step(params, state, tokens=None, inputs_embeds=None):
         if trace:
             traced_inputs((params, state))
-        with torch.inference_mode(), sharding_ctx(mesh, rules):
-            return decode_step(params, cfg, state, on(tokens),
-                               inputs_embeds=on(inputs_embeds),
+        elif across:
+            require_distributed(params)
+            state = distribute_state(cfg, state, mesh, rules)
+        x = place(tokens=tokens, inputs_embeds=inputs_embeds)
+        with _grad_off(across), sharding_ctx(mesh, rules):
+            return decode_step(params, cfg, state, x["tokens"],
+                               inputs_embeds=x["inputs_embeds"],
                                force_ref=force_ref)
     return serve_step
 
@@ -110,16 +149,21 @@ def make_prefill(cfg: ModelConfig, mesh="cuda",
     -> logits``; tokens (B, S) or inputs_embeds (B, S, d), and a vlm's
     img_embeds (B, n_image_tokens, d).  ``trace`` as in
     ``make_serve_step``."""
-    mesh, dev = step_target(mesh, rules, trace)
-    on = _mover(dev, trace)
+    mesh, dev = step_target(mesh, rules, trace, cfg.family)
+    across = multi_rank(mesh) and not trace
+    place = _placer(dev, trace, mesh if across else None, rules)
 
     def prefill(params, tokens=None, inputs_embeds=None, img_embeds=None):
         if trace:
             traced_inputs(params)
-        with torch.inference_mode(), sharding_ctx(mesh, rules):
-            logits, _ = forward(params, cfg, on(tokens),
-                                inputs_embeds=on(inputs_embeds),
-                                img_embeds=on(img_embeds),
+        elif across:
+            require_distributed(params)
+        x = place(tokens=tokens, inputs_embeds=inputs_embeds,
+                  img_embeds=img_embeds)
+        with _grad_off(across), sharding_ctx(mesh, rules):
+            logits, _ = forward(params, cfg, x["tokens"],
+                                inputs_embeds=x["inputs_embeds"],
+                                img_embeds=x["img_embeds"],
                                 remat="none", force_ref=force_ref)
         return logits
     return prefill

@@ -1,8 +1,10 @@
 """Logical-axis sharding rules and the ambient sharding context (torch);
 counterpart of ``repro.sharding``."""
 from .context import constrain, sharding_ctx
-from .rules import (LogicalRules, DEFAULT_RULES, apply_rules, logical_sharding,
+from .rules import (LogicalRules, DEFAULT_RULES, INPUT_AXES, apply_rules,
+                    distribute_inputs, distribute_tree, logical_sharding,
                     shardings_for)
 
-__all__ = ["DEFAULT_RULES", "LogicalRules", "apply_rules", "constrain",
+__all__ = ["DEFAULT_RULES", "INPUT_AXES", "LogicalRules", "apply_rules",
+           "constrain", "distribute_inputs", "distribute_tree",
            "logical_sharding", "sharding_ctx", "shardings_for"]

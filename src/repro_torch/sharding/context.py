@@ -8,14 +8,22 @@ passes through unchanged as long as every mesh axis has size 1 (a one-device
 mesh: the placements could only say "replicated").  Outside a context it is
 a no-op (CPU tests, plain eager use).
 
-A plain tensor under a mesh of more than one device raises, and so do the
-step builders given such a mesh: executing a step across ranks (DTensor
-params through every op and kernel boundary) is not part of the port yet.
-A step built with ``trace=True`` (the dry-run's, ``roofline.trace``) takes
-any mesh but runs on ``meta`` tensors only: there a plain tensor passes
-``constrain`` unchanged, and each call is recorded (``recording``) for the
-roofline's collective estimate.  A CPU or CUDA tensor given to such a step
-still raises.
+On a ``DeviceMesh`` of more than one rank (``launch.mesh.make_mesh``) the
+steps run with DTensor params, batch and decode state, and a plain tensor
+reaching ``constrain`` raises: a step's inputs arrive distributed
+(``sharding.rules.distribute_tree``).  Only the dense family runs so; the
+others raise naming their ROADMAP item.  A mesh without ranks (a stand-in
+whose ``shape`` is a dict, ``launch.mesh.abstract_mesh``, or a
+``DeviceMesh`` over torch's fake group) executes nothing: given to an
+untraced step builder it raises.  A step built with ``trace=True`` (the
+dry-run's, ``roofline.trace``) takes any mesh but runs on ``meta`` tensors
+only: there a plain tensor passes ``constrain`` unchanged, and each call is
+recorded (``recording``) for the roofline's collective estimate.  A CPU or
+CUDA tensor given to such a step still raises.
+
+``carried`` runs a function under the context current when it was made,
+in whatever thread calls it: a remat recompute runs in autograd's thread
+(the card's device thread), where the context variables are unset.
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from .. import resolve_device
+from .. import is_dtensor, resolve_device
 from .rules import (LogicalRules, NamedSharding, apply_rules, mesh_axes,
                     mesh_size)
 
@@ -33,8 +41,10 @@ _CTX: contextvars.ContextVar = contextvars.ContextVar("shard_ctx",
                                                       default=None)
 _RECORD: contextvars.ContextVar = contextvars.ContextVar("shard_record",
                                                          default=None)
-_MULTI_RANK = ("executing a step across ranks is not ported (ROADMAP.md "
-               "Queue 1, multi-rank execution)")
+# The families a mesh of more than one rank does not run yet, by ROADMAP
+# Queue 1 item.
+_NOT_ACROSS_RANKS = {"ssm": "5b", "hybrid": "5b", "moe": "5c", "vlm": "5d",
+                     "audio": "5d"}
 
 
 @contextlib.contextmanager
@@ -74,25 +84,57 @@ def constrain(x: torch.Tensor, names: Sequence[Optional[str]]
                       "grad": x.requires_grad,
                       "backward": torch._C._current_graph_task_id() != -1})
     mesh, rules = ctx
-    from torch.distributed.tensor import DTensor
-    if isinstance(x, DTensor):
+    if is_dtensor(x):
         spec = apply_rules(names, x.shape, mesh, rules)
-        return x.redistribute(mesh, NamedSharding(mesh, spec).placements)
+        y = x.redistribute(mesh, NamedSharding(mesh, spec).placements)
+        if calls is not None:
+            calls[-1]["placements"] = tuple(map(repr, y.placements))
+        return y
     if mesh_size(mesh) == 1 or x.device.type == "meta":
         return x
-    raise NotImplementedError(
+    raise TypeError(
         f"constrain: a plain tensor of shape {tuple(x.shape)} under a mesh "
-        f"of {mesh_size(mesh)} devices {mesh_axes(mesh)}; {_MULTI_RANK}")
+        f"of {mesh_size(mesh)} devices {mesh_axes(mesh)}: a step's inputs "
+        "arrive as DTensors (sharding.rules.distribute_tree), and so does "
+        "everything computed from them")
+
+
+def has_ranks(mesh) -> bool:
+    """Whether ``mesh`` is a ``DeviceMesh`` over a real process group (not a
+    stand-in, an abstract mesh, or the fake group's)."""
+    if not hasattr(mesh, "get_group"):
+        return False
+    import torch.distributed as dist
+    return dist.get_backend(mesh.get_group(0)) != "fake"
+
+
+def require_distributed(params) -> None:
+    """Raise unless every param is a DTensor (a step across ranks)."""
+    from ..models.params import tree_leaves
+    plain = [".".join(p) for p, t in tree_leaves(params)
+             if not is_dtensor(t)]
+    if plain:
+        raise TypeError(
+            f"a step across ranks takes DTensor params; {plain[:3]} are "
+            "plain: place them with sharding.distribute_tree(params, "
+            "shardings_for(build_specs(cfg), mesh, rules))")
+
+
+def multi_rank(mesh) -> bool:
+    """Whether a step on ``mesh`` runs across ranks (DTensor inputs)."""
+    return mesh is not None and not isinstance(mesh, (str, torch.device)) \
+        and mesh_size(mesh) > 1
 
 
 def step_target(mesh, rules: Optional[LogicalRules] = None,
-                trace: bool = False):
+                trace: bool = False, family: Optional[str] = None):
     """``(mesh or None, device)`` of a step builder's ``mesh`` argument: a
     device (a name, a ``torch.device``, or ``None`` for ``cuda``) gives the
-    unmeshed step on it; a one-device mesh, the meshed step on the mesh's
-    device type.  Rules without a mesh, and a mesh of more than one
-    device, raise.  ``trace`` gives a step traced on ``meta`` (on any
-    mesh), whose inputs go through ``traced_input``."""
+    unmeshed step on it; a mesh, the meshed step on the mesh's device type.
+    Rules without a mesh raise.  A mesh of more than one device runs a
+    dense ``family`` (any other raises, naming its ROADMAP item) and must
+    have ranks (``has_ranks``).  ``trace`` gives a step traced on ``meta``
+    (on any mesh, any family), whose inputs go through ``traced_input``."""
     if mesh is None or isinstance(mesh, (str, torch.device)):
         if rules is not None:
             raise ValueError("rules without a mesh: pass a mesh "
@@ -102,22 +144,69 @@ def step_target(mesh, rules: Optional[LogicalRules] = None,
         return mesh, resolve_device("meta")
     n = mesh_size(mesh)
     if n != 1:
-        raise NotImplementedError(
-            f"a mesh of {n} devices {mesh_axes(mesh)}: {_MULTI_RANK}; "
-            "pass a one-device mesh (launch.mesh.make_local_mesh)")
+        item = _NOT_ACROSS_RANKS.get(family)
+        if item is not None:
+            raise NotImplementedError(
+                f"the {family} family on a mesh of {n} devices "
+                f"{mesh_axes(mesh)}: not ported (ROADMAP.md Queue 1, item "
+                f"{item}); only dense models run across ranks")
+        if not has_ranks(mesh):
+            raise NotImplementedError(
+                f"a mesh of {n} devices {mesh_axes(mesh)} without ranks "
+                f"({type(mesh).__name__}) executes nothing: build the step "
+                "with trace=True, or pass a DeviceMesh over a real process "
+                "group (launch.mesh.make_mesh)")
     return mesh, resolve_device(getattr(mesh, "device_type", None) or "cuda")
 
 
 def traced_input(t):
     """A traced step's input as it is: a ``meta`` tensor, or ``None``.  A
-    tensor with data raises: a traced step executes nothing, and executing
-    on a mesh of more than one device is not ported."""
+    tensor with data raises: a traced step executes nothing."""
     if t is None or (isinstance(t, torch.Tensor) and t.device.type == "meta"):
         return t
     where = t.device if isinstance(t, torch.Tensor) else type(t).__name__
     raise NotImplementedError(
         f"a traced step takes meta tensors, not {where}: it executes "
-        f"nothing; {_MULTI_RANK}")
+        "nothing; build the step without trace to run it")
+
+
+def carried(fn):
+    """``fn`` run under the sharding context and recording current now,
+    wherever it is called from."""
+    ctx, calls = _CTX.get(), _RECORD.get()
+
+    def run(*args, **kwargs):
+        tokens = _CTX.set(ctx), _RECORD.set(calls)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _RECORD.reset(tokens[1])
+            _CTX.reset(tokens[0])
+    return run
+
+
+def replicated_like(t: torch.Tensor, like) -> torch.Tensor:
+    """``t`` (the same on every rank: a table of positions, RoPE's angles)
+    as a replicated DTensor on ``like``'s mesh when ``like`` is a DTensor,
+    else ``t`` as it is."""
+    if not is_dtensor(like):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
+def whole(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """A DTensor ``t`` with dimension ``dim`` gathered on every rank (its
+    other shards kept), a plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    d = dim % t.ndim
+    keep = tuple(Replicate() if isinstance(p, Shard) and p.dim % t.ndim == d
+                 else p for p in t.placements)
+    return t.redistribute(t.device_mesh, keep)
 
 
 def traced_inputs(tree) -> None:

@@ -17,7 +17,9 @@ the dict.  A spec is a ``P``: per array dimension ``None``, one mesh axis
 name or a tuple of them, as JAX's ``PartitionSpec`` holds it.
 ``NamedSharding(mesh, spec).placements`` gives DTensor's placements: per
 mesh dimension ``Shard(d)`` for the array dimension ``d`` it shards, else
-``Replicate()``.
+``Replicate()``.  ``distribute_tree`` places a tree by such shardings, as
+``jax.device_put(tree, shardings)`` does; ``distribute_inputs`` places a
+step's inputs by their logical axes (``INPUT_AXES``).
 """
 from __future__ import annotations
 
@@ -172,3 +174,57 @@ def shardings_for(specs, mesh, rules: Optional[LogicalRules] = None):
     """Tree of ParamSpec → tree of NamedSharding."""
     return tree_map(lambda s: logical_sharding(s.axes, s.shape, mesh, rules),
                     specs)
+
+
+def distribute_tree(tree, shardings):
+    """Each tensor leaf of ``tree`` (nested dicts, tuples, NamedTuples)
+    as a DTensor on its ``NamedSharding``'s mesh and placements; a Python
+    number becomes a 0-d tensor first (a decode state's ``pos``: int32), a
+    DTensor is redistributed, ``None`` stays.  Every rank holds the same
+    full tensor (the seed's weights, the global batch) and keeps its own
+    piece of it (``src_data_rank=None``): nothing is broadcast.  The
+    result never shares memory with ``tree`` (an update in place of a
+    distributed param leaves the caller's tensor as it was)."""
+    import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        parts = [distribute_tree(v, s) for v, s in zip(tree, shardings)]
+        return type(tree)(*parts) if hasattr(tree, "_fields") \
+            else tuple(parts)
+    if tree is None:
+        return None
+    mesh, placements = shardings.mesh, shardings.placements
+    if isinstance(tree, DTensor):
+        return tree.redistribute(mesh, placements)
+    if not isinstance(tree, torch.Tensor):
+        tree = torch.tensor(tree, dtype=torch.int32)
+    tree = tree.to(mesh.device_type)
+    out = distribute_tensor(tree, mesh, placements, src_data_rank=None)
+    local = out.to_local()
+    if local.untyped_storage().data_ptr() == \
+            tree.untyped_storage().data_ptr():
+        # a replicated (or leading-dim) piece is a view of the caller's
+        # tensor: own it, as device_put's result does
+        out = DTensor.from_local(local.clone(), mesh, placements,
+                                 run_check=False, shape=out.shape,
+                                 stride=out.stride())
+    return out
+
+
+# the logical axes of a step's inputs, by name (the reference's
+# batch_shardings)
+INPUT_AXES = {
+    "labels": ("batch", "seq"),
+    "tokens": ("batch", "seq"),
+    "inputs_embeds": ("batch", "seq", "act_embed"),
+    "img_embeds": ("batch", "seq", "act_embed"),
+}
+
+
+def distribute_inputs(inputs, mesh, rules: Optional[LogicalRules] = None):
+    """A step's inputs by name (the same global tensors on every rank) as
+    DTensors placed by ``INPUT_AXES`` under ``rules``."""
+    return distribute_tree(inputs, {k: logical_sharding(
+        INPUT_AXES[k], v.shape, mesh, rules) for k, v in inputs.items()})

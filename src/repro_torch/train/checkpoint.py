@@ -15,7 +15,13 @@ fields in order) under JAX's ``keystr`` keys (``[0]['embed']``,
 bf16; the upcast is lossless) and cast back on restore, as the reference
 does.  ``restore`` places each leaf by its sharding where given: on a
 one-device mesh a plain tensor on the mesh's device, on a larger one a
-DTensor with the sharding's placements.
+DTensor with the sharding's placements, each rank keeping its own piece
+of the file's full array.
+
+A tree of DTensors (a step across ranks) is saved by every rank: each leaf's
+``full_tensor()`` is a collective, rank 0 alone writes the files, and the
+ranks meet at a barrier once they are written (``save``, or ``wait`` after
+``save_async``), so a restore on any rank finds them.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import is_dtensor
 from ..sharding.rules import mesh_size
 
 
@@ -60,8 +67,11 @@ def _unflatten_like(tree, leaves):
 
 
 def _to_host(leaf) -> np.ndarray:
-    """A tensor (or number) as NumPy on the host; bf16 as f32 (lossless)."""
+    """A tensor (or number) as NumPy on the host; bf16 as f32 (lossless); a
+    DTensor whole (a collective: every rank calls it)."""
     if isinstance(leaf, torch.Tensor):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return np.asarray(leaf)
@@ -76,7 +86,23 @@ def _place(t: torch.Tensor, sharding) -> torch.Tensor:
     if mesh_size(mesh) == 1:
         return t
     from torch.distributed.tensor import distribute_tensor
-    return distribute_tensor(t, mesh, sharding.placements)
+    return distribute_tensor(t, mesh, sharding.placements,
+                             src_data_rank=None)
+
+
+def _across_ranks(tree) -> bool:
+    """Whether ``tree`` holds a DTensor (every rank saves it)."""
+    return any(is_dtensor(v) for _, v in _flatten_with_paths(tree))
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    dist.barrier()
 
 
 def _dtype_name(leaf) -> str:
@@ -91,17 +117,31 @@ class CheckpointManager:
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._pending: Optional[threading.Thread] = None
+        self._meet = False          # ranks meet at wait() (save_async)
 
     # ------------------------------------------------------------- save
     def save(self, step: int, tree: Any, extra: Optional[dict] = None) -> Path:
+        """Write ``tree`` as step ``step``; returns its directory.  Across
+        ranks every rank calls it and returns once rank 0 has written."""
         self.wait()
-        return self._write(step, self._snapshot(tree), extra)
+        host = self._snapshot(tree)
+        final = self.dir / f"step_{step:08d}"
+        if not _across_ranks(tree):
+            return self._write(step, host, extra)
+        if _rank() == 0:
+            self._write(step, host, extra)
+        _barrier()
+        return final
 
     def save_async(self, step: int, tree: Any,
                    extra: Optional[dict] = None) -> None:
-        """Snapshot to host, then write on a background thread."""
+        """Snapshot to host, then write on a background thread (across
+        ranks: rank 0's; every rank then meets the others in ``wait``)."""
         self.wait()
         host = self._snapshot(tree)                 # device -> host copy
+        self._meet = _across_ranks(tree)
+        if self._meet and _rank() != 0:
+            return
         t = threading.Thread(target=self._write, args=(step, host, extra),
                              daemon=True)
         t.start()
@@ -111,6 +151,9 @@ class CheckpointManager:
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._meet:
+            self._meet = False
+            _barrier()
 
     @staticmethod
     def _snapshot(tree) -> List[Tuple[str, str, np.ndarray]]:

@@ -7,7 +7,10 @@ arithmetic in the same order.  Parameter trees are nested dicts, walked in
 JAX's flatten order (keys sorted).  ``apply_updates`` updates the params and
 moments in place under ``torch.no_grad()`` (the JAX version returns new
 arrays; a copy would double the optimizer's memory traffic) and returns
-them.
+them.  DTensor params (a step across ranks) get DTensor moments at their
+placements and a replicated step; their grads arrive at the params'
+placements, so the update is local to each shard, and ``global_norm`` sums
+every shard's squares (a collective), as JAX's norm of sharded arrays does.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from ..models.params import tree_leaves
+from ..sharding.context import replicated_like
 
 
 @dataclass(frozen=True)
@@ -68,10 +72,12 @@ class AdamWState(NamedTuple):
 
 def init_state(params) -> AdamWState:
     def zeros(a):
-        return torch.zeros(a.shape, dtype=torch.float32, device=a.device)
-    device = next(leaf for _, leaf in tree_leaves(params)).device
-    return AdamWState(torch.zeros((), dtype=torch.int32, device=device),
-                      tree_map(zeros, params), tree_map(zeros, params))
+        return torch.zeros_like(a, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
+    leaf = next(leaf for _, leaf in tree_leaves(params))
+    step = replicated_like(torch.zeros((), dtype=torch.int32,
+                                       device=leaf.device), leaf)
+    return AdamWState(step, tree_map(zeros, params), tree_map(zeros, params))
 
 
 def abstract_state(param_structs) -> AdamWState:
@@ -93,9 +99,10 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    total = 0
+    total = None
     for _, g in tree_leaves(tree):
-        total = total + torch.sum(torch.square(g.float()))
+        sq = torch.sum(torch.square(g.float()))
+        total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 

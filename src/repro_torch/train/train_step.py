@@ -5,8 +5,14 @@ Counterpart of ``repro.train.train_step``.  PyTorch runs eagerly, so the
 returned step is a plain function.  Given a ``mesh`` (and ``rules``), the
 step runs inside ``sharding_ctx`` with the batch on the mesh's device; on a
 one-device mesh the params and moments stay plain tensors and every result
-equals the unmeshed step's; rules without a mesh, and a mesh of more than
-one device, raise (``sharding.context.step_target``).  Grads come from
+equals the unmeshed step's; rules without a mesh raise
+(``sharding.context.step_target``).  On a ``DeviceMesh`` of more than one
+rank (a dense model) the params and moments are DTensors placed by the
+rules (``sharding.distribute_tree`` of ``shardings_for``, ``init_state``),
+every rank passes the same global batch and the step distributes it
+(``sharding.distribute_inputs``, as ``batch_shardings`` places it); each
+grad is brought to its param's placements before AdamW (the data axis's
+reduction).  Grads come from
 ``torch.autograd.grad`` on detached views of the params (nothing lands in
 ``.grad``); a param the loss does not reach (audio's ``embed`` under
 ``inputs_embeds``) gets zeros, as ``jax.value_and_grad`` gives it.  With
@@ -22,14 +28,16 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .. import is_dtensor
 from ..models.config import ModelConfig, ShapeSpec
 from ..models.params import tree_axes, tree_leaves, tree_unflatten
 from ..models.transformer import (abstract_params, build_specs, forward,
                                   lm_loss, lm_loss_chunked)
 from ..roofline.trace import Lowered
-from ..sharding import (LogicalRules, logical_sharding, sharding_ctx,
-                        shardings_for)
-from ..sharding.context import step_target, traced_inputs
+from ..sharding import (INPUT_AXES, LogicalRules, distribute_inputs,
+                        logical_sharding, sharding_ctx, shardings_for)
+from ..sharding.context import (multi_rank, require_distributed,
+                                step_target, traced_inputs)
 from ..sharding.rules import NamedSharding, P
 from .optimizer import (AdamWConfig, AdamWState, abstract_state,
                         apply_updates, tree_map)
@@ -59,14 +67,9 @@ def batch_structs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
 def batch_shardings(cfg: ModelConfig, shape: ShapeSpec, mesh,
                     rules: Optional[LogicalRules] = None):
     structs = batch_structs(cfg, shape)
-    names = {
-        "labels": ("batch", "seq"),
-        "tokens": ("batch", "seq"),
-        "inputs_embeds": ("batch", "seq", "act_embed"),
-        "img_embeds": ("batch", "seq", "act_embed"),
-    }
-    return {k: logical_sharding(names[k], v.shape, mesh, rules)
+    return {k: logical_sharding(INPUT_AXES[k], v.shape, mesh, rules)
             for k, v in structs.items()}
+
 
 
 def make_value_and_grad(cfg: ModelConfig, *, remat: str = "full",
@@ -99,6 +102,8 @@ def make_value_and_grad(cfg: ModelConfig, *, remat: str = "full",
             grads = torch.autograd.grad(loss, req, allow_unused=True)
         grads = [torch.zeros_like(r) if g is None else g
                  for g, r in zip(grads, req)]
+        grads = [g.redistribute(r.device_mesh, r.placements)
+                 if is_dtensor(g) else g for g, r in zip(grads, req)]
         return loss.detach(), tree_unflatten(zip(paths, grads))
     return value_and_grad
 
@@ -116,7 +121,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None,
     (``lower_train_step``): ``meta`` tensors only, on any mesh."""
     dev = None
     if mesh is not None or rules is not None or trace:
-        mesh, dev = step_target(mesh, rules, trace)
+        mesh, dev = step_target(mesh, rules, trace, cfg.family)
+    across = multi_rank(mesh) and not trace
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     value_and_grad = make_value_and_grad(cfg, remat=remat,
@@ -124,9 +130,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None,
 
     def step(params, opt_state: AdamWState, batch):
         if microbatches > 1:
-            g_acc = tree_map(lambda a: torch.zeros(a.shape,
-                                                   dtype=torch.float32,
-                                                   device=a.device), params)
+            g_acc = tree_map(lambda a: torch.zeros_like(
+                a, dtype=torch.float32,
+                memory_format=torch.contiguous_format), params)
             losses = []
             for i in range(microbatches):
                 mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
@@ -148,6 +154,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None,
     def train_step(params, opt_state: AdamWState, batch):
         if trace:
             traced_inputs((params, opt_state, batch))
+        elif across:
+            require_distributed(params)
+            batch = distribute_inputs(batch, mesh, rules)
         elif dev is not None:
             batch = {k: v.to(dev) for k, v in batch.items()}
         with sharding_ctx(mesh, rules):

@@ -280,8 +280,9 @@ def _cpu_inputs(build, cfg):
 @pytest.mark.parametrize("build", ["train", "prefill", "serve"])
 def test_traced_steps_refuse_to_execute(build):
     """A step built with ``trace=True`` on a 16 x 16 mesh runs on ``meta``
-    tensors; given CPU tensors it raises (executing across ranks is not
-    ported), and the builders without ``trace`` still refuse the mesh."""
+    tensors; given CPU tensors it raises (a traced step executes nothing),
+    and the builders without ``trace`` refuse the abstract mesh (it has no
+    ranks to execute on)."""
     cfg = reduced_config("qwen3-1.7b")
     mesh = abstract_mesh()
     make = {"train": lambda **kw: make_train_step(cfg, AdamWConfig(), mesh,
@@ -290,7 +291,7 @@ def test_traced_steps_refuse_to_execute(build):
                                                  **kw),
             "serve": lambda **kw: make_serve_step(cfg, mesh, DEFAULT_RULES,
                                                   **kw)}[build]
-    with pytest.raises(NotImplementedError, match="multi-rank execution"):
+    with pytest.raises(NotImplementedError, match="without ranks"):
         make()
     step = make(trace=True)
     inputs = _cpu_inputs(build, cfg)

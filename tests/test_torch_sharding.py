@@ -20,7 +20,8 @@ the steps that run through a mesh, on the CPU.
   and grad norm at 1e-4, params at 1e-3 of each leaf's largest magnitude,
   as in test_torch_train.py); tests/test_system.py's mesh case trains
   through the port's cache; a checkpoint restored with shardings gives the
-  same bits; a mesh of more than one device refuses to execute.
+  same bits; a mesh of more than one device without ranks refuses to
+  execute (real ranks: tests/test_torch_multirank.py).
 """
 import json
 import os
@@ -189,20 +190,23 @@ def test_placements_and_shard_shape():
 
 @pytest.mark.parametrize("build", ["train", "prefill", "serve", "constrain"])
 def test_mesh_of_many_devices_refuses(build):
-    """Executing across ranks is not ported: the builders refuse a mesh of
-    more than one device, naming ROADMAP's item, and so does ``constrain``
-    on a plain tensor under one."""
+    """A mesh of more than one device without ranks (a stand-in) executes
+    nothing: the builders refuse it, saying so; ``constrain`` refuses a
+    plain tensor under any mesh of more than one device (a step's inputs
+    arrive as DTensors; tests/test_torch_multirank.py runs real ranks)."""
     cfg = reduced_config("qwen3-1.7b")
     mesh = StandIn(MESHES["pod"])
     call = {"train": lambda: make_train_step(cfg, AdamWConfig(), mesh),
             "prefill": lambda: make_prefill(cfg, mesh, DEFAULT_RULES),
             "serve": lambda: make_serve_step(cfg, mesh, DEFAULT_RULES)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, "
-                                                  "multi-rank execution"):
-        if build == "constrain":
+    if build == "constrain":
+        with pytest.raises(TypeError, match="arrive as DTensors"):
             with sharding_ctx(mesh, DEFAULT_RULES):
                 constrain(torch.ones(32, 4, 8), ("batch", "seq", "act_embed"))
-        else:
+    else:
+        with pytest.raises(NotImplementedError,
+                           match="without ranks .*StandIn.* executes "
+                                 "nothing"):
             call[build]()
 
 

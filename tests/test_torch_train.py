@@ -300,15 +300,20 @@ def _check_remat_identity(arch):
 
 
 def test_other_families_refuse_to_train():
-    """ssm and hybrid build a step; a mesh of more than one device refuses,
-    naming ROADMAP's multi-rank item (one-device meshes:
+    """ssm and hybrid build an unmeshed step; on a mesh of more than one
+    device they refuse, naming ROADMAP's item 5b (dense models across
+    ranks: tests/test_torch_multirank.py), and a mesh without ranks
+    refuses a dense model too (one-device meshes:
     tests/test_torch_sharding.py)."""
     class Mesh:                     # a mesh as the rules read one
         shape = {"data": 16, "model": 16}
     for arch in SSM_ARCHS:
         assert callable(make_train_step(reduced_config(arch),
                                         topt.AdamWConfig()))
-    with pytest.raises(NotImplementedError, match="multi-rank execution"):
+        with pytest.raises(NotImplementedError, match="item 5b"):
+            make_train_step(reduced_config(arch), topt.AdamWConfig(),
+                            mesh=Mesh())
+    with pytest.raises(NotImplementedError, match="without ranks"):
         make_train_step(reduced_config(ARCH), topt.AdamWConfig(),
                         mesh=Mesh())
 
