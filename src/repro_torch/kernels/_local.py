@@ -1,21 +1,26 @@
 """The kernels' DTensor boundary.
 
 The kernels run on plain tensors.  Given DTensor operands (a step on a mesh
-of more than one rank), ``ops.rmsnorm``, ``ops.flash_attention`` and
-``ops.decode_attention`` redistribute them to the placements the kernel
-needs, run it on each rank's local shards (the CUDA kernel on the card, the
-plain version on the CPU, by the local tensor's device) and wrap its result
-as a DTensor again, through ``torch.distributed.tensor.experimental.local_map``
-with each gradient's placements spelled out.  Only what the kernel
-needs whole is gathered: a row for RMSNorm; the sequence and the head
-dimension for attention, whose batch and heads stay sharded.
+of more than one rank), ``ops.rmsnorm``, ``ops.flash_attention``,
+``ops.decode_attention`` and ``ops.ssd`` redistribute them to the placements
+the kernel needs, run it on each rank's local shards (the CUDA kernel on the
+card, the plain version on the CPU, by the local tensor's device) and wrap
+its results as DTensors again, through
+``torch.distributed.tensor.experimental.local_map`` with each gradient's
+placements spelled out.  Only what the kernel needs whole is gathered: a row
+for RMSNorm; the sequence and the head dimension for attention, whose batch
+and heads stay sharded; the sequence for the SSD, whose batch and heads stay
+sharded.  Mamba2's depthwise convolution (plain torch, no kernel) takes the
+same road (``conv_on_shards``): DTensor's own convolution rule copies the
+input's placements whatever the weight's.
 
 Gradients: a weight or KV head that every local shard reads sums its
 gradient over those shards, so it leaves the local kernel as ``Partial()``
 over each mesh dimension that splits them (RMSNorm's ``dw`` over the
 sharded rows; K and V where the KV heads are replicated and each rank reads
-its own group's).  ``shard_calls()`` records each boundary call's local
-operand shapes.
+its own group's; the SSD's B and C, which every head reads, over the
+heads' mesh dimension; the convolution's weight over the batch's).
+``shard_calls()`` records each boundary call's local operand shapes.
 """
 from __future__ import annotations
 
@@ -57,8 +62,9 @@ def _on_shards(name: str, fn: Callable, mesh, out_placements, operands,
     """``fn(*local operands, *args)`` through ``local_map``: each operand (a
     DTensor) redistributed to its ``in_placements``, its local shard made
     contiguous (the kernels take no strides) and its gradient given
-    ``grad_placements``; ``pick`` edits the local operands first; the result
-    wrapped on ``out_placements``."""
+    ``grad_placements``; ``pick`` edits the local operands first; the
+    results wrapped on ``out_placements``, one placements tuple a result
+    (``fn`` returns a tuple where there are several)."""
     from torch.distributed.tensor.experimental import local_map
     for t in operands:
         if not is_dtensor(t):
@@ -73,7 +79,7 @@ def _on_shards(name: str, fn: Callable, mesh, out_placements, operands,
         _note(name, *ops)
         return fn(*ops, *xs[n:])
     none = (None,) * len(args)
-    return local_map(local, (out_placements,),     # one output
+    return local_map(local, tuple(out_placements),
                      tuple(in_placements) + none,
                      tuple(grad_placements) + none, mesh,
                      redistribute_inputs=True)(*operands, *args)
@@ -92,7 +98,7 @@ def rows_on_shards(name: str, fn: Callable, x, weight, *args):
                else Replicate() for p in x.placements)
     wgrad = tuple(Replicate() if isinstance(p, Replicate) else Partial()
                   for p in xp)
-    return _on_shards(name, fn, mesh, xp, (x, weight),
+    return _on_shards(name, fn, mesh, (xp,), (x, weight),
                       (xp, (Replicate(),) * mesh.ndim), (xp, wgrad), args)
 
 
@@ -140,6 +146,76 @@ def heads_on_shards(name: str, fn: Callable, q, k, v):
         sel = pick if isinstance(pick, slice) else pick.to(kl.device)
         return ql, kl[:, :, sel].contiguous(), vl[:, :, sel].contiguous()
     qp, kp = tuple(qp), tuple(kp)
-    return _on_shards(name, fn, mesh, qp, (q, k, v), (qp, kp, kp),
+    return _on_shards(name, fn, mesh, (qp,), (q, k, v), (qp, kp, kp),
                       (qp, tuple(kg), tuple(kg)),
                       pick=None if pick is None else take)
+
+
+def _trailing(fn: Callable, t):
+    """(the operands ``t`` adds, the local function): ``[t]`` and ``fn``
+    where ``t`` is given, else none and ``fn`` with None as its last
+    argument."""
+    if t is not None:
+        return [t], fn
+    return [], lambda *xs: fn(*xs, None)
+
+
+def ssd_on_shards(name: str, fn: Callable, x, a, B, C, initial_state=None):
+    """``fn(x, a, B, C, initial_state) -> (y, final state)`` of the SSD (x
+    (b, s, h, p), a (b, s, h), B / C (b, s, n): one group that every head
+    reads; y like x, the states (b, h, p, n)) on each rank's batch rows and
+    heads: x, a, y and the states keep x's batch shards and its head shards
+    on one mesh dimension whose size divides h (else the heads are whole);
+    the sequence, which the recurrence runs along, is gathered.  B and C
+    keep the batch shards and are whole on the heads' mesh dimension, with
+    their gradients partial over it.  ``initial_state`` may be None."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    h = x.shape[2]
+    xp, ap, sp, bp, bg = [], [], [], [], []  # x / y, a, states, B / C, grads
+    for m, p in enumerate(x.placements):
+        d = _shard_dim(p, x.ndim)
+        if d == 2 and (Shard(2) in xp or h % mesh.size(m)):
+            d = None                           # heads on one mesh dim only
+        if d == 0:
+            place = (Shard(0),) * 5
+        elif d == 2:
+            place = (Shard(2), Shard(2), Shard(1), Replicate(), Partial())
+        else:
+            place = (Replicate(),) * 5
+        for placements, q in zip((xp, ap, sp, bp, bg), place):
+            placements.append(q)
+    xp, ap, sp, bp, bg = map(tuple, (xp, ap, sp, bp, bg))
+    extra, local = _trailing(fn, initial_state)
+    return _on_shards(name, local, mesh, (xp, sp), [x, a, B, C] + extra,
+                      [xp, ap, bp, bp] + [sp] * len(extra),
+                      [xp, ap, bg, bg] + [sp] * len(extra))
+
+
+def conv_on_shards(name: str, fn: Callable, x, w, state=None):
+    """``fn(x, w, state) -> (out, new state)`` of a depthwise convolution
+    along the sequence (x (b, s, ch), w (W, ch), the state (b, W - 1, ch)
+    or None; out like x, the new state like the state) on each rank's batch
+    rows and channels: each mesh dimension that splits w's channels splits
+    x's, the state's and the results' the same way (the shards the rules
+    give the conv weight and the decode state); one that splits the batch
+    of x or of the state splits both (a decode state stays where it is),
+    and w's gradient is partial over it.  The sequence is gathered."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    xp, wp, wg = [], [], []
+    for m in range(mesh.ndim):
+        if _shard_dim(w.placements[m], w.ndim) == 1:
+            place = (Shard(2), Shard(1), Shard(1))
+        elif any(_shard_dim(t.placements[m], t.ndim) == 0
+                 for t in (x, state) if t is not None):
+            place = (Shard(0), Replicate(), Partial())
+        else:
+            place = (Replicate(),) * 3
+        for placements, q in zip((xp, wp, wg), place):
+            placements.append(q)
+    xp, wp, wg = map(tuple, (xp, wp, wg))
+    extra, local = _trailing(fn, state)
+    return _on_shards(name, local, mesh, (xp, xp), [x, w] + extra,
+                      [xp, wp] + [xp] * len(extra),
+                      [xp, wg] + [xp] * len(extra))

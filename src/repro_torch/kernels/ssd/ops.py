@@ -7,11 +7,18 @@ on-card comparisons do).  No fallback: a kernel that cannot run raises.
 ``ssd_chunk_cuda`` or ``ssd_chunk_ref`` and its backward
 ``ssd_chunk_bwd_cuda`` or ``ssd_chunk_bwd_ref`` the same way, recomputing
 G and the decay from the saved inputs; the recurrence across chunks stays
-plain torch under autograd, as it is plain ``jnp`` in the JAX package."""
+plain torch under autograd, as it is plain ``jnp`` in the JAX package.
+
+DTensor operands (a step across ranks) run on each rank's batch rows and
+heads (``.._local.ssd_on_shards``): the chunk kernels and the recurrence on
+a CUDA shard, ``ssd_ref`` on a CPU one; the CUDA wrappers refuse a
+DTensor."""
 from __future__ import annotations
 
 import torch
 
+from ... import is_dtensor
+from .._local import ssd_on_shards
 from .kernel import ssd_chunk_bwd_cuda, ssd_chunk_cuda
 from .ref import (_inter_chunk, _pad_seq, ssd_chunk_bwd_ref, ssd_chunk_ref,
                   ssd_decode_ref, ssd_ref)
@@ -76,6 +83,10 @@ def ssd_chunked(x, a, B, C, chunk: int, initial_state, chunk_fn):
 
 
 def ssd(x, a, B, C, chunk: int = 256, initial_state=None, force_ref=False):
+    if is_dtensor(x):
+        def local(x, a, B, C, state):
+            return ssd(x, a, B, C, chunk, state, force_ref)
+        return ssd_on_shards("ssd", local, x, a, B, C, initial_state)
     if _plain(x, force_ref):
         return ssd_ref(x, a, B, C, chunk=chunk, initial_state=initial_state)
     return ssd_chunked(x, a, B, C, chunk, initial_state, ssd_chunk)

@@ -157,6 +157,16 @@ def write_cache(cache: torch.Tensor, start: int, new: torch.Tensor) -> None:
     cache[:, start:start + new.shape[1]] = new.to(cache.dtype)
 
 
+def write_state(state: torch.Tensor, new: torch.Tensor) -> None:
+    """``state.copy_(new)``, in place: a DTensor state (one layer of a
+    decode state's conv or SSD leaf) takes ``new`` at its own placements
+    and each rank writes its local shard, as ``write_cache`` does."""
+    if is_dtensor(state):
+        new = new.redistribute(state.device_mesh, state.placements)
+        state, new = state.to_local(), new.to_local()
+    state.copy_(new)
+
+
 def attention(x, lp, cfg: ModelConfig, *, positions, cache=None,
               cache_len=None, force_ref: bool = False):
     """Pre-norm attention sublayer.

@@ -4,13 +4,27 @@
 Counterpart of ``repro.models.ssm``, with the same parameter names, layouts
 and arithmetic.  RMSNorm and the prefill SSD go through the port's kernels;
 ``force_ref=True`` runs their plain versions instead.
+
+Across ranks (DTensor params and activations) the block keeps the
+reference's arithmetic and redistributes only where an op needs it: the
+in-projection is gathered along its columns before ``_split_proj`` slices
+it (its column shards cut through the pieces), the convolution runs on each
+rank's channel shards (``kernels._local.conv_on_shards``) and is gathered
+again before its output is sliced, the per-head products split their
+operands along the heads as ``dt_bias`` / ``A_log`` / ``D`` are split, and
+the SSD runs on each rank's heads (``kernels._local.ssd_on_shards``).
+``gated_rmsnorm``'s mean over the split ``d_in`` and the out-projection
+are DTensor's own.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .. import is_dtensor
 from ..kernels import gated_rmsnorm, rmsnorm, ssd, ssd_decode
+from ..kernels._local import conv_on_shards
+from ..sharding.context import replicated_like, sharded_as, whole
 from .config import ModelConfig
 from .params import p
 
@@ -57,7 +71,10 @@ def _causal_conv(x, w, conv_state=None):
     Prefill pads W-1 zeros on the left only (``F.conv1d``'s ``padding``
     would pad both sides).  With ``conv_state`` (B, W-1, ch) prepended
     (decode) nothing is padded.  Returns the S outputs and the new state
-    (the last W-1 inputs)."""
+    (the last W-1 inputs).  DTensors run on each rank's channel shards
+    (``conv_on_shards``), ``groups`` the local channel count."""
+    if is_dtensor(x):
+        return conv_on_shards("conv", _causal_conv, x, w, conv_state)
     W, ch = w.shape
     if conv_state is not None:
         x = torch.cat([conv_state.to(x.dtype), x], dim=1)
@@ -79,21 +96,22 @@ def mamba_block(x, lp, cfg: ModelConfig, *, state=None,
     d_in, nh, n, conv_ch = ssm_dims(cfg)
     hd = cfg.ssm_head_dim
     h = rmsnorm(x, lp["norm"], cfg.norm_eps, force_ref=force_ref)
-    proj = h @ lp["in_proj"]
+    proj = whole(h @ lp["in_proj"], -1)
     z, xs, B_, C_, dt = _split_proj(proj, cfg)
 
     xbc = torch.cat([xs, B_, C_], dim=-1)
     conv_state = state[0] if state is not None else None
     xbc, new_conv = _causal_conv(xbc, lp["conv_w"], conv_state)
-    xbc = F.silu(xbc.float()).to(x.dtype)
+    xbc = whole(F.silu(xbc.float()).to(x.dtype), -1)
     xs, B_, C_ = (xbc[..., :d_in], xbc[..., d_in:d_in + n],
                   xbc[..., d_in + n:])
 
     # softplus as jax.nn.softplus computes it: logaddexp(v, 0)
-    v = dt.float() + lp["dt_bias"].float()
-    dt = torch.logaddexp(v, torch.zeros((), device=v.device))      # (B,S,nh)
+    v = sharded_as(dt, -1, lp["dt_bias"]).float() + lp["dt_bias"].float()
+    zero = replicated_like(torch.zeros((), device=v.device), v)
+    dt = torch.logaddexp(v, zero)                                  # (B,S,nh)
     A = -torch.exp(lp["A_log"].float())                            # (nh,)
-    xh = xs.reshape(B, S, nh, hd)
+    xh = sharded_as(xs.reshape(B, S, nh, hd), 2, lp["D"])
     x_dt = (xh.float() * dt[..., None]).to(x.dtype)
     a = dt * A
 
@@ -108,7 +126,8 @@ def mamba_block(x, lp, cfg: ModelConfig, *, state=None,
         new_state = (new_conv, new_ssd)
     y = y + lp["D"].float()[None, None, :, None] * xh.float()
     y = y.reshape(B, S, d_in).to(x.dtype)
-    y = gated_rmsnorm(y, z, lp["out_norm"], cfg.norm_eps)
+    y = gated_rmsnorm(y, sharded_as(z, -1, lp["out_norm"]), lp["out_norm"],
+                      cfg.norm_eps)
     out = y @ lp["out_proj"]
     return x + out, new_state
 

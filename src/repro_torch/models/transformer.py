@@ -39,7 +39,7 @@ from ..kernels import flash_attention, rmsnorm
 from ..sharding.context import carried, constrain, replicated_like, whole
 from .config import ModelConfig
 from .layers import (attention, attention_specs, embed_rows, matmul, mlp_specs,
-                     promoted, swiglu)
+                     promoted, swiglu, write_state)
 from .moe import moe_ffn, moe_specs
 from .params import p, tree_abstract, tree_init
 from .ssm import init_ssm_state, mamba_block, ssm_specs
@@ -349,8 +349,8 @@ def decode_step(params, cfg: ModelConfig, state, tokens=None, *,
             x, (c, s) = mamba_block(x, lp, cfg,
                                     state=(conv[i], ssd_st[i]),
                                     force_ref=force_ref)
-            conv[i].copy_(c)
-            ssd_st[i].copy_(s)
+            write_state(conv[i], c)
+            write_state(ssd_st[i], s)
             if _fires_shared(cfg, i):
                 inv = i // cfg.shared_attn_every
                 x, _ = _shared_block(

@@ -11,15 +11,16 @@ a no-op (CPU tests, plain eager use).
 On a ``DeviceMesh`` of more than one rank (``launch.mesh.make_mesh``) the
 steps run with DTensor params, batch and decode state, and a plain tensor
 reaching ``constrain`` raises: a step's inputs arrive distributed
-(``sharding.rules.distribute_tree``).  Only the dense family runs so; the
-others raise naming their ROADMAP item.  A mesh without ranks (a stand-in
-whose ``shape`` is a dict, ``launch.mesh.abstract_mesh``, or a
-``DeviceMesh`` over torch's fake group) executes nothing: given to an
-untraced step builder it raises.  A step built with ``trace=True`` (the
-dry-run's, ``roofline.trace``) takes any mesh but runs on ``meta`` tensors
-only: there a plain tensor passes ``constrain`` unchanged, and each call is
-recorded (``recording``) for the roofline's collective estimate.  A CPU or
-CUDA tensor given to such a step still raises.
+(``sharding.rules.distribute_tree``).  The dense, ssm and hybrid families
+run so; moe, vlm and audio raise naming their ROADMAP item.  A mesh
+without ranks (a stand-in whose ``shape`` is a dict,
+``launch.mesh.abstract_mesh``, or a ``DeviceMesh`` over torch's fake group)
+executes nothing: given to an untraced step builder it raises.  A step
+built with ``trace=True`` (the dry-run's, ``roofline.trace``) takes any mesh
+but runs on ``meta`` tensors only: there a plain tensor passes
+``constrain`` unchanged, and each call is recorded (``recording``) for the
+roofline's collective estimate.  A CPU or CUDA tensor given to such a step
+still raises.
 
 ``carried`` runs a function under the context current when it was made,
 in whatever thread calls it: a remat recompute runs in autograd's thread
@@ -43,8 +44,7 @@ _RECORD: contextvars.ContextVar = contextvars.ContextVar("shard_record",
                                                          default=None)
 # The families a mesh of more than one rank does not run yet, by ROADMAP
 # Queue 1 item.
-_NOT_ACROSS_RANKS = {"ssm": "5b", "hybrid": "5b", "moe": "5c", "vlm": "5d",
-                     "audio": "5d"}
+_NOT_ACROSS_RANKS = {"moe": "5c", "vlm": "5d", "audio": "5d"}
 
 
 @contextlib.contextmanager
@@ -132,9 +132,10 @@ def step_target(mesh, rules: Optional[LogicalRules] = None,
     device (a name, a ``torch.device``, or ``None`` for ``cuda``) gives the
     unmeshed step on it; a mesh, the meshed step on the mesh's device type.
     Rules without a mesh raise.  A mesh of more than one device runs a
-    dense ``family`` (any other raises, naming its ROADMAP item) and must
-    have ranks (``has_ranks``).  ``trace`` gives a step traced on ``meta``
-    (on any mesh, any family), whose inputs go through ``traced_input``."""
+    dense, ssm or hybrid ``family`` (moe, vlm and audio raise, naming their
+    ROADMAP item) and must have ranks (``has_ranks``).  ``trace`` gives a
+    step traced on ``meta`` (on any mesh, any family), whose inputs go
+    through ``traced_input``."""
     if mesh is None or isinstance(mesh, (str, torch.device)):
         if rules is not None:
             raise ValueError("rules without a mesh: pass a mesh "
@@ -149,7 +150,7 @@ def step_target(mesh, rules: Optional[LogicalRules] = None,
             raise NotImplementedError(
                 f"the {family} family on a mesh of {n} devices "
                 f"{mesh_axes(mesh)}: not ported (ROADMAP.md Queue 1, item "
-                f"{item}); only dense models run across ranks")
+                f"{item}); dense, ssm and hybrid models run across ranks")
         if not has_ranks(mesh):
             raise NotImplementedError(
                 f"a mesh of {n} devices {mesh_axes(mesh)} without ranks "
@@ -206,6 +207,23 @@ def whole(t: torch.Tensor, dim: int) -> torch.Tensor:
     d = dim % t.ndim
     keep = tuple(Replicate() if isinstance(p, Shard) and p.dim % t.ndim == d
                  else p for p in t.placements)
+    return t.redistribute(t.device_mesh, keep)
+
+
+def sharded_as(t: torch.Tensor, dim: int, like) -> torch.Tensor:
+    """A DTensor ``t`` with dimension ``dim`` split over the mesh
+    dimensions that split the 1-d ``like`` (and over no other), its other
+    placements kept: the operand of a product with ``like`` along that
+    dimension (a per-head parameter).  Moving from replicated to split is
+    a local slice; a plain tensor passes as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    d = dim % t.ndim
+    keep = tuple(Shard(d) if isinstance(q, Shard)
+                 else Replicate() if isinstance(p, Shard) and p.dim % t.ndim
+                 == d else p
+                 for p, q in zip(t.placements, like.placements))
     return t.redistribute(t.device_mesh, keep)
 
 

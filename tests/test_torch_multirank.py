@@ -28,12 +28,17 @@ forward did.
 The ranks run in processes of their own (``launch.ranks.run_ranks``,
 spawned, one torch thread each, a ``FileStore``), never in the pytest
 worker; the JAX side runs in a subprocess with four forced host devices.
-Both start together, once for the module (``runs``).
+Both start together, once for the module (``runs``), under a lock on a file
+in the system temp directory that ``tests/test_torch_multirank_ssm.py``
+takes too: one group of four ranks at a time loads the host.
 """
+import contextlib
+import fcntl
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -63,6 +68,19 @@ OPT = dict(lr=1e-2, warmup_steps=2, total_steps=4)
 TOL, PARAM_TOL = 1e-4, 1e-3
 CKPT_STEP = 4
 MICROBATCHES = 2
+LOCK = os.path.join(tempfile.gettempdir(), "repro_torch_multirank.lock")
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """Hold the host-wide lock of the multi-rank test modules: one group of
+    four ranks and one four-device JAX process at a time."""
+    with open(LOCK, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def make_data(cfg) -> dict:
@@ -412,20 +430,22 @@ def rank_work(rank: int, where: str) -> dict:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """JAX's sharded steps and the four ranks (started together), and the
-    port's unmeshed steps on the same weights and inputs."""
+    """JAX's sharded steps and the four ranks (started together, under the
+    multi-rank lock), and the port's unmeshed steps on the same weights and
+    inputs."""
     from repro_torch.launch.ranks import run_ranks
     where = tmp_path_factory.mktemp("multirank")
     cfg = reduced_config(ARCH)
     data = make_data(cfg)
     np.savez(where / "data.npz", **data)
-    t0 = time.perf_counter()
-    jax_proc = _start_jax(where)
-    try:
-        ranks = run_ranks(rank_work, WORLD, str(where), device="cpu",
-                          timeout=300)
-    finally:
-        out, err = jax_proc.communicate(timeout=300)
+    with one_rank_group():
+        t0 = time.perf_counter()
+        jax_proc = _start_jax(where)
+        try:
+            ranks = run_ranks(rank_work, WORLD, str(where), device="cpu",
+                              timeout=300)
+        finally:
+            out, err = jax_proc.communicate(timeout=300)
     assert jax_proc.returncode == 0 and "JAX_DONE" in out, err[-4000:]
     jx = dict(np.load(where / "jax.npz"))
     params = params_from_jax(nested(dict(np.load(where / "params.npz")), ""),
