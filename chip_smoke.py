@@ -778,7 +778,8 @@ def phase_kernels(build: dict) -> list:
     # llama-vision's d_model (4 x 1024 rows) and decode's 4 rows.  A rank's
     # shard of qwen3 on the (2, 2) mesh: 2 x 1024 rows of d_model (zamba2's
     # too), its 4 KV heads' norms (its 8 q heads' 16384 rows are a case
-    # above) and decode's 2 rows; mamba2's 2 x 1024 rows of its d_model.
+    # above) and decode's 2 rows; mamba2's 2 x 1024 rows of its d_model;
+    # granite's 2 x 1024 rows of its d_model (timed).
     for rows, d, timed in [(4096, 2048, True), (65536, 128, True),
                            (32768, 128, True), (4, 2048, True),
                            (4096, 1024, True), (1000, 2048, False),
@@ -786,7 +787,8 @@ def phase_kernels(build: dict) -> list:
                            (131072, 128, True), (16384, 128, False),
                            (4096, 8192, True), (4, 8192, False),
                            (2048, 2048, False), (8192, 128, False),
-                           (2, 2048, False), (2048, 1024, False)]:
+                           (2, 2048, False), (2048, 1024, False),
+                           (2048, 1536, True)]:
         for dtype in (torch.bfloat16, torch.float32):
             results.append(rmsnorm_case(rows, d, dtype, gen, flush,
                                         timed and dtype == torch.bfloat16))
@@ -813,7 +815,8 @@ def phase_kernels(build: dict) -> list:
             ((4, 1, 1601, 64, 8, 128), False, 0, (bf16,)),
             ((4, 1024, 1024, 64, 8, 128), True, 0, (bf16,)),
             ((2, 1024, 1024, 8, 4, 128), True, 0, ()),    # qwen3, 2x2 shard
-            ((2, 1024, 1024, 16, 16, 64), True, 0, ())]:  # zamba2, 2x2
+            ((2, 1024, 1024, 16, 16, 64), True, 0, ()),   # zamba2, 2x2
+            ((2, 1024, 1024, 12, 4, 64), True, 0, (bf16,))]:  # granite, 2x2
         for dtype in (bf16, f32):
             results.append(flash_case(*shape, causal, off, dtype, gen, flush,
                                       dtype in timed))
@@ -848,14 +851,16 @@ def phase_kernels(build: dict) -> list:
     # granite's d_model, llama-vision's d_model (the long-row kernel; in f32
     # eight vectors a thread), an f32 width just past the row groups' 512
     # vectors, fewer long rows than CTAs, a rank's shard of qwen3 on the
-    # (2, 2) mesh (d_model, the q and the k norms) and of mamba2.
+    # (2, 2) mesh (d_model, the q and the k norms), of mamba2 and of
+    # granite (timed).
     for rows, d, timed in [(4096, 2048, True), (65536, 128, True),
                            (32768, 128, False), (1000, 2048, False),
                            (80, 64, False), (640, 16, False),
                            (4096, 1536, True), (4096, 8192, True),
                            (1000, 2056, False), (7, 8192, False),
                            (2048, 2048, False), (16384, 128, False),
-                           (8192, 128, False), (2048, 1024, False)]:
+                           (8192, 128, False), (2048, 1024, False),
+                           (2048, 1536, True)]:
         for dtype in (bf16, f32):
             results.append(rmsnorm_bwd_case(rows, d, dtype, gen, flush,
                                             timed and dtype == bf16, build))
@@ -863,7 +868,8 @@ def phase_kernels(build: dict) -> list:
     # (hd 64, timed in bf16), q_offset, non-causal over a ragged Skv, hd 64 /
     # 32 with ragged sequences, the reduced hd 16, granite's train shape
     # (GQA group 3, hd 64, timed in bf16), a ragged group 3 and a rank's
-    # shard of qwen3's and of zamba2's shared block on the (2, 2) mesh.
+    # shard of qwen3's, of zamba2's shared block and of granite's (timed in
+    # bf16) on the (2, 2) mesh.
     for shape, causal, off, timed in [
             ((4, 1024, 1024, 16, 8, 128), True, 0, (bf16, f32)),
             ((4, 1024, 1024, 32, 32, 64), True, 0, (bf16,)),  # zamba2 shared
@@ -876,7 +882,8 @@ def phase_kernels(build: dict) -> list:
             ((4, 1024, 1024, 24, 8, 64), True, 0, (bf16,)),
             ((2, 200, 200, 6, 2, 64), True, 0, ()),
             ((2, 1024, 1024, 8, 4, 128), True, 0, ()),    # qwen3, 2x2 shard
-            ((2, 1024, 1024, 16, 16, 64), True, 0, ())]:  # zamba2, 2x2
+            ((2, 1024, 1024, 16, 16, 64), True, 0, ()),   # zamba2, 2x2
+            ((2, 1024, 1024, 12, 4, 64), True, 0, (bf16,))]:  # granite, 2x2
         for dtype in (bf16, f32):
             results.append(flash_bwd_case(*shape, causal, off, dtype, gen,
                                           flush, dtype in timed, build))
@@ -1091,18 +1098,23 @@ def held(got, want, atol: float = LOGITS_ATOL) -> tuple:
 
 
 @contextlib.contextmanager
-def routing_log(replay=None):
+def routing_log(replay=None, margins=None):
     """Inside: each MoE layer's top-k expert ids (sorted, (T, k)) of every
     ``route`` call, in call order; stays empty for the other families.
     With ``replay`` (another run's log of the same calls) each call takes
     the recorded experts instead of its own top-k, and weighs them by its
-    own router probabilities, renormalised as ``route`` does."""
+    own router probabilities, renormalised as ``route`` does.  A
+    ``margins`` list gets each call's gap between every token's k-th and
+    (k+1)-th router probability (T,), on the host."""
     from repro_torch.models import moe
     real, log = moe.route, []
     recorded = iter(replay) if replay is not None else None
 
     def spy(h, router, k):
         probs, top_p, top_i = real(h, router, k)
+        if margins is not None:
+            top = torch.topk(probs, k + 1, dim=-1).values
+            margins.append((top[:, k - 1] - top[:, k]).cpu())
         if recorded is not None:
             top_i = next(recorded)
             top_p = probs.gather(-1, top_i)
@@ -2555,19 +2567,22 @@ def run_mesh(paths: dict) -> dict:
 
 MESH2 = "mesh2x2/qwen3-1.7b"
 # The 2 x 2 paths, each a model at full width on the four ranks, in order.
-MESH2_PATHS = (MESH2, "mesh2x2/zamba2-1.2b", "mesh2x2/mamba2-370m")
+MESH2_PATHS = (MESH2, "mesh2x2/zamba2-1.2b", "mesh2x2/mamba2-370m",
+               "mesh2x2/granite-moe-3b-a800m")
 MESH2_SHAPE = (2, 2)              # ("data", "model")
 # Layers of the f32 pairs (full width): qwen3's 4; zamba2's 7, its shared
 # block firing at layers 0 and 6; mamba2's 6 (the train phase holds a
 # 6-layer f32 step of the ssm / hybrid models at 1e-4, while full-depth
 # f32 rounding alone reaches 2.3-3.6e-4; their f32 logits pass 1e-4
-# sooner: ``mesh2_check``).
-MESH2_F32_DEPTH = {"qwen3-1.7b": 4, "zamba2-1.2b": 7, "mamba2-370m": 6}
+# sooner: ``mesh2_check``); granite's 4.
+MESH2_F32_DEPTH = {"qwen3-1.7b": 4, "zamba2-1.2b": 7, "mamba2-370m": 6,
+                   "granite-moe-3b-a800m": 4}
 # Layers of a path's bf16 steps where fewer than the config's, to keep the
-# script under 1000 s of its 1200: mamba2's (its four ranks took 173 s at
-# 48 layers, 45 s at 8); qwen3 and zamba2 run whole.  (qwen3's bf16 decode
-# gap sits at its bound at 28 layers and misses it at 14.)
-MESH2_DEPTH = {"mamba2-370m": 8}
+# script under 1100 s of its 1200: mamba2's (its four ranks took 173 s at
+# 48 layers, 45 s at 8) and granite's (8 of 32); qwen3 and zamba2 run
+# whole.  (qwen3's bf16 decode gap sits at its bound at 28 layers and
+# misses it at 14.)
+MESH2_DEPTH = {"mamba2-370m": 8, "granite-moe-3b-a800m": 8}
 MESH2_TIMEOUT_S = 900
 # unmeshed kernel runs of the first train step's grad norm: the bf16 flash
 # backward sums dQ in an order that varies, which moves qwen3-1.7b's norm
@@ -2590,7 +2605,8 @@ def mesh2_steps(cfg, params, inputs, toks, batches, prefill, step, train,
     logit by ~1e-4; the SSD state is f32 in either), and the losses and
     grad norms of ``MESH_TRAIN_STEPS`` train steps from a copy of
     ``params`` (``train`` builds the step; None: the first loss and grad
-    norm alone, by ``make_value_and_grad``, ``force_ref`` as asked)."""
+    norm alone, by ``make_value_and_grad``, ``force_ref`` as asked; False:
+    no training)."""
     from repro_torch import is_dtensor
     from repro_torch.models.transformer import init_decode_state
     from repro_torch.train.optimizer import global_norm, init_state
@@ -2606,6 +2622,8 @@ def mesh2_steps(cfg, params, inputs, toks, batches, prefill, step, train,
     for i in range(MESH_DECODE_STEPS):
         logits, state = step(params, state, toks[:, i:i + 1])
         out["decode"].append(logits)
+    if train is False:
+        return out
     if train is None:
         loss, grads = make_value_and_grad(cfg, remat="full",
                                           force_ref=force_ref)(params,
@@ -2654,37 +2672,57 @@ def mesh2_references(cfg, params, inputs, toks, batches, dtype) -> dict:
     gaps to the plain run's); in f32 the train steps too, and the same
     kernels-against-plain gaps (printed).
 
-    ssm / hybrid in bf16 also take the kernels' gap to the same steps on
-    the same weights cast to f32 (``floor_bf16_vs_f32``), and their floor
-    is the larger of the two gaps: their kernels and plain versions differ
-    in f32 sums only (the SSD chunk; decode runs no kernel that rounds
-    otherwise, so its kernels-against-plain gap is 0), while the mesh
-    rounds each layer's partial products in bf16 once more, which 38-48
-    Mamba2 layers amplify; two bf16 evaluations of one function lie within
-    twice the farther one's distance from its f32 value."""
+    ssm / hybrid / moe in bf16 also take the kernels' gap to the same
+    steps on the same weights cast to f32 (``floor_bf16_vs_f32``), and
+    their floor is the larger of the two gaps: their kernels and plain
+    versions differ in f32 sums only (the SSD chunk; decode runs no kernel
+    that rounds otherwise, so its kernels-against-plain gap is 0, or, for
+    moe, the RMSNorm's last bit), while the mesh rounds each layer's
+    partial products in bf16 once more, which 38-48 Mamba2 layers amplify
+    and which moves MoE routes (a flipped expert moves its token's logits
+    by far more than any rounding); two bf16 evaluations of one function
+    lie within twice the farther one's distance from its f32 value.
+
+    A MoE model's runs log their routes (``routing_log``): ``routes`` holds
+    the kernel run's, the prefill's in bf16 and the prefill's and decode
+    steps' in f32 (``mesh2_routed``), ``routes_floor_agreement`` their
+    agreement with the plain run's (the floor of the mesh's routes,
+    ``routes_held``), and in f32 ``route_margins`` each of those calls'
+    gap between every token's k-th and (k+1)-th router probability."""
     from repro_torch.serve.serve_step import make_prefill, make_serve_step
     from repro_torch.train.optimizer import AdamWConfig, global_norm
     from repro_torch.train.train_step import (make_train_step,
                                               make_value_and_grad)
 
-    def run(force_ref, train):
-        return mesh2_steps(
-            cfg, params, inputs, toks, batches,
-            make_prefill(cfg, "cuda", force_ref=force_ref),
-            make_serve_step(cfg, "cuda", force_ref=force_ref), train,
-            force_ref=force_ref)
+    def run(force_ref, train, margins=None):
+        with routing_log(margins=margins) as log:
+            out = mesh2_steps(
+                cfg, params, inputs, toks, batches,
+                make_prefill(cfg, "cuda", force_ref=force_ref),
+                make_serve_step(cfg, "cuda", force_ref=force_ref), train,
+                force_ref=force_ref)
+        out["routes"] = [t.cpu() for t in log]
+        return out
     f32 = dtype == torch.float32
+    n = mesh2_routed(cfg, f32)
+    margins = [] if f32 else None
     kern = run(False, make_train_step(
         cfg, AdamWConfig(total_steps=MESH_TRAIN_STEPS), remat="full")
-        if f32 else None)
+        if f32 else None, margins)
     ref = {"prefill": kern["prefill"].cpu(),
            "decode": [t.cpu() for t in kern["decode"]],
-           "losses": kern["losses"], "grad_norms": kern["grad_norms"]}
+           "losses": kern["losses"], "grad_norms": kern["grad_norms"],
+           "routes": kern["routes"][:n]}
+    plain = run(True, None)
+    if n:
+        ref["routes_floor_agreement"] = routing_agreement(
+            kern["routes"][:n], plain["routes"][:n])
     if f32:                              # printed beside the f32 errors
-        ref["floor_kernels_vs_plain"] = floor_of(kern, run(True, None),
+        ref["floor_kernels_vs_plain"] = floor_of(kern, plain,
                                                  kern["grad_norms"][:1])
+        ref["route_margins"] = margins[:n]
+        del plain
     else:
-        plain = run(True, None)
         vg = make_value_and_grad(cfg, remat="full")
         norms = ref["first_grad_norms"] = kern["grad_norms"] + [
             float(global_norm(vg(params, batches[0])[1]))
@@ -2692,7 +2730,7 @@ def mesh2_references(cfg, params, inputs, toks, batches, dtype) -> dict:
         ref["floor"] = ref["floor_kernels_vs_plain"] = floor_of(
             kern, plain, norms)
         del plain
-        if cfg.family in ("ssm", "hybrid"):
+        if cfg.family in ("ssm", "hybrid", "moe"):
             p32 = tree_to(params, lambda t: t.float())
             exact = mesh2_steps(cfg, p32, inputs, toks, batches,
                                 make_prefill(cfg, "cuda"),
@@ -2705,6 +2743,15 @@ def mesh2_references(cfg, params, inputs, toks, batches, dtype) -> dict:
     del kern
     torch.cuda.empty_cache()
     return ref
+
+
+def mesh2_routed(cfg, f32: bool) -> int:
+    """The route calls a 2 x 2 path holds against the unmeshed run's (the
+    first ones of a run of ``mesh2_steps``): the prefill's in bf16, and the
+    prefill's and the decode steps' in f32; 0 without MoE layers."""
+    if cfg.family != "moe":
+        return 0
+    return cfg.n_layers * (1 + MESH_DECODE_STEPS * f32)
 
 
 def mesh2_weights(arch: str, dtype, depth=None):
@@ -2799,34 +2846,39 @@ def mesh2_rank(rank: int, job: dict) -> dict:
         comm, ms = {}, {}
         torch.cuda.reset_peak_memory_stats()
         reset_counts()                   # this rank's path starts here
-        with CollectiveTally() as tally:
+        # a MoE model's routes: the first prefill's, every decode step's
+        # and the first train step's (its forward and its recompute)
+        with CollectiveTally() as tally, routing_log() as routes:
             first = prefill(params, **inputs)
         comm["prefill"] = tally
         logits, ms["prefill"] = timed(lambda: prefill(params, **inputs))
         marks = [counts()]
         state = init_decode_state(cfg, 4, MESH_MAX_SEQ, device="cuda")
         decode = []
-        for i in range(MESH_DECODE_STEPS):
-            feed = toks[:, i:i + 1]
-            if i == 0:
-                with CollectiveTally() as tally:
+        with routing_log() as more:
+            for i in range(MESH_DECODE_STEPS):
+                feed = toks[:, i:i + 1]
+                if i == 0:
+                    with CollectiveTally() as tally:
+                        lg, state = step(params, state, feed)
+                    comm["decode"] = tally
+                elif i == MESH_DECODE_STEPS - 1:
+                    (lg, state), ms["decode"] = timed(
+                        lambda: step(params, state, feed))
+                else:
                     lg, state = step(params, state, feed)
-                comm["decode"] = tally
-            elif i == MESH_DECODE_STEPS - 1:
-                (lg, state), ms["decode"] = timed(
-                    lambda: step(params, state, feed))
-            else:
-                lg, state = step(params, state, feed)
-            decode.append(local(lg))
+                decode.append(local(lg))
+        routes += more
         marks.append(counts())
         p = tree_to(params, torch.clone)
         opt = init_state(p)
         losses, norms = [], []
         for i, b in enumerate(batches):
             if i == 0:
-                with CollectiveTally() as tally:
+                with CollectiveTally() as tally, routing_log() as more:
                     p, opt, m = train(p, opt, b)
                 comm["train"] = tally
+                routes += more
             else:
                 (p, opt, m), ms["train"] = timed(lambda: train(p, opt, b))
             losses.append(float(m["loss"].full_tensor()))
@@ -2840,6 +2892,7 @@ def mesh2_rank(rank: int, job: dict) -> dict:
                         "decode": list(map(repr, lg.placements))},
             decode=decode, losses=losses, grad_norms=norms, ms=ms,
             launches=launches, marks=marks,
+            routes=[t.cpu() for t in routes],
             comm={k: {"counts": {str(op).rsplit(".", 1)[-1]: n for op, n in
                                  t.get_comm_counts().items()},
                       "bytes": dict(t.comm_bytes)} for k, t in comm.items()},
@@ -2848,19 +2901,24 @@ def mesh2_rank(rank: int, job: dict) -> dict:
         del params, p, opt, first, logits, state, m
         torch.cuda.empty_cache()
         # the f32 pairs, on the first MESH2_F32_DEPTH layers
+        t_f32 = time.perf_counter()
         cfg32, p32 = placed(arch, torch.float32, MESH2_F32_DEPTH[arch])
-        r32 = mesh2_steps(cfg32, p32, inputs, toks, batches,
-                          make_prefill(cfg32, mesh, DEFAULT_RULES),
-                          make_serve_step(cfg32, mesh, DEFAULT_RULES),
-                          make_train_step(cfg32, AdamWConfig(
-                              total_steps=MESH_TRAIN_STEPS), mesh,
-                              DEFAULT_RULES, remat="full"))
+        with routing_log() as routes:
+            r32 = mesh2_steps(cfg32, p32, inputs, toks, batches,
+                              make_prefill(cfg32, mesh, DEFAULT_RULES),
+                              make_serve_step(cfg32, mesh, DEFAULT_RULES),
+                              make_train_step(cfg32, AdamWConfig(
+                                  total_steps=MESH_TRAIN_STEPS), mesh,
+                                  DEFAULT_RULES, remat="full"))
         out["f32"] = {"prefill": local(r32["prefill"]),
                       "decode": [local(t) for t in r32["decode"]],
                       "losses": r32["losses"],
-                      "grad_norms": r32["grad_norms"]}
+                      "grad_norms": r32["grad_norms"],
+                      "routes": [t.cpu() for t in
+                                 routes[:mesh2_routed(cfg32, True)]]}
         out["staged"] = {k: dict(v) for k, v in STAGED.items()}
         out["seconds"] = time.perf_counter() - t_arch
+        out["seconds_f32"] = time.perf_counter() - t_f32
         del p32, r32, inputs, batches
         torch.cuda.empty_cache()
         results[arch] = out
@@ -2883,9 +2941,31 @@ def mesh2_assemble(blocks: list, shape) -> torch.Tensor:
     return full
 
 
+def mesh2_replay(arch: str, dtype, routes: list) -> dict:
+    """The unmeshed kernel steps of a 2 x 2 path (``mesh2_steps``; bf16 at
+    the path's depth: the prefill, the decode steps and the first loss and
+    grad norm; f32 on the f32 cut: the prefill and the decode steps), each
+    MoE layer on the experts that ``routes`` (the ranks' log of the same
+    calls) gave it (``routing_log(replay=...)``); logits on the host."""
+    from repro_torch.serve.serve_step import make_prefill, make_serve_step
+    f32 = dtype == torch.float32
+    cfg, params = mesh2_weights(arch, dtype, MESH2_F32_DEPTH[arch] if f32
+                                else MESH2_DEPTH.get(arch))
+    inputs, toks, batches = mesh_inputs(cfg)
+    with routing_log(replay=[t.cuda() for t in routes]):
+        out = mesh2_steps(cfg, params, inputs, toks, batches,
+                          make_prefill(cfg, "cuda"),
+                          make_serve_step(cfg, "cuda"), False if f32 else None)
+    out["prefill"] = out["prefill"].cpu()
+    out["decode"] = [t.cpu() for t in out["decode"]]
+    del params, inputs, batches
+    torch.cuda.empty_cache()
+    return out
+
+
 def expected_per_decode_step(cfg) -> dict:
-    """Kernel launches of one decode step of a dense, ssm or hybrid model:
-    a forward's RMSNorms, and no flash or SSD chunk launch (decode
+    """Kernel launches of one decode step of a dense, moe, ssm or hybrid
+    model: a forward's RMSNorms, and no flash or SSD chunk launch (decode
     attention and the SSD step are plain torch)."""
     fwd = expected_per_forward(cfg)
     return {**fwd, "ssd_chunk": 0, "flash_attention": 0,
@@ -2902,6 +2982,7 @@ def mesh2_prepare(arch: str) -> dict:
     from repro_torch.serve.serve_step import lower_prefill, lower_serve_step
     from repro_torch.sharding import DEFAULT_RULES
     from repro_torch.train.train_step import lower_train_step
+    t0 = time.perf_counter()
     depth = MESH2_DEPTH.get(arch)
     cfg, params = mesh2_weights(arch, torch.bfloat16, depth)
     inputs, toks, batches = mesh_inputs(cfg)
@@ -2921,7 +3002,7 @@ def mesh2_prepare(arch: str) -> dict:
         c = c.collectives()
         reckoned[kind] = {"counts": c.counts, "bytes": c.bytes_by_kind}
     return {"cfg": cfg, "depth": depth, "ref": ref, "ref32": ref32,
-            "reckoned": reckoned}
+            "reckoned": reckoned, "seconds": time.perf_counter() - t0}
 
 
 def card_memory_watch(stop: threading.Event, out: list,
@@ -2936,9 +3017,10 @@ def card_memory_watch(stop: threading.Event, out: list,
 
 def run_mesh2(paths: dict) -> dict:
     """The ``MESH2_PATHS``: ``mesh2x2/qwen3-1.7b``, ``mesh2x2/zamba2-1.2b``
-    (38 Mamba2 layers, the shared block firing 7 times) and
-    ``mesh2x2/mamba2-370m``, each its model at full width (bf16, seed 0;
-    ``MESH2_DEPTH`` layers where it cuts one: mamba2's)
+    (38 Mamba2 layers, the shared block firing 7 times),
+    ``mesh2x2/mamba2-370m`` and ``mesh2x2/granite-moe-3b-a800m`` (40
+    experts top-8, 20 a rank), each its model at full width (bf16, seed 0;
+    ``MESH2_DEPTH`` layers where it cuts one: mamba2's and granite's)
     prefilling 4 x 1024 tokens,
     taking ``MESH_DECODE_STEPS`` decode steps of a batch of 4 and
     ``MESH_TRAIN_STEPS`` train steps (remat "full", AdamW) through
@@ -2959,17 +3041,23 @@ def run_mesh2(paths: dict) -> dict:
       the same weights, within ``FLOOR_FACTOR`` times the unmeshed
       kernels-against-plain gap of the same run (``mesh2_references``;
       the largest of each element's gaps, and of the grad norm's gaps to
-      each of the unmeshed kernel runs; ssm / hybrid: the larger of that
-      gap and the unmeshed bf16 steps' gap to their f32 evaluation; a
+      each of the unmeshed kernel runs; ssm / hybrid / moe: the larger of
+      that gap and the unmeshed bf16 steps' gap to their f32 evaluation; a
       logit also gets one bf16 ulp of its value, ``close_enough``'s rule
       for bf16, and the loss and the grad norm, both f32, one f32 ulp of
-      theirs);
+      theirs); a MoE model's prefill routes by the routing rule
+      (``routes_held``: at most ``ROUTE_FACTOR`` times the routes that
+      the unmeshed kernels flip against the plain versions), and the
+      same on every rank (the route is the whole batch's);
     * f32, the weights cut to ``MESH2_F32_DEPTH`` layers (and the decode
       state in f32, ``mesh2_steps``): the same steps' logits, losses and
       grad norms at ``SMALL_F32_TOL`` (1e-4); ssm / hybrid logits within
       the larger of 1e-4 and ``FLOOR_FACTOR`` times the same cut's f32
       kernels-against-plain gap (absolute; 1e-4 relative), as the train
-      phase holds their f32 steps;
+      phase holds their f32 steps; a MoE model's prefill and decode routes
+      by the routing rule against the f32 floor, and where one differs its
+      logits against the unmeshed steps replayed on the ranks' experts
+      (``mesh2_replay``);
     * each rank's launches per prefill, decode step and train step equal
       the expected counts and the one-card paths' (every flash launch the
       ``wgmma`` one; a path cut by ``MESH2_DEPTH`` against its cut
@@ -3038,17 +3126,76 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
     for k, want in (("first_loss", ref["losses"][0]),
                     ("first_grad_norm", max(ref["first_grad_norms"]))):
         bounds[k] += float(np.spacing(np.float32(abs(want))))
-    pre_ok, pre_gap = held_tol(pre, ref["prefill"], bounds["prefill"],
-                               torch.bfloat16)
-    dec_ok, dec_gap = True, 0.0
-    for a, b in zip(dec, ref["decode"]):
-        ok, err = held_tol(a, b, bounds["decode"], torch.bfloat16)
-        dec_ok, dec_gap = dec_ok and ok, max(dec_gap, err)
-    gaps = {"prefill": pre_gap, "decode": dec_gap,
-            "first_loss": abs(ranks[0]["losses"][0] - ref["losses"][0]),
+
+    def bf16_gaps(want, norms):
+        """(prefill and decode within their bounds, the four gaps) of the
+        ranks' bf16 steps against the unmeshed ``want``."""
+        pre_ok, pre_gap = held_tol(pre, want["prefill"], bounds["prefill"],
+                                   torch.bfloat16)
+        dec_ok, dec_gap = True, 0.0
+        for a, b in zip(dec, want["decode"]):
+            ok, err = held_tol(a, b, bounds["decode"], torch.bfloat16)
+            dec_ok, dec_gap = dec_ok and ok, max(dec_gap, err)
+        return (pre_ok, dec_ok), {
+            "prefill": pre_gap, "decode": dec_gap,
+            "first_loss": abs(ranks[0]["losses"][0] - want["losses"][0]),
             "first_grad_norm": max(abs(ranks[0]["grad_norms"][0] - n)
-                                   for n in ref["first_grad_norms"])}
+                                   for n in norms)}
+    # A MoE path's bf16 values are held against the unmeshed kernel steps
+    # replayed on the ranks' experts (``mesh2_replay``; ``pair_check``'s
+    # "replay"), its routes by the routing rule below: a flipped expert
+    # moves its token by far more than any rounding, and the mesh flips as
+    # many as the plain versions do.  The gaps on the unmeshed steps' own
+    # routes are printed.
+    own_gaps = None
+    if cfg.family == "moe":
+        rep = mesh2_replay(arch, torch.bfloat16, ranks[0]["routes"])
+        (pre_ok, dec_ok), gaps = bf16_gaps(rep, rep["grad_norms"])
+        own_gaps = bf16_gaps(ref, ref["first_grad_norms"])[1]
+        del rep
+    else:
+        (pre_ok, dec_ok), gaps = bf16_gaps(ref, ref["first_grad_norms"])
     del pre, dec
+    routing, route_checks, want32 = None, {}, ref32
+    if cfg.family == "moe":
+        # The MoE routing rule (``routes_held``) against the unmeshed
+        # kernels' routes, its floor their agreement with the plain
+        # versions' (bf16: the prefill's; f32: the prefill's and the decode
+        # steps'), the route the same on every rank.  Where an f32 route
+        # differs (a near-tie of the k-th and (k+1)-th expert that the
+        # mesh's other summation order flips: the unmeshed run's margins
+        # of the flipped pairs are printed), the f32 logits are held at
+        # 1e-4 against the unmeshed steps replayed on the ranks' experts,
+        # not against another computation.
+        agree = routing_agreement(ranks[0]["routes"][:cfg.n_layers],
+                                  ref["routes"])
+        got_r32 = ranks[0]["f32"]["routes"]
+        agree32 = routing_agreement(got_r32, ref32["routes"])
+        held32 = routes_held(agree32, ref32["routes_floor_agreement"], B * S)
+        flips = [m[(a != b).any(-1)] for a, b, m in
+                 zip(got_r32, ref32["routes"], ref32["route_margins"])]
+        flips = torch.cat(flips) if flips else torch.zeros(0)
+        routing = {"routing_agreement": agree, **routes_held(
+            agree, ref["routes_floor_agreement"], B * S),
+                   "f32_routing_agreement": agree32,
+                   "f32_floor_routing_agreement":
+                   held32["floor_routing_agreement"],
+                   "f32_routing_agreement_limit":
+                   held32["routing_agreement_limit"],
+                   "f32_rule": "tolerance" if agree32 == 1 else "replay",
+                   "f32_flipped_pairs": int(flips.numel()),
+                   "f32_flipped_margins_max":
+                   float(flips.max()) if flips.numel() else None}
+        route_checks = {
+            "routes_within_rule": routing["routes_ok"],
+            "routes_same_on_every_rank": all(
+                len(r["routes"]) == len(ranks[0]["routes"])
+                and all(torch.equal(a, b)
+                        for a, b in zip(r["routes"], ranks[0]["routes"]))
+                for r in ranks),
+            "f32_routes_within_rule": held32["routes_ok"]}
+        if agree32 < 1:
+            want32 = mesh2_replay(arch, torch.float32, got_r32)
     # f32 logits at 1e-4; ssm / hybrid at the larger of 1e-4 and
     # FLOOR_FACTOR times the cut's own f32 kernels-against-plain gap
     # (Mamba2 layers amplify f32 rounding past 1e-4 within 6 layers)
@@ -3057,16 +3204,20 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
                  FLOOR_FACTOR * ref32["floor_kernels_vs_plain"][k])
              for k in ("prefill", "decode")}
     pre32 = mesh2_assemble([r["f32"]["prefill"] for r in ranks], (B, S, V))
-    f32_pre_ok, f32_pre_err = held_tol(pre32, ref32["prefill"],
+    f32_pre_ok, f32_pre_err = held_tol(pre32, want32["prefill"],
                                        tol32["prefill"], rtol=SMALL_F32_TOL)
+    if want32 is not ref32:
+        routing["f32_prefill_max_abs_err_own_routing"] = held_tol(
+            pre32, ref32["prefill"], tol32["prefill"],
+            rtol=SMALL_F32_TOL)[1]
     f32_dec_ok, f32_dec_err = True, 0.0
     for i in range(MESH_DECODE_STEPS):
         d = mesh2_assemble([r["f32"]["decode"][i] for r in ranks],
                            (B, 1, V))
-        ok, err = held_tol(d, ref32["decode"][i], tol32["decode"],
+        ok, err = held_tol(d, want32["decode"][i], tol32["decode"],
                            rtol=SMALL_F32_TOL)
         f32_dec_ok, f32_dec_err = f32_dec_ok and ok, max(f32_dec_err, err)
-    del pre32
+    del pre32, want32
     got32 = np.asarray(ranks[0]["f32"]["losses"]
                        + ranks[0]["f32"]["grad_norms"])
     want32 = np.asarray(ref32["losses"] + ref32["grad_norms"])
@@ -3116,6 +3267,7 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
         "gloo_on_the_card": all(r["backend"] == "gloo" for r in ranks),
         "library_not_rebuilt": card["library_not_rebuilt"],
         "losses_finite": all(np.isfinite(r["losses"]).all() for r in ranks),
+        **route_checks,
     }
     out = {"arch": cfg.name, "path": path, "ok": all(checks.values()),
            "checks": checks, "mesh": dict(zip(("data", "model"),
@@ -3128,6 +3280,7 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
                          "why": "four ranks share one card: NCCL refuses "
                                 "two ranks on one device"},
            "gaps": gaps, "floor": floor, "bounds": bounds,
+           "routing": routing, "gaps_own_routing": own_gaps,
            "floor_kernels_vs_plain": ref["floor_kernels_vs_plain"],
            "floor_bf16_vs_f32": ref.get("floor_bf16_vs_f32"),
            "losses_mesh": ranks[0]["losses"], "losses_unmeshed_first":
@@ -3149,6 +3302,8 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
            "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
            "card_used_gb_by_rank": [r["card_used_gb"] for r in ranks],
            "card": card, "seconds_by_rank": [r["seconds"] for r in ranks],
+           "f32_seconds_by_rank": [r["seconds_f32"] for r in ranks],
+           "prepare_s": prep["seconds"],
            "per_prefill": {k: v for k, v in per[0]["prefill"].items() if v},
            "per_decode_step": {k: v for k, v in per[0]["decode"].items()
                                if v},

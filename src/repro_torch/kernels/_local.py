@@ -12,15 +12,21 @@ for RMSNorm; the sequence and the head dimension for attention, whose batch
 and heads stay sharded; the sequence for the SSD, whose batch and heads stay
 sharded.  Mamba2's depthwise convolution (plain torch, no kernel) takes the
 same road (``conv_on_shards``): DTensor's own convolution rule copies the
-input's placements whatever the weight's.
+input's placements whatever the weight's.  So does the MoE layer's route,
+dispatch, expert products and combine (``experts_on_shards``): DTensor has
+no sharding strategy for ``searchsorted``, gathers ``argsort``'s operand,
+and gives an ``index_select`` by a sharded index placements that are no
+row gather; and a route must see the whole batch to drop the tokens one
+device drops.
 
 Gradients: a weight or KV head that every local shard reads sums its
 gradient over those shards, so it leaves the local kernel as ``Partial()``
 over each mesh dimension that splits them (RMSNorm's ``dw`` over the
 sharded rows; K and V where the KV heads are replicated and each rank reads
 its own group's; the SSD's B and C, which every head reads, over the
-heads' mesh dimension; the convolution's weight over the batch's).
-``shard_calls()`` records each boundary call's local operand shapes.
+heads' mesh dimension; the convolution's weight over the batch's; the
+experts' tokens and weights over the capacity's).  ``shard_calls()``
+records each boundary call's local operand shapes.
 """
 from __future__ import annotations
 
@@ -219,3 +225,57 @@ def conv_on_shards(name: str, fn: Callable, x, w, state=None):
     return _on_shards(name, local, mesh, (xp, xp), [x, w] + extra,
                       [xp, wp] + [xp] * len(extra),
                       [xp, wg] + [xp] * len(extra))
+
+
+def experts_on_shards(gate: Callable, experts: Callable, h, router, w_gate,
+                      w_up, w_down, C: int, eh_placements):
+    """``(out (T, d), aux)`` of a top-k MoE layer on DTensors: h (T, d), the
+    router (d, E), w_gate / w_up (E, d, f) and w_down (E, f, d), C rows an
+    expert.  Two calls on local shards:
+
+    * the route, global and the same on every rank: ``gate(h, router) ->
+      (top_p, top_i, aux)`` on h's rows and the router's expert columns
+      gathered, so every rank sorts and drops the whole batch's pairs as
+      one device does; its results and both gradients are whole on every
+      rank (the router's is sliced back to its shards by the step);
+    * the experts: ``experts(h, top_p, top_i, w_gate, w_up, w_down, e0, c0,
+      Cl)`` on this rank's experts ``[e0, e0 + El)`` (the mesh dimensions
+      that split the weights' experts keep them split; everything else of
+      the weights, the FSDP axis, is gathered) and its capacity rows ``[c0,
+      c0 + Cl)`` (the mesh dimensions where ``eh_placements``, the rules'
+      placements of the (E, C, d) dispatch buffer, split the capacity and
+      not the experts).  Its ``out`` is ``Partial()`` over each mesh
+      dimension that splits the experts or the capacity, as are the
+      gradients of h and top_p; each weight's gradient is partial over a
+      mesh dimension that splits the capacity and keeps its expert
+      shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = h.device_mesh
+    E, d = w_gate.shape[0], h.shape[1]
+    whole = (Replicate(),) * mesh.ndim
+    hr = h.redistribute(mesh, whole)           # one gather for both calls
+    top_p, top_i, aux = _on_shards("moe_route", gate, mesh,
+                                   (whole, whole, whole), (hr, router),
+                                   (whole, whole), (whole, whole))
+    split, wp, wg, outp = [], [], [], []       # buffer, weights, grads, out
+    for m in range(mesh.ndim):
+        if _shard_dim(w_gate.placements[m], w_gate.ndim) == 0:
+            place = (Shard(0), Shard(0), Shard(0), Partial())
+        elif _shard_dim(eh_placements[m], 3) == 1:
+            place = (Shard(1), Replicate(), Partial(), Partial())
+        else:
+            place = (Replicate(),) * 4
+        for placements, q in zip((split, wp, wg, outp), place):
+            placements.append(q)
+    split, wp, wg, outp = map(tuple, (split, wp, wg, outp))
+    (El, Cl, _), (e0, c0, _) = compute_local_shape_and_global_offset(
+        (E, C, d), mesh, split)
+    if _CALLS is not None:                     # the dispatch buffer's block
+        _CALLS.append(("moe_buffer", ((El, Cl, d),)))
+    out = _on_shards("moe_experts", experts, mesh, (outp,),
+                     (hr, top_p, top_i, w_gate, w_up, w_down),
+                     (whole, whole, whole, wp, wp, wp),
+                     (outp, outp, whole, wg, wg, wg), args=(e0, c0, Cl))
+    return out, aux

@@ -209,7 +209,8 @@ def forward(params, cfg: ModelConfig, tokens=None, *, inputs_embeds=None,
                   ("batch", "seq", "act_embed"))
     B, S, d = x.shape
     positions = torch.arange(S, device=x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = replicated_like(torch.zeros((), dtype=torch.float32,
+                                      device=x.device), x)
     cross, img_k, img_v = [], None, None
     if cfg.family == "vlm":
         if img_embeds is None:
@@ -382,16 +383,19 @@ def lm_loss_chunked(x, params, cfg: ModelConfig, labels, aux=None,
     ``vocab_chunk`` so the (B, S, V) f32 logits never materialize; each
     chunk runs under a checkpoint, so the backward recomputes it.  The last
     chunk's columns past V score -1e30, as JAX's zero-padded head masked to
-    -1e30 does; the head is sliced per chunk instead of padded whole."""
+    -1e30 does; the head is sliced per chunk instead of padded whole.
+    Across ranks each chunk's logits are gathered along the vocab
+    (``whole``, as ``lm_loss`` does) and the running statistics take the
+    labels' placements, the batch's: DTensor chunks meet DTensor
+    accumulators."""
     head = _head(params, cfg)
     V = head.shape[-1]
     nb = -(-V // vocab_chunk)
-    B, S, _ = x.shape
     labels = labels.long()
 
     def body(m, s, gold, i):
         base = i * vocab_chunk
-        lg = (x @ head[:, base:base + vocab_chunk]).float()   # (B, S, <=chunk)
+        lg = whole(x @ head[:, base:base + vocab_chunk], -1).float()
         if lg.shape[-1] < vocab_chunk:
             lg = torch.nn.functional.pad(
                 lg, (0, vocab_chunk - lg.shape[-1]), value=-1e30)
@@ -402,9 +406,10 @@ def lm_loss_chunked(x, params, cfg: ModelConfig, labels, aux=None,
         in_chunk = (labels >= base) & (labels < base + vocab_chunk)
         return m_new, s, torch.where(in_chunk, g, gold)
 
-    m = torch.full((B, S), -1e30, dtype=torch.float32, device=x.device)
-    s = torch.zeros((B, S), dtype=torch.float32, device=x.device)
-    gold = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    m = torch.full_like(labels, -1e30, dtype=torch.float32)
+    s = torch.zeros_like(labels, dtype=torch.float32)
+    gold = torch.zeros_like(labels, dtype=torch.float32)
+    body = carried(body)         # the recompute runs in autograd's thread
     for i in range(nb):
         m, s, gold = checkpoint(body, m, s, gold, i, use_reentrant=False)
     loss = (torch.log(s) + m - gold).mean()

@@ -7,13 +7,14 @@ Counterpart of ``repro.serve.serve_step``.  ``make_prefill`` and
 inside ``sharding_ctx`` on the mesh's device; a device in the mesh's place
 builds the unmeshed step on that device.  Rules without a mesh raise
 (``sharding.context.step_target``).  On a ``DeviceMesh`` of more than one
-rank (a dense model) the params are DTensors placed by the rules
-(``sharding.distribute_tree``); each rank passes the same global tokens and
-decode state, and the step distributes them (``sharding.distribute_inputs``,
-``decode_state_shardings``; a state's DTensor leaves stay as they are, so
-the returned state is updated in place from the first step on).  The
-dry-run's steps (``trace=True``) take any mesh and run on ``meta`` tensors
-only.  ``lower_prefill`` and ``lower_serve_step`` return
+rank (a dense, moe, ssm or hybrid model) the params are DTensors placed by
+the rules (``sharding.distribute_tree``); each rank passes the same global
+tokens and decode state, and the step distributes them
+(``sharding.distribute_inputs``, ``decode_state_shardings``; a state's
+DTensor leaves stay as they are, so the returned state is updated in place
+from the first step on).  The dry-run's steps (``trace=True``) take any
+mesh and run on ``meta`` tensors only.  ``lower_prefill`` and
+``lower_serve_step`` return
 those steps with their abstract inputs (``roofline.trace.Lowered``).
 """
 from __future__ import annotations

@@ -11,8 +11,8 @@ a no-op (CPU tests, plain eager use).
 On a ``DeviceMesh`` of more than one rank (``launch.mesh.make_mesh``) the
 steps run with DTensor params, batch and decode state, and a plain tensor
 reaching ``constrain`` raises: a step's inputs arrive distributed
-(``sharding.rules.distribute_tree``).  The dense, ssm and hybrid families
-run so; moe, vlm and audio raise naming their ROADMAP item.  A mesh
+(``sharding.rules.distribute_tree``).  The dense, moe, ssm and hybrid
+families run so; vlm and audio raise naming their ROADMAP item.  A mesh
 without ranks (a stand-in whose ``shape`` is a dict,
 ``launch.mesh.abstract_mesh``, or a ``DeviceMesh`` over torch's fake group)
 executes nothing: given to an untraced step builder it raises.  A step
@@ -44,7 +44,7 @@ _RECORD: contextvars.ContextVar = contextvars.ContextVar("shard_record",
                                                          default=None)
 # The families a mesh of more than one rank does not run yet, by ROADMAP
 # Queue 1 item.
-_NOT_ACROSS_RANKS = {"moe": "5c", "vlm": "5d", "audio": "5d"}
+_NOT_ACROSS_RANKS = {"vlm": "5d", "audio": "5d"}
 
 
 @contextlib.contextmanager
@@ -83,10 +83,9 @@ def constrain(x: torch.Tensor, names: Sequence[Optional[str]]
                       "itemsize": x.element_size(),
                       "grad": x.requires_grad,
                       "backward": torch._C._current_graph_task_id() != -1})
-    mesh, rules = ctx
+    mesh = ctx[0]
     if is_dtensor(x):
-        spec = apply_rules(names, x.shape, mesh, rules)
-        y = x.redistribute(mesh, NamedSharding(mesh, spec).placements)
+        y = x.redistribute(mesh, placements(names, x.shape, mesh))
         if calls is not None:
             calls[-1]["placements"] = tuple(map(repr, y.placements))
         return y
@@ -97,6 +96,16 @@ def constrain(x: torch.Tensor, names: Sequence[Optional[str]]
         f"of {mesh_size(mesh)} devices {mesh_axes(mesh)}: a step's inputs "
         "arrive as DTensors (sharding.rules.distribute_tree), and so does "
         "everything computed from them")
+
+
+def placements(names: Sequence[Optional[str]], shape, mesh) -> tuple:
+    """The DTensor placements on ``mesh`` that ``constrain`` would give an
+    array of ``shape`` with the logical axes ``names``: the active
+    context's rules (``DEFAULT_RULES`` outside one)."""
+    ctx = _CTX.get()
+    rules = ctx[1] if ctx is not None else None
+    return NamedSharding(mesh, apply_rules(names, shape, mesh, rules)
+                         ).placements
 
 
 def has_ranks(mesh) -> bool:
@@ -132,7 +141,7 @@ def step_target(mesh, rules: Optional[LogicalRules] = None,
     device (a name, a ``torch.device``, or ``None`` for ``cuda``) gives the
     unmeshed step on it; a mesh, the meshed step on the mesh's device type.
     Rules without a mesh raise.  A mesh of more than one device runs a
-    dense, ssm or hybrid ``family`` (moe, vlm and audio raise, naming their
+    dense, moe, ssm or hybrid ``family`` (vlm and audio raise, naming their
     ROADMAP item) and must have ranks (``has_ranks``).  ``trace`` gives a
     step traced on ``meta`` (on any mesh, any family), whose inputs go
     through ``traced_input``."""
@@ -150,7 +159,8 @@ def step_target(mesh, rules: Optional[LogicalRules] = None,
             raise NotImplementedError(
                 f"the {family} family on a mesh of {n} devices "
                 f"{mesh_axes(mesh)}: not ported (ROADMAP.md Queue 1, item "
-                f"{item}); dense, ssm and hybrid models run across ranks")
+                f"{item}); dense, moe, ssm and hybrid models run across "
+                "ranks")
         if not has_ranks(mesh):
             raise NotImplementedError(
                 f"a mesh of {n} devices {mesh_axes(mesh)} without ranks "

@@ -7,8 +7,9 @@ step runs inside ``sharding_ctx`` with the batch on the mesh's device; on a
 one-device mesh the params and moments stay plain tensors and every result
 equals the unmeshed step's; rules without a mesh raise
 (``sharding.context.step_target``).  On a ``DeviceMesh`` of more than one
-rank (a dense model) the params and moments are DTensors placed by the
-rules (``sharding.distribute_tree`` of ``shardings_for``, ``init_state``),
+rank (a dense, moe, ssm or hybrid model) the params and moments are
+DTensors placed by the rules (``sharding.distribute_tree`` of
+``shardings_for``, ``init_state``),
 every rank passes the same global batch and the step distributes it
 (``sharding.distribute_inputs``, as ``batch_shardings`` places it); each
 grad is brought to its param's placements before AdamW (the data axis's

@@ -23,7 +23,8 @@ wrappers ran on local shards (their operand shapes); a checkpoint written by
 the four ranks restores bit for bit on one device and in the JAX package's
 ``CheckpointManager``, and on the mesh as DTensors of the rules'
 placements; a remat recompute run in a thread of its own constrains as the
-forward did.
+forward did; the chunked loss (``loss_impl="chunked"``, a ragged last
+chunk) against JAX's and against the dense loss across ranks.
 
 The ranks run in processes of their own (``launch.ranks.run_ranks``,
 spawned, one torch thread each, a ``FileStore``), never in the pytest
@@ -68,6 +69,9 @@ OPT = dict(lr=1e-2, warmup_steps=2, total_steps=4)
 TOL, PARAM_TOL = 1e-4, 1e-3
 CKPT_STEP = 4
 MICROBATCHES = 2
+# the chunked loss on the 2x2 mesh: 256 columns in chunks of 96, the last
+# one ragged (64 columns and 32 of padding)
+VOCAB_CHUNK, CHUNK_STEPS = 96, 2
 LOCK = os.path.join(tempfile.gettempdir(), "repro_torch_multirank.lock")
 
 
@@ -81,6 +85,22 @@ def one_rank_group():
             yield
         finally:
             fcntl.flock(f, fcntl.LOCK_UN)
+
+
+@contextlib.contextmanager
+def ragged_chunks():
+    """The train step's chunked loss in chunks of ``VOCAB_CHUNK`` columns,
+    the last one ragged (its module-level ``lm_loss_chunked`` given the
+    chunk, as the JAX side does with its own)."""
+    import functools
+    from repro_torch.train import train_step
+    real = train_step.lm_loss_chunked
+    train_step.lm_loss_chunked = functools.partial(real,
+                                                   vocab_chunk=VOCAB_CHUNK)
+    try:
+        yield
+    finally:
+        train_step.lm_loss_chunked = real
 
 
 def make_data(cfg) -> dict:
@@ -217,6 +237,29 @@ for name, shape in meshes.items():
         out[f"{key}/grad_norm"] = np.asarray(norms)
         for k, v in flat(p):
             out[f"{key}/param/{k}"] = host(v)
+    if name == "2x2":
+        # the chunked loss at a ragged chunk: the train step's module-level
+        # lm_loss_chunked, given the chunk (the reference takes no argument)
+        import functools
+        import repro.train.train_step as jts
+        jts.lm_loss_chunked = functools.partial(
+            jt.lm_loss_chunked, vocab_chunk=spec["vocab_chunk"])
+        tstep = jax.jit(make_train_step(cfg, jopt.AdamWConfig(**spec["opt"]),
+                                        mesh, DEFAULT_RULES, remat="full",
+                                        loss_impl="chunked"))
+        p, o = jp, jopt.init_state(jp)
+        losses, norms = [], []
+        for i in range(spec["chunk_steps"]):
+            toks = data[f"batch{i}"]
+            batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            batch = jax.device_put(batch, {k: logical_sharding(
+                ("batch", "seq"), v.shape, mesh, DEFAULT_RULES)
+                for k, v in batch.items()})
+            p, o, m = tstep(p, o, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        out["2x2/chunked/loss"] = np.asarray(losses)
+        out["2x2/chunked/grad_norm"] = np.asarray(norms)
 np.savez(os.path.join(where, "jax.npz"), **out)
 print("JAX_DONE")
 """
@@ -224,7 +267,8 @@ print("JAX_DONE")
 
 def _spec() -> dict:
     return {"arch": ARCH, "pos0": POS0, "decode_steps": DECODE_STEPS,
-            "train": TRAIN, "train_steps": TRAIN_STEPS, "opt": OPT}
+            "train": TRAIN, "train_steps": TRAIN_STEPS, "opt": OPT,
+            "vocab_chunk": VOCAB_CHUNK, "chunk_steps": CHUNK_STEPS}
 
 
 def _start_jax(where: Path) -> subprocess.Popen:
@@ -399,6 +443,17 @@ def rank_work(rank: int, where: str) -> dict:
         if name != "2x2":
             continue
         r["guards"] = _guards(dp)
+        train = make_train_step(cfg, AdamWConfig(**OPT), mesh, DEFAULT_RULES,
+                                remat="full", loss_impl="chunked")
+        cp = distribute_tree(params, psh)
+        co = init_state(cp)
+        r["chunked"] = {"loss": [], "grad_norm": []}
+        with ragged_chunks():
+            for i in range(CHUNK_STEPS):
+                cp, co, m = train(cp, co, _batch(data, i))
+                r["chunked"]["loss"].append(float(m["loss"].full_tensor()))
+                r["chunked"]["grad_norm"].append(
+                    float(m["grad_norm"].full_tensor()))
         train = make_train_step(cfg, AdamWConfig(**OPT), mesh, DEFAULT_RULES,
                                 remat="full", microbatches=MICROBATCHES)
         mp = distribute_tree(params, psh)
@@ -607,6 +662,19 @@ def test_microbatched_steps_split_the_sharded_batch(runs):
     for r in runs["ranks"]:
         _close(np.asarray(r["2x2"]["microbatched"]), want, TOL,
                "microbatched loss, grad norm")
+
+
+def test_chunked_loss_across_ranks_matches_jax_and_dense(runs):
+    """``loss_impl="chunked"`` on the 2x2 mesh, the vocab in chunks of 96
+    (the last one ragged): each train step's loss and grad norm at 1e-4 of
+    JAX's chunked loss on the four forced devices and of the port's dense
+    loss on the same ranks."""
+    jx = runs["jax"]
+    for r in runs["ranks"]:
+        got, dense = r["2x2"]["chunked"], r["2x2"]["train/full"]
+        for k in ("loss", "grad_norm"):
+            _close(got[k], jx[f"2x2/chunked/{k}"], TOL, f"{k} vs JAX")
+            _close(got[k], dense[k][:CHUNK_STEPS], TOL, f"{k} vs dense")
 
 
 def test_cuda_launchers_refuse_dtensors(runs):
