@@ -81,10 +81,12 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 footprint, event ms and ``train_step_flops``).  Its
                 process group is destroyed when it ends, so no later fork
                 inherits a live group.
-  6b2. mesh2x2 — ``mesh2x2/qwen3-1.7b``,
-                ``mesh2x2/zamba2-1.2b`` (all 38 Mamba2 layers, the shared
-                block firing 7 times) and ``mesh2x2/mamba2-370m`` (8 of 48
-                layers): the mesh path's steps for each
+  6b2. mesh2x2 — ``mesh2x2/<arch>`` for qwen3-1.7b, zamba2-1.2b,
+                mamba2-370m, granite-moe-3b-a800m, musicgen-large and
+                llama-3.2-vision-90b (depths by ``MESH2_RUNS``), then
+                qwen3-1.7b decoding under ``decode_weights_stationary``
+                (its KV cache split along the sequence): the mesh path's
+                steps for each
                 model at full width on a real (2, 2) ("data", "model")
                 ``DeviceMesh`` of four ranks spawned on the one card (gloo
                 with CUDA tensors, the functional all-gather staged
@@ -93,9 +95,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 chunk and its backward too) run on each rank's local
                 shards: bf16 logits, first loss and first grad norm
                 within ``FLOOR_FACTOR`` times the unmeshed
-                kernels-against-plain gap (plus one ulp; ssm / hybrid:
-                or the gap to their f32 evaluation), f32 cuts of 4 / 7 /
-                6 layers at 1e-4 (ssm / hybrid logits: or twice the cut's
+                kernels-against-plain gap (plus one ulp; ssm / hybrid /
+                audio: against their f32 evaluation, within twice the
+                farthest one-device bf16 evaluation's gap to it), f32
+                cuts at 1e-4 (ssm / hybrid logits: or twice the cut's
                 f32 kernels-against-plain gap), each rank's launches equal
                 to the expected counts, collectives (``CommDebugMode``) beside
                 the dry-run twin's reckoned ones, peak memory a rank and
@@ -779,16 +782,17 @@ def phase_kernels(build: dict) -> list:
     # shard of qwen3 on the (2, 2) mesh: 2 x 1024 rows of d_model (zamba2's
     # too), its 4 KV heads' norms (its 8 q heads' 16384 rows are a case
     # above) and decode's 2 rows; mamba2's 2 x 1024 rows of its d_model;
-    # granite's 2 x 1024 rows of its d_model (timed).
+    # granite's 2 x 1024 rows of its d_model (timed); musicgen's (timed, the
+    # (2048, 2048) case) and llama-vision's (2048, 8192) (timed).
     for rows, d, timed in [(4096, 2048, True), (65536, 128, True),
                            (32768, 128, True), (4, 2048, True),
                            (4096, 1024, True), (1000, 2048, False),
                            (64, 16384, False), (4096, 1536, True),
                            (131072, 128, True), (16384, 128, False),
                            (4096, 8192, True), (4, 8192, False),
-                           (2048, 2048, False), (8192, 128, False),
+                           (2048, 2048, True), (8192, 128, False),
                            (2, 2048, False), (2048, 1024, False),
-                           (2048, 1536, True)]:
+                           (2048, 1536, True), (2048, 8192, True)]:
         for dtype in (torch.bfloat16, torch.float32):
             results.append(rmsnorm_case(rows, d, dtype, gen, flush,
                                         timed and dtype == torch.bfloat16))
@@ -815,8 +819,13 @@ def phase_kernels(build: dict) -> list:
             ((4, 1, 1601, 64, 8, 128), False, 0, (bf16,)),
             ((4, 1024, 1024, 64, 8, 128), True, 0, (bf16,)),
             ((2, 1024, 1024, 8, 4, 128), True, 0, ()),    # qwen3, 2x2 shard
-            ((2, 1024, 1024, 16, 16, 64), True, 0, ()),   # zamba2, 2x2
-            ((2, 1024, 1024, 12, 4, 64), True, 0, (bf16,))]:  # granite, 2x2
+            # zamba2's and musicgen's 2x2 shard
+            ((2, 1024, 1024, 16, 16, 64), True, 0, (bf16,)),
+            ((2, 1024, 1024, 12, 4, 64), True, 0, (bf16,)),   # granite, 2x2
+            # llama-vision's 2x2 shard of its cross-attention: prefill, and
+            # decode's one query row
+            ((2, 1024, 1601, 32, 4, 128), False, 0, (bf16,)),
+            ((2, 1, 1601, 32, 4, 128), False, 0, (bf16,))]:
         for dtype in (bf16, f32):
             results.append(flash_case(*shape, causal, off, dtype, gen, flush,
                                       dtype in timed))
@@ -851,14 +860,14 @@ def phase_kernels(build: dict) -> list:
     # granite's d_model, llama-vision's d_model (the long-row kernel; in f32
     # eight vectors a thread), an f32 width just past the row groups' 512
     # vectors, fewer long rows than CTAs, a rank's shard of qwen3 on the
-    # (2, 2) mesh (d_model, the q and the k norms), of mamba2 and of
-    # granite (timed).
+    # (2, 2) mesh (d_model, the q and the k norms; musicgen's too, timed),
+    # of mamba2 and of granite (timed).
     for rows, d, timed in [(4096, 2048, True), (65536, 128, True),
                            (32768, 128, False), (1000, 2048, False),
                            (80, 64, False), (640, 16, False),
                            (4096, 1536, True), (4096, 8192, True),
                            (1000, 2056, False), (7, 8192, False),
-                           (2048, 2048, False), (16384, 128, False),
+                           (2048, 2048, True), (16384, 128, False),
                            (8192, 128, False), (2048, 1024, False),
                            (2048, 1536, True)]:
         for dtype in (bf16, f32):
@@ -868,8 +877,8 @@ def phase_kernels(build: dict) -> list:
     # (hd 64, timed in bf16), q_offset, non-causal over a ragged Skv, hd 64 /
     # 32 with ragged sequences, the reduced hd 16, granite's train shape
     # (GQA group 3, hd 64, timed in bf16), a ragged group 3 and a rank's
-    # shard of qwen3's, of zamba2's shared block and of granite's (timed in
-    # bf16) on the (2, 2) mesh.
+    # shard of qwen3's, of zamba2's shared block and musicgen's (timed in
+    # bf16) and of granite's (timed in bf16) on the (2, 2) mesh.
     for shape, causal, off, timed in [
             ((4, 1024, 1024, 16, 8, 128), True, 0, (bf16, f32)),
             ((4, 1024, 1024, 32, 32, 64), True, 0, (bf16,)),  # zamba2 shared
@@ -882,15 +891,18 @@ def phase_kernels(build: dict) -> list:
             ((4, 1024, 1024, 24, 8, 64), True, 0, (bf16,)),
             ((2, 200, 200, 6, 2, 64), True, 0, ()),
             ((2, 1024, 1024, 8, 4, 128), True, 0, ()),    # qwen3, 2x2 shard
-            ((2, 1024, 1024, 16, 16, 64), True, 0, ()),   # zamba2, 2x2
+            # zamba2's and musicgen's 2x2 shard
+            ((2, 1024, 1024, 16, 16, 64), True, 0, (bf16,)),
             ((2, 1024, 1024, 12, 4, 64), True, 0, (bf16,))]:  # granite, 2x2
         for dtype in (bf16, f32):
             results.append(flash_bwd_case(*shape, causal, off, dtype, gen,
                                           flush, dtype in timed, build))
     # llama-vision's train shapes, bf16: the non-causal cross-attention
-    # (timed; a ragged last key block of 65) and the causal self-attention.
+    # (timed; a ragged last key block of 65), the causal self-attention,
+    # and a 2x2 rank's shard of the cross-attention (timed).
     for shape, causal, timed in [((4, 1024, 1601, 64, 8, 128), False, True),
-                                 ((4, 1024, 1024, 64, 8, 128), True, False)]:
+                                 ((4, 1024, 1024, 64, 8, 128), True, False),
+                                 ((2, 1024, 1601, 32, 4, 128), False, True)]:
         results.append(flash_bwd_case(*shape, causal, 0, bf16, gen, flush,
                                       timed, build))
     for r in results:
@@ -1139,6 +1151,28 @@ def routing_agreement(a: list, b: list):
     return same / sum(x.shape[0] for x in a)
 
 
+def first_flips(a: list, b: list) -> list:
+    """The (call, token) route flips between two ``routing_log`` records of
+    the same calls that no earlier flip reaches.  Within a step a token's
+    input to a layer depends only on tokens at its own or a lower flat index
+    (b-major) at earlier layers: its own sequence's earlier positions through
+    causal attention, and the tokens before it in an expert's segment, which
+    decide its capacity drop.  So a flip reaches every token at or after its
+    index in every later call, and the pairs it reaches are its consequence,
+    not the arithmetic's (one flip in an early layer moves a whole sequence's
+    later tokens by O(1) and can flip hundreds of near-ties downstream).  A
+    remat recompute's call repeats its forward's routes, so its flips are
+    reached by the forward's.  Over decode steps, where rows do not share a
+    sequence, the rule overstates what a flip reaches."""
+    reach, sites = None, []
+    for c, (x, y) in enumerate(zip(a, b)):
+        idx = (x != y).any(-1).nonzero().flatten().tolist()
+        sites += [(c, i) for i in idx if reach is None or i < reach]
+        if idx:
+            reach = idx[0] if reach is None else min(reach, idx[0])
+    return sites
+
+
 @contextlib.contextmanager
 def plain_blocks(block_kv: int = 256, ssd_chunk: int = 128):
     """Inside: the plain flash forward takes its online softmax over
@@ -1159,17 +1193,47 @@ def plain_blocks(block_kv: int = 256, ssd_chunk: int = 128):
         fa_ops.flash_attention_ref, ssd_ops.ssd_ref = ref, sref
 
 
-def routes_held(agree: float, floor_agree: float, tokens: int) -> dict:
-    """The routing limit of a MoE pair: the kernels may flip at most
-    ROUTE_FACTOR times the (layer, token) routes that the floor flips
-    against the plain run, and never less than one token's routes in every
-    layer (1 / ``tokens`` of the pairs): once a token's route flips, its
-    later layers see another input, so one token is the smallest unit a
-    floor can show."""
-    limit = ROUTE_FACTOR * max(1 - floor_agree, 1 / tokens)
-    return {"floor_routing_agreement": floor_agree,
-            "routing_agreement_limit": 1 - limit,
-            "routes_ok": 1 - agree <= limit}
+def route_gap(a: list, b: list) -> dict:
+    """Two ``routing_log`` records of the same calls compared in both units
+    of ``routes_held``: the agreement of their (call, token) pairs and the
+    count of their first flips."""
+    return {"agreement": routing_agreement(a, b),
+            "first_flips": len(first_flips(a, b))}
+
+
+def routes_held(got: dict, floor: dict, tokens: int, f32: bool) -> dict:
+    """The routing limit of a MoE pair, from ``route_gap`` of the kernels'
+    run (``got``) and of the floor's (``floor``) against the plain run.
+
+    In bf16 the kernels may flip at most ROUTE_FACTOR times the (call,
+    token) pairs that the floor flips, and never less than one token's
+    routes in every call (1 / ``tokens`` of the pairs).  bf16 routes flip
+    everywhere (15-30 % of the pairs) and their cascades overlap, so the
+    pairs are a steady count (granite, 8 draws: the kernels 35.6-40.1
+    thousand, the floor 19.5-21.8, examples/moe_route_flips_torch.py).
+
+    In f32 a route flips only at a near-tie of the k-th and (k+1)-th router
+    probability (gaps of 2e-8 to 9e-8 in the same draws), 0 or 1 a step,
+    and each flip's cascade (``first_flips``) makes the pair count: one
+    flip gave 2 to 164 pairs, another 290.  So there the kernels may make
+    at most ROUTE_FACTOR times the floor's first flips, and never less than
+    ROUTE_FACTOR."""
+    r = {"floor_routing_agreement": floor["agreement"],
+         "first_flips": got["first_flips"],
+         "floor_first_flips": floor["first_flips"]}
+    if f32:
+        limit = ROUTE_FACTOR * max(floor["first_flips"], 1)
+        return {**r, "route_unit": "first flips", "first_flips_limit": limit,
+                "routes_ok": got["first_flips"] <= limit}
+    limit = ROUTE_FACTOR * max(1 - floor["agreement"], 1 / tokens)
+    return {**r, "route_unit": "pairs", "routing_agreement_limit": 1 - limit,
+            "routes_ok": 1 - got["agreement"] <= limit}
+
+
+def dtype_of(params) -> torch.dtype:
+    """The type of a parameter tree's first tensor."""
+    v = next(iter(params.values()))
+    return next(iter(v.values())).dtype if isinstance(v, dict) else v.dtype
 
 
 def pair_check(p, run, got=None, rk=None) -> dict:
@@ -1205,8 +1269,9 @@ def pair_check(p, run, got=None, rk=None) -> dict:
             del want
             with routing_log() as rf, plain_blocks():
                 run(p, True)
-            r.update(routes_held(agree, routing_agreement(rf, rp),
-                                 rp[0].shape[0]))
+            r.update(routes_held(route_gap(rk, rp), route_gap(rf, rp),
+                                 rp[0].shape[0],
+                                 dtype_of(p) == torch.float32))
             with routing_log(replay=rk):
                 want = run(p, True)
             ok, err_replay = held(got, want)
@@ -1735,8 +1800,8 @@ def grad_pair(cfg, p, batch, dtype) -> dict:
             del plain
             with routing_log() as rf:
                 plain_floor(cfg, p, batch)
-            r.update(routes_held(agree, routing_agreement(rf, rp),
-                                 rp[0].shape[0]))
+            r.update(routes_held(route_gap(rk, rp), route_gap(rf, rp),
+                                 rp[0].shape[0], dtype == torch.float32))
             del rf
             with routing_log(replay=replay):
                 plain = plain_step(p, batch)
@@ -2378,21 +2443,32 @@ def leaf_gaps(a: dict, b: dict) -> dict:
 
 def mesh_inputs(cfg):
     """The mesh paths' inputs: a 4 x 1024 prefill's token ids (int32, as
-    ``batch_structs`` and the lowered twins declare them; seed 0), the
-    decode steps' token ids (numpy, seed 3) and the train batches (seed
-    7), on the card."""
-    inputs = {k: v.to(torch.int32)
+    ``batch_structs`` and the lowered twins declare them; seed 0), or
+    audio's frame embeddings, and a vlm's image (``model_inputs``); the
+    decode steps' token ids (numpy, seed 3; ``mesh_feed``); and the train
+    batches (seed 7; audio's frames and a vlm's images from seed 107 on,
+    ``with_inputs``), on the card."""
+    inputs = {k: v.to(torch.int32) if k == "tokens" else v
               for k, v in model_inputs(cfg, 4, 1024, 0).items()}
     toks = np.random.default_rng(3).integers(
         0, cfg.vocab, (4, MESH_DECODE_STEPS)).astype(np.int32)
     gen = torch.Generator(device="cuda").manual_seed(7)
     batches = []
-    for _ in range(MESH_TRAIN_STEPS):
+    for i in range(MESH_TRAIN_STEPS):
         t = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S + 1), generator=gen,
                           device="cuda").to(torch.int32)
-        batches.append({"tokens": t[:, :-1].contiguous(),
-                        "labels": t[:, 1:].contiguous()})
+        batches.append(with_inputs(cfg, {"tokens": t[:, :-1].contiguous(),
+                                         "labels": t[:, 1:].contiguous()},
+                                   107 + i))
     return inputs, toks, batches
+
+
+def mesh_feed(cfg, toks, i: int) -> dict:
+    """Decode step ``i``'s input: its column of ``toks``, or audio's frame
+    embedding (seed 200 + i, ``step_inputs``)."""
+    if cfg.family == "audio":
+        return step_inputs(cfg, 4, 200 + i)
+    return {"tokens": toks[:, i:i + 1]}
 
 
 def run_mesh(paths: dict) -> dict:
@@ -2566,23 +2642,57 @@ def run_mesh(paths: dict) -> dict:
 
 
 MESH2 = "mesh2x2/qwen3-1.7b"
-# The 2 x 2 paths, each a model at full width on the four ranks, in order.
-MESH2_PATHS = (MESH2, "mesh2x2/zamba2-1.2b", "mesh2x2/mamba2-370m",
-               "mesh2x2/granite-moe-3b-a800m")
+@dataclasses.dataclass(frozen=True)
+class Mesh2Run:
+    """What a 2 x 2 path runs of its model (full width, seed 0): the bf16
+    steps on ``depth`` layers (None: all), ``decode_steps`` decode steps
+    and, where it ``trains``, one train step (both tallied and timed,
+    ``mesh2_rank``), and the f32 pair on ``f32_depth`` layers
+    (``MESH_TRAIN_STEPS`` train steps where the path trains;
+    ``f32_decode`` False: its prefill alone)."""
+    depth: int | None
+    f32_depth: int
+    decode_steps: int = MESH_DECODE_STEPS
+    trains: bool = True
+    f32_decode: bool = True
+
+
+# The 2 x 2 paths in order, each its model at full width on the four
+# ranks, every one drawn at its cut depth.  Depths, to keep the script
+# under 1100 s of its 1200: qwen3 whole (its bf16 decode gap sits at its
+# bound at 28 layers and misses it at 14), its f32 pair on 4; zamba2 on
+# 14 of 38 (the shared block fires at 0, 6 and 12), f32 on 7 (firing at 0
+# and 6); mamba2 on 8 of 48 (its four ranks took 173 s at 48 layers, 45 s
+# at 8), f32 on 6 (the train phase holds a 6-layer f32 step of the ssm /
+# hybrid models at 1e-4, while full-depth f32 rounding alone reaches
+# 2.3-3.6e-4; their f32 logits pass 1e-4 sooner: ``mesh2_check``); granite
+# on 4 of 32, f32 on 4; musicgen on 8 of 48, f32 on 4; llama-vision on 10
+# of 100, the fewest that hold two cross layers (layers 0 and 5: the
+# second reads the second layer of the sharded image stack; 10.96 G
+# params, 21.9 GB), 2 decode steps, no train step (its AdamW moments of 10
+# layers are 88 GB in f32, and a loss and grads across the four gloo
+# ranks would stage ~30 GB a rank through the host: its rank-shard flash
+# backward is a kernel case, and vlm training across ranks is held
+# against the JAX package on the CPU, tests/test_torch_multirank_vlm_audio
+# .py), its f32 pair on 5 layers (one cross layer), the prefill alone.
+# granite 8 -> 4, llama-vision's f32 decode and zamba2 38 -> 14 were cut
+# in that order to fit, and one bf16 train step a path (PERF.md §6).
+MESH2_RUNS = {"qwen3-1.7b": Mesh2Run(None, 4),
+              "zamba2-1.2b": Mesh2Run(14, 7),
+              "mamba2-370m": Mesh2Run(8, 6),
+              "granite-moe-3b-a800m": Mesh2Run(4, 4),
+              AUDIO: Mesh2Run(8, 4),
+              VLM: Mesh2Run(10, 5, decode_steps=2, trains=False,
+                            f32_decode=False)}
+MESH2_PATHS = tuple(f"mesh2x2/{arch}" for arch in MESH2_RUNS)
 MESH2_SHAPE = (2, 2)              # ("data", "model")
-# Layers of the f32 pairs (full width): qwen3's 4; zamba2's 7, its shared
-# block firing at layers 0 and 6; mamba2's 6 (the train phase holds a
-# 6-layer f32 step of the ssm / hybrid models at 1e-4, while full-depth
-# f32 rounding alone reaches 2.3-3.6e-4; their f32 logits pass 1e-4
-# sooner: ``mesh2_check``); granite's 4.
-MESH2_F32_DEPTH = {"qwen3-1.7b": 4, "zamba2-1.2b": 7, "mamba2-370m": 6,
-                   "granite-moe-3b-a800m": 4}
-# Layers of a path's bf16 steps where fewer than the config's, to keep the
-# script under 1100 s of its 1200: mamba2's (its four ranks took 173 s at
-# 48 layers, 45 s at 8) and granite's (8 of 32); qwen3 and zamba2 run
-# whole.  (qwen3's bf16 decode gap sits at its bound at 28 layers and
-# misses it at 14.)
-MESH2_DEPTH = {"mamba2-370m": 8, "granite-moe-3b-a800m": 8}
+# qwen3-1.7b decoding with its KV cache split along the sequence (over
+# "model"), under a variant of the rules: 8 steps from an empty state of
+# 8 positions, 4 on each "model" rank (``mesh2_variant``).
+MESH2_VARIANT = "decode_weights_stationary"
+MESH2_VARIANT_ARCH = "qwen3-1.7b"
+MESH2_VARIANT_PATH = f"{MESH2}/{MESH2_VARIANT}"
+MESH2_VARIANT_MAX_SEQ = 8
 MESH2_TIMEOUT_S = 900
 # unmeshed kernel runs of the first train step's grad norm: the bf16 flash
 # backward sums dQ in an order that varies, which moves qwen3-1.7b's norm
@@ -2595,32 +2705,49 @@ def mesh2_arch(path: str) -> str:
     return path.split("/", 1)[1]
 
 
+def mesh2_decode_steps(cfg, f32: bool = False) -> int:
+    run = MESH2_RUNS[cfg.name]
+    return 0 if f32 and not run.f32_decode else run.decode_steps
+
+
+def mesh2_state(cfg, params, inputs, max_seq: int = MESH_MAX_SEQ) -> dict:
+    """An empty decode state of a batch of 4 on the card, its bf16 leaves
+    in the params' type (an f32 run keeps its KV cache, and an ssm /
+    hybrid its conv state, in f32, since a bf16 cache rounds each new k /
+    v, and a last-bit difference that crosses a rounding midpoint moves a
+    logit by ~1e-4; the SSD state is f32 in either); a vlm's image K/V
+    from the prefill's image and ``params`` (DTensors across ranks, the
+    image the global one)."""
+    from repro_torch.models.transformer import init_decode_state
+    vlm = cfg.family == "vlm"
+    state = init_decode_state(cfg, 4, max_seq, device="cuda",
+                              img_embeds=inputs["img_embeds"] if vlm else None,
+                              params=params if vlm else None)
+    dtype = params["final_norm"].dtype
+    return {k: v.to(dtype) if torch.is_tensor(v) and v.dtype == torch.bfloat16
+            else v for k, v in state.items()}
+
+
 def mesh2_steps(cfg, params, inputs, toks, batches, prefill, step, train,
                 force_ref: bool = False) -> dict:
     """One run of the mesh paths' steps: the prefill's logits, each decode
-    step's (from an empty state of ``MESH_MAX_SEQ`` positions, its bf16
-    leaves in the params' type: an f32 run keeps its KV cache, and an ssm /
-    hybrid its conv state, in f32, since a bf16 cache rounds each new k /
-    v, and a last-bit difference that crosses a rounding midpoint moves a
-    logit by ~1e-4; the SSD state is f32 in either), and the losses and
-    grad norms of ``MESH_TRAIN_STEPS`` train steps from a copy of
+    step's (``mesh2_decode_steps`` from an empty state of ``MESH_MAX_SEQ``
+    positions, ``mesh2_state``; inputs by ``mesh_feed``), and the losses
+    and grad norms of ``MESH_TRAIN_STEPS`` train steps from a copy of
     ``params`` (``train`` builds the step; None: the first loss and grad
     norm alone, by ``make_value_and_grad``, ``force_ref`` as asked; False:
     no training)."""
     from repro_torch import is_dtensor
-    from repro_torch.models.transformer import init_decode_state
     from repro_torch.train.optimizer import global_norm, init_state
     from repro_torch.train.train_step import make_value_and_grad
 
     def scalar(t):
         return float(t.full_tensor() if is_dtensor(t) else t)
     out = {"prefill": prefill(params, **inputs), "decode": []}
-    state = init_decode_state(cfg, 4, MESH_MAX_SEQ, device="cuda")
-    dtype = params["final_norm"].dtype
-    state = {k: v.to(dtype) if torch.is_tensor(v) and v.dtype == torch.bfloat16
-             else v for k, v in state.items()}
-    for i in range(MESH_DECODE_STEPS):
-        logits, state = step(params, state, toks[:, i:i + 1])
+    state = mesh2_state(cfg, params, inputs)
+    f32 = params["final_norm"].dtype == torch.float32
+    for i in range(mesh2_decode_steps(cfg, f32)):
+        logits, state = step(params, state, **mesh_feed(cfg, toks, i))
         out["decode"].append(logits)
     if train is False:
         return out
@@ -2653,14 +2780,17 @@ def gap(got, want) -> float:
 
 def floor_of(kern: dict, other: dict, norms: list) -> dict:
     """The gaps of an unmeshed kernel run (``mesh2_steps``) to another run
-    of the same steps: logits, first loss, and the first grad norm of each
-    of ``norms`` (the kernel runs')."""
-    return {"prefill": gap(kern["prefill"], other["prefill"]),
-            "decode": max(gap(a, b) for a, b in zip(kern["decode"],
+    of the same steps: logits, and where they trained, first loss and the
+    first grad norm of each of ``norms`` (the kernel runs')."""
+    out = {"prefill": gap(kern["prefill"], other["prefill"]),
+           "decode": max((gap(a, b) for a, b in zip(kern["decode"],
                                                     other["decode"])),
-            "first_loss": abs(kern["losses"][0] - other["losses"][0]),
-            "first_grad_norm": max(abs(n - other["grad_norms"][0])
-                                   for n in norms)}
+                         default=0.0)}
+    if "losses" in kern:
+        out["first_loss"] = abs(kern["losses"][0] - other["losses"][0])
+        out["first_grad_norm"] = max(abs(n - other["grad_norms"][0])
+                                     for n in norms)
+    return out
 
 
 def mesh2_references(cfg, params, inputs, toks, batches, dtype) -> dict:
@@ -2672,21 +2802,27 @@ def mesh2_references(cfg, params, inputs, toks, batches, dtype) -> dict:
     gaps to the plain run's); in f32 the train steps too, and the same
     kernels-against-plain gaps (printed).
 
-    ssm / hybrid / moe in bf16 also take the kernels' gap to the same
-    steps on the same weights cast to f32 (``floor_bf16_vs_f32``), and
-    their floor is the larger of the two gaps: their kernels and plain
-    versions differ in f32 sums only (the SSD chunk; decode runs no kernel
-    that rounds otherwise, so its kernels-against-plain gap is 0, or, for
-    moe, the RMSNorm's last bit), while the mesh rounds each layer's
-    partial products in bf16 once more, which 38-48 Mamba2 layers amplify
-    and which moves MoE routes (a flipped expert moves its token's logits
-    by far more than any rounding); two bf16 evaluations of one function
-    lie within twice the farther one's distance from its f32 value.
+    ssm / hybrid / moe / audio in bf16 also run the same steps on the same
+    weights cast to f32 (``exact``), and their floor takes the kernels' gap
+    to it (``floor_bf16_vs_f32``): their kernels and plain versions differ
+    in f32 sums only (the SSD chunk; decode runs no kernel that rounds
+    otherwise, so its kernels-against-plain gap is 0, or, for moe and
+    audio, the RMSNorm's last bit), while the mesh rounds each rank's
+    partial products to bf16 before their bf16 sum, which Mamba2 layers
+    amplify and which moves MoE routes.  ssm / hybrid / audio also keep
+    ``exact``'s values (``f32_eval``) and the plain versions' gap to them
+    (``floor_plain_vs_f32``): ``mesh2_check`` holds their mesh against
+    ``exact`` within ``FLOOR_FACTOR`` times the farthest one-device bf16
+    evaluation's distance from it, the largest of the three gaps.  (Held
+    against the unmeshed kernels within twice their own distance from
+    ``exact``, a draw on which that distance happens to be small fails:
+    mamba2's first loss and zamba2's first grad norm on their weights
+    drawn at 8 and 14 layers, ``examples/mesh2_floor_witness_torch.py``.)
 
     A MoE model's runs log their routes (``routing_log``): ``routes`` holds
     the kernel run's, the prefill's in bf16 and the prefill's and decode
-    steps' in f32 (``mesh2_routed``), ``routes_floor_agreement`` their
-    agreement with the plain run's (the floor of the mesh's routes,
+    steps' in f32 (``mesh2_routed``), ``routes_floor`` their
+    ``route_gap`` to the plain run's (the floor of the mesh's routes,
     ``routes_held``), and in f32 ``route_margins`` each of those calls'
     gap between every token's k-th and (k+1)-th router probability."""
     from repro_torch.serve.serve_step import make_prefill, make_serve_step
@@ -2706,40 +2842,55 @@ def mesh2_references(cfg, params, inputs, toks, batches, dtype) -> dict:
     f32 = dtype == torch.float32
     n = mesh2_routed(cfg, f32)
     margins = [] if f32 else None
-    kern = run(False, make_train_step(
+    trains = MESH2_RUNS[cfg.name].trains
+    kern = run(False, False if not trains else make_train_step(
         cfg, AdamWConfig(total_steps=MESH_TRAIN_STEPS), remat="full")
         if f32 else None, margins)
     ref = {"prefill": kern["prefill"].cpu(),
            "decode": [t.cpu() for t in kern["decode"]],
-           "losses": kern["losses"], "grad_norms": kern["grad_norms"],
            "routes": kern["routes"][:n]}
-    plain = run(True, None)
+    if trains:
+        ref.update(losses=kern["losses"], grad_norms=kern["grad_norms"])
+    plain = run(True, None if trains else False)
     if n:
-        ref["routes_floor_agreement"] = routing_agreement(
-            kern["routes"][:n], plain["routes"][:n])
+        ref["routes_floor"] = route_gap(kern["routes"][:n],
+                                        plain["routes"][:n])
     if f32:                              # printed beside the f32 errors
-        ref["floor_kernels_vs_plain"] = floor_of(kern, plain,
-                                                 kern["grad_norms"][:1])
+        ref["floor_kernels_vs_plain"] = floor_of(
+            kern, plain, kern.get("grad_norms", [])[:1])
         ref["route_margins"] = margins[:n]
         del plain
     else:
-        vg = make_value_and_grad(cfg, remat="full")
-        norms = ref["first_grad_norms"] = kern["grad_norms"] + [
-            float(global_norm(vg(params, batches[0])[1]))
-            for _ in range(MESH2_NORM_RUNS - 1)]
+        norms = []
+        if trains:
+            vg = make_value_and_grad(cfg, remat="full")
+            norms = ref["first_grad_norms"] = kern["grad_norms"] + [
+                float(global_norm(vg(params, batches[0])[1]))
+                for _ in range(MESH2_NORM_RUNS - 1)]
         ref["floor"] = ref["floor_kernels_vs_plain"] = floor_of(
             kern, plain, norms)
-        del plain
-        if cfg.family in ("ssm", "hybrid", "moe"):
+        if cfg.family in ("ssm", "hybrid", "moe", "audio"):
             p32 = tree_to(params, lambda t: t.float())
             exact = mesh2_steps(cfg, p32, inputs, toks, batches,
                                 make_prefill(cfg, "cuda"),
-                                make_serve_step(cfg, "cuda"), None)
+                                make_serve_step(cfg, "cuda"),
+                                None if trains else False)
             del p32
             ref["floor_bf16_vs_f32"] = floor_of(kern, exact, norms)
             ref["floor"] = {k: max(v, ref["floor_bf16_vs_f32"][k])
                             for k, v in ref["floor"].items()}
+            if cfg.family != "moe":      # the mesh is held against exact
+                ref["floor_plain_vs_f32"] = floor_of(
+                    plain, exact, plain.get("grad_norms", []))
+                ref["floor"] = {k: max(v, ref["floor_plain_vs_f32"][k])
+                                for k, v in ref["floor"].items()}
+                ref["f32_eval"] = {
+                    "prefill": exact["prefill"].cpu(),
+                    "decode": [t.cpu() for t in exact["decode"]],
+                    **{k: exact[k] for k in ("losses", "grad_norms")
+                       if k in exact}}
             del exact
+        del plain
     del kern
     torch.cuda.empty_cache()
     return ref
@@ -2754,38 +2905,50 @@ def mesh2_routed(cfg, f32: bool) -> int:
     return cfg.n_layers * (1 + MESH_DECODE_STEPS * f32)
 
 
-def mesh2_weights(arch: str, dtype, depth=None):
-    """(cfg, params) of a 2 x 2 path on the card: the model drawn at full
-    depth from seed 0 (``init_model``'s weights), cut to its first
-    ``depth`` layers (copied) and cast to ``dtype``."""
+def mesh2_weights(arch: str, dtype, depth=None, place=None, seed: int = 0):
+    """(cfg, params) of a 2 x 2 path on the card: the model on its first
+    ``depth`` layers (default: all) drawn at that depth from ``seed`` as
+    ``init_model`` draws it, a vlm's gates opened (``open_gates``), each
+    leaf cast to ``dtype`` and, with ``place(path, leaf)``, replaced by
+    what that returns (a rank's shard) as it is drawn, so that the whole
+    model is never on the card at once."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
     cfg = get_config(arch)
-    full = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     if depth is not None:
-        cfg, full = cut_depth(cfg, full, depth, clone=True)
-    return cfg, tree_to(full, lambda t: t.to(dtype))
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+
+    def leaf(path, t):
+        if path == ("cross", "ca_gate"):
+            t = open_gates(cfg, {"cross": {"ca_gate": t}},
+                           seed)["cross"]["ca_gate"]
+        t = t.to(dtype)
+        return t if place is None else place(path, t)
+    return cfg, init_params(cfg,
+                            torch.Generator(device="cuda").manual_seed(seed),
+                            each=leaf)
 
 
 def mesh2_rank(rank: int, job: dict) -> dict:
     """One rank of ``run_mesh2``, for each model of ``job["archs"]`` in
-    turn: the model (seed 0, bf16, full width, ``MESH2_DEPTH``'s layers or
-    all) placed on the (2, 2) mesh by ``DEFAULT_RULES``, then the mesh
-    paths' steps through ``make_prefill`` / ``make_serve_step`` /
-    ``make_train_step`` on it, counted from 0 (this process's counts); the
-    first prefill, decode step and train step under ``CollectiveTally``,
-    the second prefill and train step and the last decode step timed
-    (every rank starts each at a barrier, and samples the card's memory
-    in use by every process after it); then the same steps with the
-    weights cut to ``MESH2_F32_DEPTH`` layers and cast to f32.  Returns,
-    by model, this rank's blocks of every logits tensor, the losses and
-    grad norms, its launches, times, peak memory and collectives."""
+    turn: the model (seed 0, bf16, full width, its ``MESH2_RUNS`` depth)
+    placed on the (2, 2) mesh by ``DEFAULT_RULES`` leaf by leaf as it is
+    drawn (``mesh2_placed``), then the mesh paths' steps through
+    ``make_prefill`` / ``make_serve_step`` / ``make_train_step`` on it
+    (its ``MESH2_RUNS`` decode and train steps), counted from 0 (this
+    process's counts); the first prefill, decode step and train step
+    under ``CollectiveTally``, the second prefill, the last decode step
+    and the one train step (cold, under the tally) timed (every rank
+    starts each at a barrier, and samples the card's memory in use by
+    every process after it); the peak memory of the draw and of the steps
+    apart; then the f32 pair.  After qwen3-1.7b, its decode under
+    ``MESH2_VARIANT`` (``mesh2_variant``).  Returns, by model, this rank's
+    blocks of every logits tensor, the losses and grad norms, its
+    launches, times, peak memory and collectives."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.transformer import build_specs, init_decode_state
     from repro_torch.serve.serve_step import make_prefill, make_serve_step
-    from repro_torch.sharding import (DEFAULT_RULES, distribute_tree,
-                                      shardings_for)
+    from repro_torch.sharding import DEFAULT_RULES
     from repro_torch.sharding.collectives import (STAGED, CollectiveTally,
                                                   stage_through_host)
     from repro_torch.train.optimizer import AdamWConfig, init_state
@@ -2799,15 +2962,8 @@ def mesh2_rank(rank: int, job: dict) -> dict:
               "device": torch.cuda.get_device_name(0)}
     card_used = []
 
-    def placed(arch, dtype, depth=None):
-        """The seed's weights placed on the mesh; the full copy is
-        freed."""
-        cfg, full = mesh2_weights(arch, dtype, depth)
-        p = distribute_tree(full, shardings_for(build_specs(cfg), mesh,
-                                                DEFAULT_RULES))
-        del full
-        torch.cuda.empty_cache()
-        return cfg, p
+    def placed(arch, dtype, depth=None, rules=DEFAULT_RULES):
+        return mesh2_placed(mesh, arch, dtype, depth, rules)
 
     def timed(fn):
         dist.barrier()
@@ -2819,32 +2975,26 @@ def mesh2_rank(rank: int, job: dict) -> dict:
         card_used.append(total - free)
         return r, (time.perf_counter() - t0) * 1e3
 
-    def local(t):
-        """(global offset, this rank's block on the host) of a DTensor; a
-        partial sum (the decode step's head leaves its logits partial over
-        "data") is reduced first."""
-        from torch.distributed.tensor import Replicate
-        from torch.distributed.tensor._utils import (
-            compute_local_shape_and_global_offset)
-        t = t.redistribute(t.device_mesh, [
-            Replicate() if p.is_partial() else p for p in t.placements])
-        _, offset = compute_local_shape_and_global_offset(
-            t.shape, t.device_mesh, t.placements)
-        return tuple(offset), t.to_local().cpu()
-
     results = {}
     for arch in job["archs"]:
         t_arch = time.perf_counter()
         card_used.clear()
         STAGED.clear()
-        cfg, params = placed(arch, torch.bfloat16, MESH2_DEPTH.get(arch))
+        run = MESH2_RUNS[arch]
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params = placed(arch, torch.bfloat16, run.depth)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t_arch
+        draw_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()     # the steps' peak from here
+        trains = run.trains
+        n_dec = mesh2_decode_steps(cfg)
         inputs, toks, batches = mesh_inputs(cfg)
         prefill = make_prefill(cfg, mesh, DEFAULT_RULES)
         step = make_serve_step(cfg, mesh, DEFAULT_RULES)
         train = make_train_step(cfg, AdamWConfig(
             total_steps=MESH_TRAIN_STEPS), mesh, DEFAULT_RULES, remat="full")
         comm, ms = {}, {}
-        torch.cuda.reset_peak_memory_stats()
         reset_counts()                   # this rank's path starts here
         # a MoE model's routes: the first prefill's, every decode step's
         # and the first train step's (its forward and its recompute)
@@ -2853,67 +3003,71 @@ def mesh2_rank(rank: int, job: dict) -> dict:
         comm["prefill"] = tally
         logits, ms["prefill"] = timed(lambda: prefill(params, **inputs))
         marks = [counts()]
-        state = init_decode_state(cfg, 4, MESH_MAX_SEQ, device="cuda")
+        state = mesh2_state(cfg, params, inputs)
         decode = []
         with routing_log() as more:
-            for i in range(MESH_DECODE_STEPS):
-                feed = toks[:, i:i + 1]
+            for i in range(n_dec):
+                feed = mesh_feed(cfg, toks, i)
                 if i == 0:
                     with CollectiveTally() as tally:
-                        lg, state = step(params, state, feed)
+                        lg, state = step(params, state, **feed)
                     comm["decode"] = tally
-                elif i == MESH_DECODE_STEPS - 1:
+                elif i == n_dec - 1:
                     (lg, state), ms["decode"] = timed(
-                        lambda: step(params, state, feed))
+                        lambda: step(params, state, **feed))
                 else:
-                    lg, state = step(params, state, feed)
-                decode.append(local(lg))
+                    lg, state = step(params, state, **feed)
+                decode.append(mesh2_local(lg))
         routes += more
         marks.append(counts())
-        p = tree_to(params, torch.clone)
-        opt = init_state(p)
         losses, norms = [], []
-        for i, b in enumerate(batches):
-            if i == 0:
+        if trains:                       # one step: the checks read its
+            p = tree_to(params, torch.clone)      # loss and grad norm
+            opt = init_state(p)
+
+            def tallied():
                 with CollectiveTally() as tally, routing_log() as more:
-                    p, opt, m = train(p, opt, b)
-                comm["train"] = tally
-                routes += more
-            else:
-                (p, opt, m), ms["train"] = timed(lambda: train(p, opt, b))
+                    return train(p, opt, batches[0]), tally, more
+            ((p, opt, m), comm["train"], more), ms["train"] = timed(tallied)
+            routes += more
             losses.append(float(m["loss"].full_tensor()))
             norms.append(float(m["grad_norm"].full_tensor()))
+            del p, opt, m
         launches = counts()              # ... and ends here
         out = dict(common)
         out.update(
-            prefill=local(logits), prefill_first_equal=bool(torch.equal(
-                first.to_local(), logits.to_local())),
+            prefill=mesh2_local(logits),
+            prefill_first_equal=bool(torch.equal(first.to_local(),
+                                                 logits.to_local())),
             placements={"prefill": list(map(repr, logits.placements)),
                         "decode": list(map(repr, lg.placements))},
             decode=decode, losses=losses, grad_norms=norms, ms=ms,
             launches=launches, marks=marks,
             routes=[t.cpu() for t in routes],
-            comm={k: {"counts": {str(op).rsplit(".", 1)[-1]: n for op, n in
-                                 t.get_comm_counts().items()},
-                      "bytes": dict(t.comm_bytes)} for k, t in comm.items()},
+            comm={k: mesh2_comm(t) for k, t in comm.items()},
             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-            card_used_gb=max(card_used) / 1e9)
-        del params, p, opt, first, logits, state, m
+            draw_peak_gb=draw_peak_gb,
+            card_used_gb=max(card_used) / 1e9, draw_s=draw_s)
+        if cfg.family == "vlm":          # the image K/V's placements
+            out["img_kv_placements"] = list(map(repr,
+                                                state["img_kv"][0].placements))
+        del params, first, logits, state
         torch.cuda.empty_cache()
-        # the f32 pairs, on the first MESH2_F32_DEPTH layers
+        # the f32 pair, on its own depth
         t_f32 = time.perf_counter()
-        cfg32, p32 = placed(arch, torch.float32, MESH2_F32_DEPTH[arch])
+        cfg32, p32 = placed(arch, torch.float32, run.f32_depth)
         with routing_log() as routes:
             r32 = mesh2_steps(cfg32, p32, inputs, toks, batches,
                               make_prefill(cfg32, mesh, DEFAULT_RULES),
                               make_serve_step(cfg32, mesh, DEFAULT_RULES),
                               make_train_step(cfg32, AdamWConfig(
                                   total_steps=MESH_TRAIN_STEPS), mesh,
-                                  DEFAULT_RULES, remat="full"))
-        out["f32"] = {"prefill": local(r32["prefill"]),
-                      "decode": [local(t) for t in r32["decode"]],
-                      "losses": r32["losses"],
-                      "grad_norms": r32["grad_norms"],
+                                  DEFAULT_RULES, remat="full")
+                              if trains else False)
+        out["f32"] = {"prefill": mesh2_local(r32["prefill"]),
+                      "decode": [mesh2_local(t) for t in r32["decode"]],
+                      "losses": r32.get("losses", []),
+                      "grad_norms": r32.get("grad_norms", []),
                       "routes": [t.cpu() for t in
                                  routes[:mesh2_routed(cfg32, True)]]}
         out["staged"] = {k: dict(v) for k, v in STAGED.items()}
@@ -2922,7 +3076,117 @@ def mesh2_rank(rank: int, job: dict) -> dict:
         del p32, r32, inputs, batches
         torch.cuda.empty_cache()
         results[arch] = out
+        if arch == MESH2_VARIANT_ARCH and job.get("variant"):
+            results[MESH2_VARIANT_PATH] = dict(
+                mesh2_variant(mesh, placed, timed, card_used),
+                coord=common["coord"])
     return results
+
+
+def mesh2_placed(mesh, arch: str, dtype, depth=None, rules=None,
+                 seed: int = 0):
+    """(cfg, params) of ``mesh2_weights`` placed on ``mesh`` by ``rules``,
+    each leaf as it is drawn: this rank keeps its shard (``distribute_tree``
+    copies it) and the drawn leaf is freed before the next one."""
+    from repro_torch.models.transformer import build_specs
+    from repro_torch.sharding import distribute_tree, shardings_for
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    shardings = shardings_for(build_specs(cfg), mesh, rules)
+
+    def place(path, t):
+        sh = shardings
+        for k in path:
+            sh = sh[k]
+        return distribute_tree(t, sh)
+    cfg, params = mesh2_weights(arch, dtype, depth, place, seed)
+    torch.cuda.empty_cache()
+    return cfg, params
+
+
+def mesh2_local(t):
+    """(global offset, this rank's block on the host) of a DTensor; a
+    partial sum (the decode step's head leaves its logits partial over
+    "data") is reduced first."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    t = t.redistribute(t.device_mesh, [
+        Replicate() if p.is_partial() else p for p in t.placements])
+    _, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    return tuple(offset), t.to_local().cpu()
+
+
+def mesh2_comm(tally) -> dict:
+    """A ``CollectiveTally``'s counts and bytes by collective."""
+    return {"counts": {str(op).rsplit(".", 1)[-1]: n for op, n in
+                       tally.get_comm_counts().items()},
+            "bytes": dict(tally.comm_bytes)}
+
+
+def mesh2_variant(mesh, placed, timed, card_used) -> dict:
+    """qwen3-1.7b decoding under ``MESH2_VARIANT`` (its rules: no FSDP,
+    the KV heads whole, the caches' sequence over "model"), the model
+    drawn and placed again by those rules: ``MESH_DECODE_STEPS`` steps
+    from an empty state of ``MESH2_VARIANT_MAX_SEQ`` positions in bf16 at
+    full depth (counted from 0, the first step under ``CollectiveTally``,
+    the last timed), then in f32 on its ``MESH2_RUNS`` f32 depth.  Returns
+    this rank's logits blocks, its cache block along the sequence and the
+    positions written into it (nonzero), launches, times and
+    collectives."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    from repro_torch.launch.variants import apply_variant
+    from repro_torch.serve.serve_step import make_serve_step
+    from repro_torch.sharding import DEFAULT_RULES
+    from repro_torch.sharding.collectives import STAGED, CollectiveTally
+    arch = MESH2_VARIANT_ARCH
+    rules = apply_variant(DEFAULT_RULES, arch, "decode", MESH2_VARIANT)
+    out = {}
+    t0 = time.perf_counter()
+    STAGED.clear()
+    card_used.clear()
+    for dtype, depth in ((torch.bfloat16, None),
+                         (torch.float32, MESH2_RUNS[arch].f32_depth)):
+        cfg, params = placed(arch, dtype, depth, rules)
+        step = make_serve_step(cfg, mesh, rules)
+        _, toks, _ = mesh_inputs(cfg)
+        state = mesh2_state(cfg, params, {}, MESH2_VARIANT_MAX_SEQ)
+        r = out[str(dtype).rsplit(".", 1)[1]] = {"decode": []}
+        f32 = dtype == torch.float32
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()                   # the variant's path starts here
+        for i in range(MESH_DECODE_STEPS):
+            feed = mesh_feed(cfg, toks, i)
+            if i == 0 and not f32:
+                with CollectiveTally() as tally:
+                    lg, state = step(params, state, **feed)
+                r["comm"] = mesh2_comm(tally)
+            elif i == MESH_DECODE_STEPS - 1 and not f32:
+                (lg, state), r["ms"] = timed(lambda: step(params, state,
+                                                          **feed))
+            else:
+                lg, state = step(params, state, **feed)
+            r["decode"].append(mesh2_local(lg))
+        r["launches"] = counts()         # ... and ends here
+        k = state["k"]
+        size, offset = compute_local_shape_and_global_offset(
+            k.shape, k.device_mesh, k.placements)
+        local = k.to_local()
+        r["seq_block"] = [offset[2], size[2]]
+        r["written"] = [offset[2] + p for p in range(size[2])
+                        if bool(local[:, :, p].any())]
+        r["cache_placements"] = list(map(repr, k.placements))
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del params, state, lg
+        torch.cuda.empty_cache()
+    out["staged"] = {k: dict(v) for k, v in STAGED.items()}
+    out["card_used_gb"] = max(card_used) / 1e9 if card_used else None
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def mesh2_assemble(blocks: list, shape) -> torch.Tensor:
@@ -2949,8 +3213,9 @@ def mesh2_replay(arch: str, dtype, routes: list) -> dict:
     calls) gave it (``routing_log(replay=...)``); logits on the host."""
     from repro_torch.serve.serve_step import make_prefill, make_serve_step
     f32 = dtype == torch.float32
-    cfg, params = mesh2_weights(arch, dtype, MESH2_F32_DEPTH[arch] if f32
-                                else MESH2_DEPTH.get(arch))
+    run = MESH2_RUNS[arch]
+    cfg, params = mesh2_weights(arch, dtype, run.f32_depth if f32
+                                else run.depth)
     inputs, toks, batches = mesh_inputs(cfg)
     with routing_log(replay=[t.cuda() for t in routes]):
         out = mesh2_steps(cfg, params, inputs, toks, batches,
@@ -2964,18 +3229,19 @@ def mesh2_replay(arch: str, dtype, routes: list) -> dict:
 
 
 def expected_per_decode_step(cfg) -> dict:
-    """Kernel launches of one decode step of a dense, moe, ssm or hybrid
-    model: a forward's RMSNorms, and no flash or SSD chunk launch (decode
-    attention and the SSD step are plain torch)."""
+    """Kernel launches of one decode step: a forward's RMSNorms, no SSD
+    chunk launch and no flash launch for self-attention (decode attention
+    and the SSD step are plain torch); a vlm's cross-attention launches
+    flash (one query row) each time a cross layer fires."""
     fwd = expected_per_forward(cfg)
-    return {**fwd, "ssd_chunk": 0, "flash_attention": 0,
-            "flash_attention/wgmma": 0}
+    return {**fwd, "ssd_chunk": 0, "flash_attention": cross_fired(cfg),
+            "flash_attention/wgmma": cross_fired(cfg)}
 
 
 def mesh2_prepare(arch: str) -> dict:
     """The parent's share of a 2 x 2 path, before the ranks start: the
     unmeshed references (``mesh2_references``) in bf16 at the path's depth
-    and in f32 on ``MESH2_F32_DEPTH`` layers, and the dry-run twin's
+    and in f32 on its f32 depth (``MESH2_RUNS``), and the dry-run twin's
     reckoned collectives of each step on the same mesh and rules.  Frees
     every tensor it put on the card."""
     from repro_torch.launch.mesh import AbstractMesh
@@ -2983,13 +3249,16 @@ def mesh2_prepare(arch: str) -> dict:
     from repro_torch.sharding import DEFAULT_RULES
     from repro_torch.train.train_step import lower_train_step
     t0 = time.perf_counter()
-    depth = MESH2_DEPTH.get(arch)
+    depth = MESH2_RUNS[arch].depth
     cfg, params = mesh2_weights(arch, torch.bfloat16, depth)
     inputs, toks, batches = mesh_inputs(cfg)
     ref = mesh2_references(cfg, params, inputs, toks, batches, torch.bfloat16)
+    variant = mesh2_variant_references(cfg, params) \
+        if arch == MESH2_VARIANT_ARCH else None
     del params
     torch.cuda.empty_cache()
-    cfg32, p32 = mesh2_weights(arch, torch.float32, MESH2_F32_DEPTH[arch])
+    cfg32, p32 = mesh2_weights(arch, torch.float32,
+                               MESH2_RUNS[arch].f32_depth)
     ref32 = mesh2_references(cfg32, p32, inputs, toks, batches, torch.float32)
     del p32, inputs, batches
     torch.cuda.empty_cache()
@@ -2998,11 +3267,61 @@ def mesh2_prepare(arch: str) -> dict:
              "train": lower_train_step}
     reckoned = {}
     for kind, shape in mesh_shapes().items():
+        if kind == "train" and not MESH2_RUNS[arch].trains:
+            continue
         c = lower[kind](cfg, shape, mesh, DEFAULT_RULES).compile()
         c = c.collectives()
         reckoned[kind] = {"counts": c.counts, "bytes": c.bytes_by_kind}
     return {"cfg": cfg, "depth": depth, "ref": ref, "ref32": ref32,
-            "reckoned": reckoned, "seconds": time.perf_counter() - t0}
+            "variant": variant, "reckoned": reckoned,
+            "seconds": time.perf_counter() - t0}
+
+
+def mesh2_variant_references(cfg, params) -> dict:
+    """The parent's share of ``mesh2_variant``: the unmeshed decode of
+    ``MESH_DECODE_STEPS`` steps from an empty state of
+    ``MESH2_VARIANT_MAX_SEQ`` positions, on the host: in bf16 the kernels'
+    logits, and the floor of the variant's bound, the larger of their gap
+    to the plain versions' and to the same steps on the weights cast to f32
+    (decode runs the RMSNorm kernel alone, which differs from its plain
+    version in a last bit, while the mesh's other split rounds each
+    layer's partial products in bf16 once more: the ssm / hybrid / moe
+    rule of ``mesh2_references``); in f32 on its f32 depth the
+    kernels' logits; and the dry-run twin's reckoned collectives of that
+    decode step under the variant's rules."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.variants import apply_variant
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.serve.serve_step import lower_serve_step, make_serve_step
+    from repro_torch.sharding import DEFAULT_RULES
+    _, toks, _ = mesh_inputs(cfg)
+
+    def run(c, p, force_ref=False):
+        step = make_serve_step(c, "cuda", force_ref=force_ref)
+        state = mesh2_state(c, p, {}, MESH2_VARIANT_MAX_SEQ)
+        out = []
+        for i in range(MESH_DECODE_STEPS):
+            lg, state = step(p, state, **mesh_feed(c, toks, i))
+            out.append(lg.cpu())
+        return out
+    kern, plain = run(cfg, params), run(cfg, params, True)
+    p32 = tree_to(params, lambda t: t.float())
+    exact = run(cfg, p32)
+    del p32
+    floor = {"kernels_vs_plain": max(gap(a, b) for a, b in zip(kern, plain)),
+             "bf16_vs_f32": max(gap(a, b) for a, b in zip(kern, exact))}
+    cfg32, p32 = mesh2_weights(cfg.name, torch.float32,
+                               MESH2_RUNS[cfg.name].f32_depth)
+    want32 = run(cfg32, p32)
+    del p32, plain, exact
+    torch.cuda.empty_cache()
+    rules = apply_variant(DEFAULT_RULES, cfg.name, "decode", MESH2_VARIANT)
+    mesh = AbstractMesh(tuple(zip(("data", "model"), MESH2_SHAPE)))
+    c = lower_serve_step(cfg, ShapeSpec("mesh2_variant_decode",
+                                        MESH2_VARIANT_MAX_SEQ, 4, "decode"),
+                         mesh, rules).compile().collectives()
+    return {"decode": kern, "floor": floor, "f32_decode": want32,
+            "reckoned": {"counts": c.counts, "bytes": c.bytes_by_kind}}
 
 
 def card_memory_watch(stop: threading.Event, out: list,
@@ -3017,16 +3336,20 @@ def card_memory_watch(stop: threading.Event, out: list,
 
 def run_mesh2(paths: dict) -> dict:
     """The ``MESH2_PATHS``: ``mesh2x2/qwen3-1.7b``, ``mesh2x2/zamba2-1.2b``
-    (38 Mamba2 layers, the shared block firing 7 times),
-    ``mesh2x2/mamba2-370m`` and ``mesh2x2/granite-moe-3b-a800m`` (40
-    experts top-8, 20 a rank), each its model at full width (bf16, seed 0;
-    ``MESH2_DEPTH`` layers where it cuts one: mamba2's and granite's)
-    prefilling 4 x 1024 tokens,
-    taking ``MESH_DECODE_STEPS`` decode steps of a batch of 4 and
-    ``MESH_TRAIN_STEPS`` train steps (remat "full", AdamW) through
+    (the shared block firing at 0, 6 and 12), ``mesh2x2/mamba2-370m``,
+    ``mesh2x2/granite-moe-3b-a800m`` (40 experts top-8, 20 a rank),
+    ``mesh2x2/musicgen-large`` (frame embeddings) and
+    ``mesh2x2/llama-3.2-vision-90b`` (two cross layers, gates open, the
+    decode state's image K/V from the image), each its model at full width
+    (bf16, seed 0, drawn at its ``MESH2_RUNS`` depth) prefilling 4 x
+    1024 tokens, taking its decode steps of a batch of 4 and one train
+    step (remat "full", AdamW; none for llama-vision; the f32 pairs
+    ``MESH_TRAIN_STEPS``) through
     ``make_prefill`` / ``make_serve_step`` / ``make_train_step`` on a real
     (2, 2) ("data", "model") ``DeviceMesh`` of four ranks under
-    ``DEFAULT_RULES`` (``mesh2_rank``, which runs the paths in turn).  The
+    ``DEFAULT_RULES`` (``mesh2_rank``, which runs the paths in turn), and
+    qwen3-1.7b decoding under ``MESH2_VARIANT`` (``mesh2_variant``, held
+    by ``mesh2_variant_check``).  The
     four ranks share the one card: spawned processes
     (``launch.ranks.run_ranks``), gloo with CUDA tensors (NCCL refuses two
     ranks on one device), the functional all-gather staged through the
@@ -3041,15 +3364,19 @@ def run_mesh2(paths: dict) -> dict:
       the same weights, within ``FLOOR_FACTOR`` times the unmeshed
       kernels-against-plain gap of the same run (``mesh2_references``;
       the largest of each element's gaps, and of the grad norm's gaps to
-      each of the unmeshed kernel runs; ssm / hybrid / moe: the larger of
-      that gap and the unmeshed bf16 steps' gap to their f32 evaluation; a
+      each of the unmeshed kernel runs; moe: the larger of that gap and
+      the unmeshed bf16 steps' gap to their f32 evaluation, on the
+      unmeshed steps replayed on the ranks' experts; ssm / hybrid / audio:
+      against that f32 evaluation, within ``FLOOR_FACTOR`` times the
+      largest of the kernels' and the plain versions' gaps to it and to
+      each other; a
       logit also gets one bf16 ulp of its value, ``close_enough``'s rule
       for bf16, and the loss and the grad norm, both f32, one f32 ulp of
       theirs); a MoE model's prefill routes by the routing rule
       (``routes_held``: at most ``ROUTE_FACTOR`` times the routes that
       the unmeshed kernels flip against the plain versions), and the
       same on every rank (the route is the whole batch's);
-    * f32, the weights cut to ``MESH2_F32_DEPTH`` layers (and the decode
+    * f32, the model on its f32 depth (``MESH2_RUNS``; and the decode
       state in f32, ``mesh2_steps``): the same steps' logits, losses and
       grad norms at ``SMALL_F32_TOL`` (1e-4); ssm / hybrid logits within
       the larger of 1e-4 and ``FLOOR_FACTOR`` times the same cut's f32
@@ -3060,8 +3387,9 @@ def run_mesh2(paths: dict) -> dict:
       (``mesh2_replay``);
     * each rank's launches per prefill, decode step and train step equal
       the expected counts and the one-card paths' (every flash launch the
-      ``wgmma`` one; a path cut by ``MESH2_DEPTH`` against its cut
-      model's expected counts alone);
+      ``wgmma`` one; a path cut in depth against its cut
+      model's expected counts alone); a vlm's image K/V placed as
+      ``CACHE_AXES["img_kv"]`` gives them;
     * the ranks did not rebuild the kernels (``build.log`` untouched).
 
     Printed, not held: each rank's step times, peak memory, the card's
@@ -3076,6 +3404,7 @@ def run_mesh2(paths: dict) -> dict:
     torch.backends.cudnn.allow_tf32 = False          # (the conv's f32 too)
     archs = [mesh2_arch(p) for p in MESH2_PATHS]
     prep = {arch: mesh2_prepare(arch) for arch in archs}
+    variant = prep.get(MESH2_VARIANT_ARCH, {}).get("variant")
     torch.cuda.empty_cache()
     parent_gb = torch.cuda.memory_allocated() / 1e9
     log = _build.BUILD_DIR / "build.log"
@@ -3086,7 +3415,8 @@ def run_mesh2(paths: dict) -> dict:
     watch.start()
     t0 = time.perf_counter()
     try:
-        ranks = run_ranks(mesh2_rank, 4, {"archs": archs},
+        ranks = run_ranks(mesh2_rank, 4, {"archs": archs,
+                                          "variant": variant is not None},
                           timeout=MESH2_TIMEOUT_S)
     finally:
         stop.set()
@@ -3103,6 +3433,11 @@ def run_mesh2(paths: dict) -> dict:
                                      [r[arch] for r in ranks], paths, card)
         if bad:
             failed[path] = bad
+    if variant is not None:
+        out[MESH2_VARIANT_PATH], bad = mesh2_variant_check(
+            variant, [r[MESH2_VARIANT_PATH] for r in ranks], card)
+        if bad:
+            failed[MESH2_VARIANT_PATH] = bad
     if failed:
         raise AssertionError(f"2 x 2 paths failed: {failed}")
     return out
@@ -3118,14 +3453,17 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
                              prep["ref32"])
     coords = [r["coord"] for r in ranks]
     B, S, V = 4, 1024, cfg.vocab
+    run = MESH2_RUNS[arch]
+    n_dec, trains = mesh2_decode_steps(cfg), run.trains
     pre = mesh2_assemble([r["prefill"] for r in ranks], (B, S, V))
     dec = [mesh2_assemble([r["decode"][i] for r in ranks], (B, 1, V))
-           for i in range(MESH_DECODE_STEPS)]
+           for i in range(n_dec)]
     floor = ref["floor"]
     bounds = {k: FLOOR_FACTOR * v for k, v in floor.items()}
-    for k, want in (("first_loss", ref["losses"][0]),
-                    ("first_grad_norm", max(ref["first_grad_norms"]))):
-        bounds[k] += float(np.spacing(np.float32(abs(want))))
+    if trains:
+        for k, want in (("first_loss", ref["losses"][0]),
+                        ("first_grad_norm", max(ref["first_grad_norms"]))):
+            bounds[k] += float(np.spacing(np.float32(abs(want))))
 
     def bf16_gaps(want, norms):
         """(prefill and decode within their bounds, the four gaps) of the
@@ -3136,53 +3474,60 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
         for a, b in zip(dec, want["decode"]):
             ok, err = held_tol(a, b, bounds["decode"], torch.bfloat16)
             dec_ok, dec_gap = dec_ok and ok, max(dec_gap, err)
-        return (pre_ok, dec_ok), {
-            "prefill": pre_gap, "decode": dec_gap,
-            "first_loss": abs(ranks[0]["losses"][0] - want["losses"][0]),
-            "first_grad_norm": max(abs(ranks[0]["grad_norms"][0] - n)
-                                   for n in norms)}
+        gaps = {"prefill": pre_gap, "decode": dec_gap}
+        if trains:
+            gaps["first_loss"] = abs(ranks[0]["losses"][0]
+                                     - want["losses"][0])
+            gaps["first_grad_norm"] = max(abs(ranks[0]["grad_norms"][0] - n)
+                                          for n in norms)
+        return (pre_ok, dec_ok), gaps
     # A MoE path's bf16 values are held against the unmeshed kernel steps
     # replayed on the ranks' experts (``mesh2_replay``; ``pair_check``'s
     # "replay"), its routes by the routing rule below: a flipped expert
     # moves its token by far more than any rounding, and the mesh flips as
     # many as the plain versions do.  The gaps on the unmeshed steps' own
     # routes are printed.
-    own_gaps = None
+    # ssm / hybrid / audio: against the f32 evaluation of the same weights
+    # (``mesh2_references``).  Either way the gaps to the unmeshed kernel
+    # steps are printed.
+    kernel_gaps = None
     if cfg.family == "moe":
         rep = mesh2_replay(arch, torch.bfloat16, ranks[0]["routes"])
         (pre_ok, dec_ok), gaps = bf16_gaps(rep, rep["grad_norms"])
-        own_gaps = bf16_gaps(ref, ref["first_grad_norms"])[1]
         del rep
+    elif "f32_eval" in ref:
+        (pre_ok, dec_ok), gaps = bf16_gaps(ref["f32_eval"],
+                                           ref["f32_eval"].get("grad_norms"))
     else:
-        (pre_ok, dec_ok), gaps = bf16_gaps(ref, ref["first_grad_norms"])
+        (pre_ok, dec_ok), gaps = bf16_gaps(ref, ref.get("first_grad_norms"))
+    if cfg.family == "moe" or "f32_eval" in ref:
+        kernel_gaps = bf16_gaps(ref, ref.get("first_grad_norms"))[1]
     del pre, dec
     routing, route_checks, want32 = None, {}, ref32
     if cfg.family == "moe":
         # The MoE routing rule (``routes_held``) against the unmeshed
-        # kernels' routes, its floor their agreement with the plain
-        # versions' (bf16: the prefill's; f32: the prefill's and the decode
-        # steps'), the route the same on every rank.  Where an f32 route
+        # kernels' routes, its floor their ``route_gap`` to the plain
+        # versions' (bf16: the prefill's, in pairs; f32: the prefill's and
+        # the decode steps', in first flips), the route the same on every
+        # rank.  Where an f32 route
         # differs (a near-tie of the k-th and (k+1)-th expert that the
         # mesh's other summation order flips: the unmeshed run's margins
         # of the flipped pairs are printed), the f32 logits are held at
         # 1e-4 against the unmeshed steps replayed on the ranks' experts,
         # not against another computation.
-        agree = routing_agreement(ranks[0]["routes"][:cfg.n_layers],
-                                  ref["routes"])
+        got = route_gap(ranks[0]["routes"][:cfg.n_layers], ref["routes"])
         got_r32 = ranks[0]["f32"]["routes"]
-        agree32 = routing_agreement(got_r32, ref32["routes"])
-        held32 = routes_held(agree32, ref32["routes_floor_agreement"], B * S)
+        got32 = route_gap(got_r32, ref32["routes"])
+        held32 = routes_held(got32, ref32["routes_floor"], B * S, True)
         flips = [m[(a != b).any(-1)] for a, b, m in
                  zip(got_r32, ref32["routes"], ref32["route_margins"])]
         flips = torch.cat(flips) if flips else torch.zeros(0)
-        routing = {"routing_agreement": agree, **routes_held(
-            agree, ref["routes_floor_agreement"], B * S),
-                   "f32_routing_agreement": agree32,
-                   "f32_floor_routing_agreement":
-                   held32["floor_routing_agreement"],
-                   "f32_routing_agreement_limit":
-                   held32["routing_agreement_limit"],
-                   "f32_rule": "tolerance" if agree32 == 1 else "replay",
+        routing = {"routing_agreement": got["agreement"], **routes_held(
+            got, ref["routes_floor"], B * S, False),
+                   "f32_routing_agreement": got32["agreement"],
+                   **{f"f32_{k}": v for k, v in held32.items()},
+                   "f32_rule": ("tolerance" if got32["agreement"] == 1
+                                else "replay"),
                    "f32_flipped_pairs": int(flips.numel()),
                    "f32_flipped_margins_max":
                    float(flips.max()) if flips.numel() else None}
@@ -3194,7 +3539,7 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
                         for a, b in zip(r["routes"], ranks[0]["routes"]))
                 for r in ranks),
             "f32_routes_within_rule": held32["routes_ok"]}
-        if agree32 < 1:
+        if got32["agreement"] < 1:
             want32 = mesh2_replay(arch, torch.float32, got_r32)
     # f32 logits at 1e-4; ssm / hybrid at the larger of 1e-4 and
     # FLOOR_FACTOR times the cut's own f32 kernels-against-plain gap
@@ -3211,7 +3556,7 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
             pre32, ref32["prefill"], tol32["prefill"],
             rtol=SMALL_F32_TOL)[1]
     f32_dec_ok, f32_dec_err = True, 0.0
-    for i in range(MESH_DECODE_STEPS):
+    for i in range(mesh2_decode_steps(cfg, True)):
         d = mesh2_assemble([r["f32"]["decode"][i] for r in ranks],
                            (B, 1, V))
         ok, err = held_tol(d, want32["decode"][i], tol32["decode"],
@@ -3220,17 +3565,16 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
     del pre32, want32
     got32 = np.asarray(ranks[0]["f32"]["losses"]
                        + ranks[0]["f32"]["grad_norms"])
-    want32 = np.asarray(ref32["losses"] + ref32["grad_norms"])
+    want32 = np.asarray(ref32.get("losses", []) + ref32.get("grad_norms", []))
     f32_scalars_ok = bool(np.allclose(got32, want32, atol=SMALL_F32_TOL,
                                       rtol=SMALL_F32_TOL))
-    n = MESH_DECODE_STEPS
     per = []
     for r in ranks:
         pre_m, dec_m = r["marks"]
         per.append({
             "prefill": {k: v / 2 for k, v in pre_m.items()},
-            "decode": {k: (v - pre_m[k]) / n for k, v in dec_m.items()},
-            "train": {k: (v - dec_m[k]) / MESH_TRAIN_STEPS
+            "decode": {k: (v - pre_m[k]) / n_dec for k, v in dec_m.items()},
+            "train": {k: v - dec_m[k]
                       for k, v in r["launches"].items()}})
     # the one-card paths' counts, where the path runs their model whole
     whole = prep["depth"] is None
@@ -3239,20 +3583,14 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
     one_train = paths[f"train/{arch}"]["per_train_step"] if whole else None
     want = {"prefill": expected_per_forward(cfg),
             "decode": expected_per_decode_step(cfg),
-            "train": expected_per_train_step(cfg)}
+            "train": expected_per_train_step(cfg) if trains
+            else dict.fromkeys(expected_per_train_step(cfg), 0)}
     one = paths.get(MESH, {}).get("step_ms", {}) \
         if path == MESH2 and whole else {}
     checks = {
         "prefill_within_floor": pre_ok,
         "decode_within_floor": dec_ok,
-        "first_loss_within_floor": gaps["first_loss"]
-        <= bounds["first_loss"],
-        "first_grad_norm_within_floor": gaps["first_grad_norm"]
-        <= bounds["first_grad_norm"],
         "f32_prefill_logits": f32_pre_ok, "f32_decode_logits": f32_dec_ok,
-        "f32_losses_grad_norms": f32_scalars_ok,
-        "ranks_agree": all(r["losses"] == ranks[0]["losses"]
-                           for r in ranks),
         "prefill_repeatable": all(r["prefill_first_equal"] for r in ranks),
         "prefill_launches": all(q["prefill"] == want["prefill"]
                                 and one_pre in (None, q["prefill"])
@@ -3266,9 +3604,23 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
         "four_ranks": sorted(coords) == [(0, 0), (0, 1), (1, 0), (1, 1)],
         "gloo_on_the_card": all(r["backend"] == "gloo" for r in ranks),
         "library_not_rebuilt": card["library_not_rebuilt"],
-        "losses_finite": all(np.isfinite(r["losses"]).all() for r in ranks),
         **route_checks,
     }
+    if trains:
+        checks.update({
+            "first_loss_within_floor": gaps["first_loss"]
+            <= bounds["first_loss"],
+            "first_grad_norm_within_floor": gaps["first_grad_norm"]
+            <= bounds["first_grad_norm"],
+            "f32_losses_grad_norms": f32_scalars_ok,
+            "ranks_agree": all(r["losses"] == ranks[0]["losses"]
+                               for r in ranks),
+            "losses_finite": all(np.isfinite(r["losses"]).all()
+                                 for r in ranks)})
+    if cfg.family == "vlm":              # CACHE_AXES["img_kv"] on (2, 2)
+        checks["image_kv_placed"] = all(
+            r["img_kv_placements"] == ["Shard(dim=1)", "Shard(dim=3)"]
+            for r in ranks)
     out = {"arch": cfg.name, "path": path, "ok": all(checks.values()),
            "checks": checks, "mesh": dict(zip(("data", "model"),
                                               MESH2_SHAPE)),
@@ -3280,35 +3632,44 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
                          "why": "four ranks share one card: NCCL refuses "
                                 "two ranks on one device"},
            "gaps": gaps, "floor": floor, "bounds": bounds,
-           "routing": routing, "gaps_own_routing": own_gaps,
+           "held_against": "replay" if cfg.family == "moe" else
+           "f32" if "f32_eval" in ref else "kernels",
+           "routing": routing, "gaps_to_unmeshed_kernels": kernel_gaps,
            "floor_kernels_vs_plain": ref["floor_kernels_vs_plain"],
            "floor_bf16_vs_f32": ref.get("floor_bf16_vs_f32"),
+           "floor_plain_vs_f32": ref.get("floor_plain_vs_f32"),
+           "decode_steps": n_dec, "train_steps": int(trains),
            "losses_mesh": ranks[0]["losses"], "losses_unmeshed_first":
-           ref["losses"][0], "grad_norms_mesh": ranks[0]["grad_norms"],
-           "grad_norms_unmeshed_first": ref["first_grad_norms"],
-           "f32": {"depth": MESH2_F32_DEPTH[arch],
+           ref.get("losses", [None])[0],
+           "grad_norms_mesh": ranks[0]["grad_norms"],
+           "grad_norms_unmeshed_first": ref.get("first_grad_norms"),
+           "f32": {"depth": run.f32_depth,
                    "prefill_max_abs_err": f32_pre_err,
                    "decode_max_abs_err": f32_dec_err,
                    "tol": tol32, "scalars_tol": SMALL_F32_TOL,
                    "losses": ranks[0]["f32"]["losses"],
-                   "losses_unmeshed": ref32["losses"],
+                   "losses_unmeshed": ref32.get("losses"),
                    "grad_norms": ranks[0]["f32"]["grad_norms"],
-                   "grad_norms_unmeshed": ref32["grad_norms"],
+                   "grad_norms_unmeshed": ref32.get("grad_norms"),
                    "floor_kernels_vs_plain": ref32["floor_kernels_vs_plain"]},
            "ms_by_rank": [r["ms"] for r in ranks],
+           "train_ms_is": "the one bf16 train step: cold, under "
+                          "CommDebugMode" if trains else None,
            "one_device_mesh_ms": one, "slowdown": {
                k: max(r["ms"][k] for r in ranks) / one[k] for k in one},
            "placements": ranks[0]["placements"],
            "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
+           "draw_peak_gb_by_rank": [r["draw_peak_gb"] for r in ranks],
            "card_used_gb_by_rank": [r["card_used_gb"] for r in ranks],
            "card": card, "seconds_by_rank": [r["seconds"] for r in ranks],
            "f32_seconds_by_rank": [r["seconds_f32"] for r in ranks],
+           "draw_seconds_by_rank": [r["draw_s"] for r in ranks],
            "prepare_s": prep["seconds"],
            "per_prefill": {k: v for k, v in per[0]["prefill"].items() if v},
            "per_decode_step": {k: v for k, v in per[0]["decode"].items()
                                if v},
            "per_train_step": {k: v for k, v in per[0]["train"].items() if v}}
-    for kind in ("prefill", "decode", "train"):
+    for kind in prep["reckoned"]:
         emit("mesh2_collectives", arch=cfg.name, step=kind,
              measured_by_rank=[r["comm"][kind] for r in ranks],
              reckoned=prep["reckoned"][kind])
@@ -3318,6 +3679,75 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
     return ({"launches": launches, "per_prefill": per[0]["prefill"],
              "per_decode_step": per[0]["decode"],
              "per_train_step": per[0]["train"]},
+            [k for k, v in checks.items() if not v])
+
+
+def mesh2_variant_check(ref: dict, ranks: list, card: dict) -> tuple:
+    """The checks of ``mesh2_variant`` (qwen3-1.7b decoding under
+    ``MESH2_VARIANT``) from the ranks' results and the parent's
+    references (``mesh2_variant_references``); emits its
+    ``mesh2_collectives`` and ``mesh2_variant`` lines.  Held: the bf16
+    logits of every step within ``FLOOR_FACTOR`` times the larger of the
+    unmeshed kernels' gap to the plain versions and to the f32 weights
+    (plus one bf16 ulp of the value), the f32 logits on the f32 cut at
+    ``SMALL_F32_TOL``; the cache split along its sequence over "model", 4
+    positions a rank, and the 8 steps' writes at positions 0-3 on the
+    first "model" rank and 4-7 on the second; launches a step equal the
+    expected ones (RMSNorm only).  Returns (the path's launches, the names
+    of its failed checks)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MESH2_VARIANT_ARCH)
+    B, V, n = 4, cfg.vocab, MESH_DECODE_STEPS
+    floor = max(ref["floor"].values())
+    bound = FLOOR_FACTOR * floor
+    errs, ok = {}, {}
+    for key, want, tol, dtype in (
+            ("bfloat16", ref["decode"], bound, torch.bfloat16),
+            ("float32", ref["f32_decode"], SMALL_F32_TOL, torch.float32)):
+        ok[key], errs[key] = True, 0.0
+        for i in range(n):
+            got = mesh2_assemble([r[key]["decode"][i] for r in ranks],
+                                 (B, 1, V))
+            one, err = held_tol(got, want[i], tol, dtype)
+            ok[key], errs[key] = ok[key] and one, max(errs[key], err)
+    half = MESH2_VARIANT_MAX_SEQ // MESH2_SHAPE[1]
+    written = {tuple(r["coord"]): r["bfloat16"]["written"] for r in ranks}
+    per = [{k: v / n for k, v in r["bfloat16"]["launches"].items()}
+           for r in ranks]
+    want = expected_per_decode_step(cfg)
+    checks = {
+        "decode_within_floor": ok["bfloat16"],
+        "f32_decode_logits": ok["float32"],
+        "sequence_split_on_model": all(
+            r[k]["cache_placements"][1] == "Shard(dim=2)"
+            and r[k]["seq_block"] == [r["coord"][1] * half, half]
+            for r in ranks for k in ("bfloat16", "float32")),
+        "positions_on_both_model_ranks": all(
+            w == list(range(c[1] * half, (c[1] + 1) * half))
+            for c, w in written.items()),
+        "decode_launches": all(q == want for q in per),
+    }
+    out = {"arch": cfg.name, "path": MESH2_VARIANT_PATH,
+           "ok": all(checks.values()), "checks": checks,
+           "variant": MESH2_VARIANT, "max_seq": MESH2_VARIANT_MAX_SEQ,
+           "decode_steps": n, "f32_depth": MESH2_RUNS[cfg.name].f32_depth,
+           "max_abs_err": errs, "bound": bound, "floor": ref["floor"],
+           "f32_tol": SMALL_F32_TOL, "written_by_coord": {
+               f"{c[0]}{c[1]}": w for c, w in written.items()},
+           "ms_by_rank": [r["bfloat16"]["ms"] for r in ranks],
+           "peak_gb_by_rank": [r["bfloat16"]["peak_gb"] for r in ranks],
+           "card_used_gb_by_rank": [r["card_used_gb"] for r in ranks],
+           "staged": ranks[0]["staged"], "card_ranks_s": card["ranks_s"],
+           "seconds_by_rank": [r["seconds"] for r in ranks],
+           "per_decode_step": {k: v for k, v in per[0].items() if v}}
+    emit("mesh2_collectives", arch=cfg.name, step="decode",
+         variant=MESH2_VARIANT,
+         measured_by_rank=[r["bfloat16"]["comm"] for r in ranks],
+         reckoned=ref["reckoned"])
+    emit("mesh2_variant", **out)
+    launches = {k: sum(r["bfloat16"]["launches"][k] for r in ranks)
+                for k in ranks[0]["bfloat16"]["launches"]}
+    return ({"launches": launches, "per_decode_step": per[0]},
             [k for k, v in checks.items() if not v])
 
 
@@ -3883,6 +4313,9 @@ def main() -> int:
                         "per_train_step": p["per_train_step"][name],
                         "per_decode_step": p["per_decode_step"][name]}
                        if arch == UNIFIED else
+                       {"path": p["launches"][name],
+                        "per_decode_step": p["per_decode_step"][name]}
+                       if arch == MESH2_VARIANT_PATH else
                        {"path": p["launches"][name],
                         "per_prefill": p["per_prefill"][name],
                         "per_decode_step": p["per_decode_step"][name],

@@ -17,7 +17,10 @@ dispatch, expert products and combine (``experts_on_shards``): DTensor has
 no sharding strategy for ``searchsorted``, gathers ``argsort``'s operand,
 and gives an ``index_select`` by a sharded index placements that are no
 row gather; and a route must see the whole batch to drop the tokens one
-device drops.
+device drops.  Decode attention over a cache whose sequence is split
+(``seq_on_shards``) keeps the cache where it is and combines each rank's
+partial attention over its own positions (flash-decoding's split-KV
+reduction).
 
 Gradients: a weight or KV head that every local shard reads sums its
 gradient over those shards, so it leaves the local kernel as ``Partial()``
@@ -121,6 +124,16 @@ def _kv_heads(H: int, KV: int, n: int, r: int):
     return torch.tensor(heads)
 
 
+def _summed(t):
+    """A DTensor with its pending sums (``Partial``) reduced, its other
+    placements kept."""
+    from torch.distributed.tensor import Replicate
+    if not any(p.is_partial() for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in t.placements))
+
+
 def heads_on_shards(name: str, fn: Callable, q, k, v):
     """``fn(q, k, v)`` of attention (q (B, Sq, H, hd), k / v (B, Skv, KV,
     hd)) on each rank's batch rows and heads: the batch keeps its shards
@@ -129,13 +142,20 @@ def heads_on_shards(name: str, fn: Callable, q, k, v):
     with the q heads where that mesh dimension divides KV as well (each
     rank then holds whole GQA groups); else K and V are whole on that
     dimension and each rank takes its own q heads' KV heads
-    (``_kv_heads``), with their gradients partial over it."""
+    (``_kv_heads``), with their gradients partial over it.  A q that is
+    a pending sum (a decode row's product by a weight split along its
+    input) is summed first, and where it is then whole but K and V split
+    their batch (a vlm's image K/V) it takes their batch split, a local
+    slice: the keys stay where they are."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = q.device_mesh
     H, KV = q.shape[2], k.shape[2]
+    q = _summed(q)
     qp, kp, kg, pick = [], [], [], None    # q's, k / v's and their grads'
     for m, p in enumerate(q.placements):
         n, d = mesh.size(m), _shard_dim(p, q.ndim)
+        if d is None and _shard_dim(k.placements[m], k.ndim) == 0:
+            d = 0
         if d == 2 and (Shard(2) in qp or H % n):
             d = None                           # heads on one mesh dim only
         if d == 0 or (d == 2 and KV % n == 0):
@@ -155,6 +175,70 @@ def heads_on_shards(name: str, fn: Callable, q, k, v):
     return _on_shards(name, fn, mesh, (qp,), (q, k, v), (qp, kp, kp),
                       (qp, tuple(kg), tuple(kg)),
                       pick=None if pick is None else take)
+
+
+def seq_split(t) -> bool:
+    """Whether a DTensor KV cache (B, S, KV, hd) has its sequence split on
+    some mesh dimension."""
+    return any(_shard_dim(p, t.ndim) == 1 for p in t.placements)
+
+
+def seq_on_shards(name: str, fn: Callable, q, k, v, kv_len):
+    """Decode attention of q (B, 1, H, hd) over a KV cache k / v (B, S,
+    KV, hd) whose sequence is split across ranks, the cache left where it
+    is.  ``fn(q, k, v, kv_len, offset) -> (o, m, l)`` is one block's step
+    (``decode_attention_block``: the unnormalised f32 output, the rows' max
+    and sum, positions masked by their global index from the block's first,
+    ``offset``).  Per mesh dimension: one that splits the sequence gives
+    each rank its own positions and q whole (one row); one that splits the
+    cache's batch splits q's too; one that splits both q's heads and the
+    cache's KV heads, and divides KV, keeps them split; any other is
+    gathered (a q that is a pending sum is summed first).  Inside the
+    local step the rows' maxima are all-reduced (max) over the sequence's
+    mesh dimensions and each rank weighs its o and l by ``exp(m - max)``
+    (0 for a rank with no valid position: its m is -inf); the ranks' sums
+    of o and l (``Partial()``) give ``o / l``, cast to q's type once, its
+    heads split again as q's were on those dimensions (a local slice)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = q.device_mesh
+    KV = k.shape[2]
+    q = _summed(q)
+    qp, kp, op, seq_dims = [], [], [], []      # q's, the cache's, o / l's
+    for m in range(mesh.ndim):
+        kd = _shard_dim(k.placements[m], k.ndim)
+        if kd == 1:
+            place = (Replicate(), Shard(1), Partial())
+            seq_dims.append(m)
+        elif kd in (0, 2) and (kd == 0 or _shard_dim(
+                q.placements[m], q.ndim) == 2 and KV % mesh.size(m) == 0):
+            place = (Shard(kd),) * 3
+        else:
+            place = (Replicate(),) * 3
+        for placements, x in zip((qp, kp, op), place):
+            placements.append(x)
+    qp, kp, op = map(tuple, (qp, kp, op))
+    _, offset = compute_local_shape_and_global_offset(k.shape, mesh, kp)
+    groups = [mesh.get_group(m) for m in seq_dims]
+
+    def local(ql, kl, vl, n):
+        o, mx, l = fn(ql, kl, vl, n, offset[1])
+        top = mx.clone()
+        for g in groups:
+            dist.all_reduce(top, op=dist.ReduceOp.MAX, group=g)
+        w = torch.exp(mx - top)[:, None, :, None]            # (B, 1, H, 1)
+        return o * w, l[:, None, :, None] * w
+    o, l = _on_shards(name, local, mesh, (op, op), (q, k, v), (qp, kp, kp),
+                      (qp, kp, kp), (kv_len,))
+    summed = tuple(Replicate() if m in seq_dims else p
+                   for m, p in enumerate(op))
+    out = o.redistribute(mesh, summed) / l.redistribute(mesh, summed)
+    heads = tuple(q.placements[m] if m in seq_dims and _shard_dim(
+        q.placements[m], q.ndim) is not None else p
+                  for m, p in enumerate(summed))
+    return out.to(q.dtype).redistribute(mesh, heads)
 
 
 def _trailing(fn: Callable, t):

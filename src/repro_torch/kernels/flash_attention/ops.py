@@ -12,7 +12,9 @@ any other mix of types raises.
 DTensor operands (a step across ranks) run on each rank's batch rows and
 heads (``.._local.heads_on_shards``), decode attention too: the kernel on
 CUDA shards, the plain versions on CPU ones; the CUDA wrappers refuse a
-DTensor."""
+DTensor.  Decode attention over a cache whose sequence is split across
+ranks runs on each rank's positions and combines the ranks' partial
+results (``.._local.seq_on_shards``)."""
 from __future__ import annotations
 
 import functools
@@ -20,10 +22,10 @@ import functools
 import torch
 
 from ... import is_dtensor
-from .._local import heads_on_shards
+from .._local import heads_on_shards, seq_on_shards, seq_split
 from .kernel import flash_attention_bwd_cuda, flash_attention_cuda
-from .ref import (decode_attention_ref, flash_attention_bwd_ref,
-                  flash_attention_ref)
+from .ref import (decode_attention_block, decode_attention_ref,
+                  flash_attention_bwd_ref, flash_attention_ref)
 
 # meta: the dry-run's trace (shapes only) counts the plain version, as the
 # JAX package's CPU dry-run counts its jnp oracles.
@@ -89,6 +91,10 @@ def decode_attention(q, k, v, kv_len, softmax_scale=None):
     # Single-query attention is memory-bound and the JAX package has no
     # kernel for it: plain torch on every device.
     if is_dtensor(q):
+        if seq_split(k):
+            return seq_on_shards("decode_attention", functools.partial(
+                decode_attention_block, softmax_scale=softmax_scale),
+                q, k, v, kv_len)
         return heads_on_shards("decode_attention", functools.partial(
             decode_attention_ref, kv_len=kv_len,
             softmax_scale=softmax_scale), q, k, v)

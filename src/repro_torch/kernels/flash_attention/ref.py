@@ -6,7 +6,9 @@ by the valid length, ``q_offset`` for chunked prefill.  It is the CPU path and
 the reference the CUDA kernel is held against; ``flash_attention_bwd_ref`` is
 its gradient, written out (the reference to the CUDA backward).
 ``decode_attention_ref`` stays plain torch on every device: the JAX package
-has no kernel for it.
+has no kernel for it; ``decode_attention_block`` is its step over one block
+of a cache whose sequence is split across ranks (flash-decoding's split-KV
+step, combined by ``.._local.seq_on_shards``).
 """
 from __future__ import annotations
 
@@ -139,3 +141,27 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def decode_attention_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           kv_len, offset: int,
+                           softmax_scale: Optional[float] = None):
+    """``decode_attention_ref``'s arithmetic over one block of a KV cache
+    whose first position is the global position ``offset``: ``(o, m, l)``,
+    the unnormalised output ``sum_s exp(s - m) v_s`` (B, 1, H, hd), the
+    rows' max score m and sum ``sum_s exp(s - m)`` (B, H), all f32, with
+    the positions at or past ``kv_len`` (an int) masked.  A block that
+    holds no valid position gives m = -inf and o = l = 0, so that the
+    combine's ``exp(m - max)`` weighs it exactly 0."""
+    B, _, H, hd = q.shape
+    _, S, KV, _ = k.shape
+    groups = H // KV
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    qg = (q.float() * scale).reshape(B, KV, groups, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float())
+    valid = offset + torch.arange(S, device=q.device) < kv_len
+    s = torch.where(valid, s, float("-inf"))
+    m = s.amax(-1)
+    p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m)[..., None])
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    return o.reshape(B, 1, H, hd), m.reshape(B, H), p.sum(-1).reshape(B, H)

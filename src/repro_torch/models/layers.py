@@ -128,32 +128,45 @@ def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
-    """(B, S, n * hd) -> (B, S, n, hd).  A DTensor whose flat head
+    """(..., n * hd) -> (..., n, hd).  A DTensor whose flat head
     dimension is split by a mesh dimension that does not divide ``n`` (the
     rules shard ``n * hd`` columns, which may cut a head: 2 KV heads over 4
     ranks) is first gathered along that mesh dimension."""
-    B, S = t.shape[:2]
     if is_dtensor(t):
         from torch.distributed.tensor import Replicate, Shard
-        mesh = t.device_mesh
-        keep = tuple(Replicate() if isinstance(p, Shard) and p.dim % 3 == 2
-                     and n % mesh.size(m) else p
+        mesh, last = t.device_mesh, t.ndim - 1
+        keep = tuple(Replicate() if isinstance(p, Shard)
+                     and p.dim % t.ndim == last and n % mesh.size(m) else p
                      for m, p in enumerate(t.placements))
         if keep != tuple(t.placements):
             t = t.redistribute(mesh, keep)
-    return t.reshape(B, S, n, hd)
+    return t.reshape(*t.shape[:-1], n, hd)
 
 
 def write_cache(cache: torch.Tensor, start: int, new: torch.Tensor) -> None:
     """``cache[:, start:start + S] = new`` in the cache's type, in place.  A
-    DTensor cache (batch and KV heads sharded) takes ``new`` at its own
-    placements and each rank writes its local shard."""
+    DTensor cache takes ``new`` at its own placements, but with the
+    sequence whole where the cache's is split, and each rank writes its
+    local shard: of a split sequence, only the positions of ``[start, start
+    + S)`` that fall in its block, at their local offsets (a rank whose
+    block holds none of them writes nothing)."""
     if is_dtensor(cache):
-        if any(getattr(p, "dim", None) == 1 for p in cache.placements):
-            raise NotImplementedError("a KV cache sharded along its "
-                                      "sequence: write_cache needs it whole")
-        new = new.redistribute(cache.device_mesh, cache.placements)
-        cache, new = cache.to_local(), new.to_local()
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset)
+        mesh = cache.device_mesh
+        whole_seq = tuple(Replicate() if isinstance(p, Shard)
+                          and p.dim % cache.ndim == 1 else p
+                          for p in cache.placements)
+        new = new.redistribute(mesh, whole_seq).to_local()
+        (_, n, *_), (_, lo, *_) = compute_local_shape_and_global_offset(
+            cache.shape, mesh, cache.placements)
+        cache = cache.to_local()
+        a, b = max(start, lo), min(start + new.shape[1], lo + n)
+        if a < b:
+            cache[:, a - lo:b - lo] = new[:, a - start:b - start].to(
+                cache.dtype)
+        return
     cache[:, start:start + new.shape[1]] = new.to(cache.dtype)
 
 

@@ -82,11 +82,14 @@ def tree_abstract(specs):
 INIT_CHUNK = 2 ** 28
 
 
-def tree_init(specs, generator: torch.Generator, device=None):
+def tree_init(specs, generator: torch.Generator, device=None, each=None):
     """Materialize real parameters on ``device`` (default: the generator's).
 
     Leaves are drawn in JAX's flatten order from one generator, so the values
-    depend only on the seed and the device's generator (not on JAX's).  A
+    depend only on the seed and the device's generator (not on JAX's).
+    ``each(path, leaf)``, where given, takes each leaf as it is drawn and
+    returns what the tree holds in its place (a rank's shard of it: the
+    whole leaf is then freed before the next is drawn).  A
     normal leaf of more than ``INIT_CHUNK`` values is drawn in slices along
     its leading axis, each of at most ``INIT_CHUNK`` values (or one leading
     index), so that the f32 temporary stays small beside the output:
@@ -113,5 +116,6 @@ def tree_init(specs, generator: torch.Generator, device=None):
             part = out[i:i + step]
             part.copy_(draw(part.shape))
         return out
-    return tree_unflatten((path, init(spec))
+    keep = each or (lambda path, leaf: leaf)
+    return tree_unflatten((path, keep(path, init(spec)))
                           for path, spec in tree_leaves(specs))

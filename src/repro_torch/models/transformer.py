@@ -37,9 +37,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .. import is_dtensor
 from ..kernels import flash_attention, rmsnorm
 from ..sharding.context import carried, constrain, replicated_like, whole
+from ..sharding.rules import CACHE_AXES, INPUT_AXES, distribute_inputs
 from .config import ModelConfig
 from .layers import (attention, attention_specs, embed_rows, matmul, mlp_specs,
-                     promoted, swiglu, write_state)
+                     promoted, split_heads, swiglu, write_state)
 from .moe import moe_ffn, moe_specs
 from .params import p, tree_abstract, tree_init
 from .ssm import init_ssm_state, mamba_block, ssm_specs
@@ -82,10 +83,13 @@ def build_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return specs
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
+                each=None):
     """Random parameters on ``device`` (default: the generator's device);
-    a full-width model is initialised on the card with a CUDA generator."""
-    return tree_init(build_specs(cfg), generator, device)
+    a full-width model is initialised on the card with a CUDA generator.
+    ``each(path, leaf)`` replaces each leaf as it is drawn (``tree_init``:
+    a rank keeps its shard)."""
+    return tree_init(build_specs(cfg), generator, device, each)
 
 
 def abstract_params(cfg: ModelConfig):
@@ -158,11 +162,13 @@ def _cross_index(cfg: ModelConfig, i: int, n_ca: int) -> int:
 def _cross_attention(x, cap, cfg: ModelConfig, img_kv,
                      force_ref: bool = False):
     """Gated cross-attention to precomputed image K/V (one layer's params):
-    no RoPE, no q/k norm, full (non-causal) attention over the image."""
+    no RoPE, no q/k norm, full (non-causal) attention over the image.
+    Across ranks the flash call runs on each rank's batch rows and heads
+    (``heads_on_shards``) and the gate is a replicated 0-d slice."""
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
     h = rmsnorm(x, cap["ca_attn_norm"], cfg.norm_eps, force_ref=force_ref)
-    q = matmul(h, cap["ca_wq"]).reshape(B, S, H, hd)
+    q = split_heads(matmul(h, cap["ca_wq"]), H, hd)
     k, v = img_kv                                     # (B, n_img, KV, hd)
     attn = flash_attention(q, k, v, causal=False, force_ref=force_ref)
     out = matmul(attn.reshape(B, S, H * hd), cap["ca_wo"])
@@ -173,14 +179,23 @@ def _cross_attention(x, cap, cfg: ModelConfig, img_kv,
 def _image_kv(cross, cfg: ModelConfig, img_embeds):
     """Cross-attention K and V of every cross layer, from one stacked
     product each: ``((n_ca, B, n_img, KV, hd),) * 2``, contiguous (einsum
-    may return a permuted view; each layer's slice goes to the kernel)."""
-    B, n_img, _ = img_embeds.shape
+    may return a permuted view; each layer's slice goes to the kernel).
+    On DTensors each weight's contraction dimension is gathered (``whole``)
+    and its KV head columns kept, so each rank computes its batch rows'
+    K / V of its heads, one product a cross layer; the result takes
+    ``CACHE_AXES["img_kv"]``'s placements (the cross-layer stack whole:
+    each layer's slice is local)."""
     KV, hd = cfg.n_kv_heads, cfg.hd
 
     def proj(w):                                      # w: (n_ca, d, KV * hd)
-        img, w = promoted(img_embeds, w)
-        return torch.einsum("bnd,cde->cbne", img, w).contiguous().reshape(
-            w.shape[0], B, n_img, KV, hd)
+        img, w = promoted(img_embeds, whole(w, 1))
+        if is_dtensor(w):
+            # einsum's one product flattens (layer, column) pairs, which
+            # DTensor refuses where the columns are split: a product a layer
+            kv = torch.stack([img @ wc for wc in torch.unbind(w)])
+        else:
+            kv = torch.einsum("bnd,cde->cbne", img, w).contiguous()
+        return constrain(split_heads(kv, KV, hd), CACHE_AXES["img_kv"])
     return proj(cross["ca_wk"]), proj(cross["ca_wv"])
 
 
@@ -203,7 +218,8 @@ def forward(params, cfg: ModelConfig, tokens=None, *, inputs_embeds=None,
     or (final-normed hidden states, aux_loss) with ``return_hidden``.
     ``inputs_embeds`` (B, S, d) replaces the token embedding (audio's frame
     embeddings); ``img_embeds`` (B, n_image_tokens, d) are a vlm's image
-    embeddings, zeros in the activations' type when not given."""
+    embeddings, zeros in the activations' type when not given (across
+    ranks, placed as a given image would be)."""
     _require_family(cfg)
     x = constrain(_embed(params, tokens, inputs_embeds),
                   ("batch", "seq", "act_embed"))
@@ -214,8 +230,9 @@ def forward(params, cfg: ModelConfig, tokens=None, *, inputs_embeds=None,
     cross, img_k, img_v = [], None, None
     if cfg.family == "vlm":
         if img_embeds is None:
-            img_embeds = torch.zeros((B, cfg.n_image_tokens, d),
-                                     dtype=x.dtype, device=x.device)
+            img_embeds = constrain(replicated_like(torch.zeros(
+                (B, cfg.n_image_tokens, d), dtype=x.dtype, device=x.device),
+                x), INPUT_AXES["img_embeds"])
         img_k, img_v = _image_kv(params["cross"], cfg, img_embeds)
         cross = _layers(params["cross"])
 
@@ -264,10 +281,11 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     conv_ch) in bf16 and ssd (L, B, nh, p, n) in f32; hybrid also
     shared_k/v (n_inv, B, max_seq, KV, hd) in bf16, n_inv = ceil(L / every);
     vlm also img_kv, a (k, v) pair of (n_ca, B, n_image_tokens, KV, hd):
-    ``_image_kv`` of ``img_embeds`` when both they and ``params`` are given,
-    else bf16 zeros.  ``pos`` is a Python int shared by the whole batch, as
-    the JAX scalar is (on a mesh of more than one rank, a replicated 0-d
-    DTensor: ``decode_state_shardings``)."""
+    ``_image_kv`` of ``img_embeds`` when both they and ``params`` are given
+    (a plain image beside DTensor params is placed by ``INPUT_AXES``
+    first), else bf16 zeros.  ``pos`` is a Python int shared by the whole
+    batch, as the JAX scalar is (on a mesh of more than one rank, a
+    replicated 0-d DTensor: ``decode_state_shardings``)."""
     _require_family(cfg)
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     state: Dict[str, Any] = {"pos": 0}
@@ -286,6 +304,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
         state["shared_k"], state["shared_v"] = kv(n_inv), kv(n_inv)
     if cfg.family == "vlm":
         if params is not None and img_embeds is not None:
+            w = params["cross"]["ca_wk"]
+            if is_dtensor(w) and not is_dtensor(img_embeds):
+                img_embeds = distribute_inputs({"img_embeds": img_embeds},
+                                               w.device_mesh)["img_embeds"]
             state["img_kv"] = _image_kv(params["cross"], cfg, img_embeds)
         else:
             z = kv(L // cfg.cross_attn_every, cfg.n_image_tokens)

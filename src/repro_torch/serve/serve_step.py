@@ -7,9 +7,9 @@ Counterpart of ``repro.serve.serve_step``.  ``make_prefill`` and
 inside ``sharding_ctx`` on the mesh's device; a device in the mesh's place
 builds the unmeshed step on that device.  Rules without a mesh raise
 (``sharding.context.step_target``).  On a ``DeviceMesh`` of more than one
-rank (a dense, moe, ssm or hybrid model) the params are DTensors placed by
-the rules (``sharding.distribute_tree``); each rank passes the same global
-tokens and decode state, and the step distributes them
+rank (any family) the params are DTensors placed by the rules
+(``sharding.distribute_tree``); each rank passes the same global tokens
+and decode state, and the step distributes them
 (``sharding.distribute_inputs``, ``decode_state_shardings``; a state's
 DTensor leaves stay as they are, so the returned state is updated in place
 from the first step on).  The dry-run's steps (``trace=True``) take any
@@ -28,21 +28,11 @@ from ..models.params import tree_axes
 from ..models.transformer import (abstract_params, build_specs, decode_step,
                                   forward, init_decode_state)
 from ..roofline.trace import Lowered
-from ..sharding import (LogicalRules, distribute_inputs, distribute_tree,
-                        logical_sharding, sharding_ctx, shardings_for)
+from ..sharding import (CACHE_AXES, LogicalRules, distribute_inputs,
+                        distribute_tree, logical_sharding, sharding_ctx,
+                        shardings_for)
 from ..sharding.context import (multi_rank, require_distributed,
                                 step_target, traced_input, traced_inputs)
-
-CACHE_AXES = {
-    "pos": (),
-    "k": ("layers", "cache_batch", "cache_seq", "kv_heads", None),
-    "v": ("layers", "cache_batch", "cache_seq", "kv_heads", None),
-    "conv": ("layers", "cache_batch", None, "ssm_inner"),
-    "ssd": ("layers", "cache_batch", "ssm_heads", None, None),
-    "shared_k": (None, "cache_batch", "cache_seq", "kv_heads", None),
-    "shared_v": (None, "cache_batch", "cache_seq", "kv_heads", None),
-    "img_kv": (None, "cache_batch", None, "kv_heads", None),
-}
 
 
 def decode_state_structs(cfg: ModelConfig, shape: ShapeSpec
@@ -109,10 +99,13 @@ def distribute_state(cfg: ModelConfig, state, mesh,
                      rules: Optional[LogicalRules] = None):
     """A decode state (``init_decode_state``'s) placed by
     ``decode_state_shardings`` at its own batch and length; DTensor
-    leaves are redistributed, so a placed state passes unchanged."""
+    leaves are redistributed, so a placed state passes unchanged.  The
+    length is the KV cache's (a hybrid's: its shared block's), 1 for an
+    ssm state, which has none."""
     lead = state["k"] if "k" in state else state["conv"]
     B = lead.shape[1]
-    S = state["k"].shape[2] if "k" in state else 1
+    kv = state.get("k", state.get("shared_k"))
+    S = 1 if kv is None else kv.shape[2]
     shard = decode_state_shardings(cfg, ShapeSpec("state", S, B, "decode"),
                                    mesh, rules)
     return distribute_tree(state, {k: shard[k] for k in state})
@@ -125,7 +118,7 @@ def make_serve_step(cfg: ModelConfig, mesh="cuda",
     (logits, state)``; tokens (B, 1) or inputs_embeds (B, 1, d), as arrays
     or tensors, moved to the device.  ``trace`` builds the dry-run's step
     (``lower_serve_step``): ``meta`` tensors only, on any mesh."""
-    mesh, dev = step_target(mesh, rules, trace, cfg.family)
+    mesh, dev = step_target(mesh, rules, trace)
     across = multi_rank(mesh) and not trace
     place = _placer(dev, trace, mesh if across else None, rules)
 
@@ -150,7 +143,7 @@ def make_prefill(cfg: ModelConfig, mesh="cuda",
     -> logits``; tokens (B, S) or inputs_embeds (B, S, d), and a vlm's
     img_embeds (B, n_image_tokens, d).  ``trace`` as in
     ``make_serve_step``."""
-    mesh, dev = step_target(mesh, rules, trace, cfg.family)
+    mesh, dev = step_target(mesh, rules, trace)
     across = multi_rank(mesh) and not trace
     place = _placer(dev, trace, mesh if across else None, rules)
 

@@ -11,8 +11,7 @@ a no-op (CPU tests, plain eager use).
 On a ``DeviceMesh`` of more than one rank (``launch.mesh.make_mesh``) the
 steps run with DTensor params, batch and decode state, and a plain tensor
 reaching ``constrain`` raises: a step's inputs arrive distributed
-(``sharding.rules.distribute_tree``).  The dense, moe, ssm and hybrid
-families run so; vlm and audio raise naming their ROADMAP item.  A mesh
+(``sharding.rules.distribute_tree``).  Every family runs so.  A mesh
 without ranks (a stand-in whose ``shape`` is a dict,
 ``launch.mesh.abstract_mesh``, or a ``DeviceMesh`` over torch's fake group)
 executes nothing: given to an untraced step builder it raises.  A step
@@ -42,9 +41,6 @@ _CTX: contextvars.ContextVar = contextvars.ContextVar("shard_ctx",
                                                       default=None)
 _RECORD: contextvars.ContextVar = contextvars.ContextVar("shard_record",
                                                          default=None)
-# The families a mesh of more than one rank does not run yet, by ROADMAP
-# Queue 1 item.
-_NOT_ACROSS_RANKS = {"vlm": "5d", "audio": "5d"}
 
 
 @contextlib.contextmanager
@@ -136,15 +132,13 @@ def multi_rank(mesh) -> bool:
 
 
 def step_target(mesh, rules: Optional[LogicalRules] = None,
-                trace: bool = False, family: Optional[str] = None):
+                trace: bool = False):
     """``(mesh or None, device)`` of a step builder's ``mesh`` argument: a
     device (a name, a ``torch.device``, or ``None`` for ``cuda``) gives the
     unmeshed step on it; a mesh, the meshed step on the mesh's device type.
-    Rules without a mesh raise.  A mesh of more than one device runs a
-    dense, moe, ssm or hybrid ``family`` (vlm and audio raise, naming their
-    ROADMAP item) and must have ranks (``has_ranks``).  ``trace`` gives a
-    step traced on ``meta`` (on any mesh, any family), whose inputs go
-    through ``traced_input``."""
+    Rules without a mesh raise.  A mesh of more than one device must have
+    ranks (``has_ranks``).  ``trace`` gives a step traced on ``meta`` (on
+    any mesh), whose inputs go through ``traced_input``."""
     if mesh is None or isinstance(mesh, (str, torch.device)):
         if rules is not None:
             raise ValueError("rules without a mesh: pass a mesh "
@@ -153,20 +147,12 @@ def step_target(mesh, rules: Optional[LogicalRules] = None,
     if trace:
         return mesh, resolve_device("meta")
     n = mesh_size(mesh)
-    if n != 1:
-        item = _NOT_ACROSS_RANKS.get(family)
-        if item is not None:
-            raise NotImplementedError(
-                f"the {family} family on a mesh of {n} devices "
-                f"{mesh_axes(mesh)}: not ported (ROADMAP.md Queue 1, item "
-                f"{item}); dense, moe, ssm and hybrid models run across "
-                "ranks")
-        if not has_ranks(mesh):
-            raise NotImplementedError(
-                f"a mesh of {n} devices {mesh_axes(mesh)} without ranks "
-                f"({type(mesh).__name__}) executes nothing: build the step "
-                "with trace=True, or pass a DeviceMesh over a real process "
-                "group (launch.mesh.make_mesh)")
+    if n != 1 and not has_ranks(mesh):
+        raise NotImplementedError(
+            f"a mesh of {n} devices {mesh_axes(mesh)} without ranks "
+            f"({type(mesh).__name__}) executes nothing: build the step "
+            "with trace=True, or pass a DeviceMesh over a real process "
+            "group (launch.mesh.make_mesh)")
     return mesh, resolve_device(getattr(mesh, "device_type", None) or "cuda")
 
 

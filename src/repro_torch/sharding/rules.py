@@ -19,7 +19,8 @@ name or a tuple of them, as JAX's ``PartitionSpec`` holds it.
 mesh dimension ``Shard(d)`` for the array dimension ``d`` it shards, else
 ``Replicate()``.  ``distribute_tree`` places a tree by such shardings, as
 ``jax.device_put(tree, shardings)`` does; ``distribute_inputs`` places a
-step's inputs by their logical axes (``INPUT_AXES``).
+step's inputs by their logical axes (``INPUT_AXES``); ``CACHE_AXES`` names
+a decode state's.
 """
 from __future__ import annotations
 
@@ -220,6 +221,19 @@ INPUT_AXES = {
     "tokens": ("batch", "seq"),
     "inputs_embeds": ("batch", "seq", "act_embed"),
     "img_embeds": ("batch", "seq", "act_embed"),
+}
+
+# the logical axes of a decode state's leaves, by name (the reference's
+# serve_step.CACHE_AXES; the model places a vlm's image K/V by them too)
+CACHE_AXES = {
+    "pos": (),
+    "k": ("layers", "cache_batch", "cache_seq", "kv_heads", None),
+    "v": ("layers", "cache_batch", "cache_seq", "kv_heads", None),
+    "conv": ("layers", "cache_batch", None, "ssm_inner"),
+    "ssd": ("layers", "cache_batch", "ssm_heads", None, None),
+    "shared_k": (None, "cache_batch", "cache_seq", "kv_heads", None),
+    "shared_v": (None, "cache_batch", "cache_seq", "kv_heads", None),
+    "img_kv": (None, "cache_batch", None, "kv_heads", None),
 }
 
 

@@ -7,9 +7,8 @@ step runs inside ``sharding_ctx`` with the batch on the mesh's device; on a
 one-device mesh the params and moments stay plain tensors and every result
 equals the unmeshed step's; rules without a mesh raise
 (``sharding.context.step_target``).  On a ``DeviceMesh`` of more than one
-rank (a dense, moe, ssm or hybrid model) the params and moments are
-DTensors placed by the rules (``sharding.distribute_tree`` of
-``shardings_for``, ``init_state``),
+rank (any family) the params and moments are DTensors placed by the
+rules (``sharding.distribute_tree`` of ``shardings_for``, ``init_state``),
 every rank passes the same global batch and the step distributes it
 (``sharding.distribute_inputs``, as ``batch_shardings`` places it); each
 grad is brought to its param's placements before AdamW (the data axis's
@@ -122,7 +121,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh=None,
     (``lower_train_step``): ``meta`` tensors only, on any mesh."""
     dev = None
     if mesh is not None or rules is not None or trace:
-        mesh, dev = step_target(mesh, rules, trace, cfg.family)
+        mesh, dev = step_target(mesh, rules, trace)
     across = multi_rank(mesh) and not trace
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")

@@ -211,6 +211,34 @@ def test_init_params_follows_the_jax_rule():
     assert all(t.dtype == torch.bfloat16 for _, t in tree_leaves(a))
 
 
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "zamba2-1.2b",
+                                  "llama-3.2-vision-90b"])
+def test_init_params_each_hook_keeps_the_draws(arch):
+    """``each(path, leaf)`` takes every leaf in the draw order and moves no
+    draw: an identity hook gives the same bits as none, and a hook that
+    keeps a slice of each leaf (as a rank keeps its shard) gives the same
+    slices."""
+    cfg = reduced_config(arch)
+    whole = tree_leaves(tt.init_params(cfg, torch.Generator().manual_seed(4)))
+    seen = []
+
+    def identity(path, t):
+        seen.append(path)
+        return t
+
+    def first_half(path, t):
+        return t if t.dim() == 0 else t[:max(1, t.shape[0] // 2)].clone()
+    same = tree_leaves(tt.init_params(cfg, torch.Generator().manual_seed(4),
+                                      each=identity))
+    halves = tree_leaves(tt.init_params(
+        cfg, torch.Generator().manual_seed(4), each=first_half))
+    assert seen == [path for path, _ in whole]
+    for (path, a), (p1, b), (p2, h) in zip(whole, same, halves):
+        assert path == p1 == p2
+        assert torch.equal(a, b)
+        assert torch.equal(a if a.dim() == 0 else a[:h.shape[0]], h)
+
+
 def test_init_params_draws_large_leaves_in_slices(monkeypatch):
     """A leaf of more than ``INIT_CHUNK`` values is drawn slice by slice
     along its leading axis (each slice of at most ``INIT_CHUNK`` values, or

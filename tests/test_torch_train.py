@@ -300,16 +300,17 @@ def _check_remat_identity(arch):
 
 
 def test_other_families_refuse_to_train():
-    """ssm, hybrid and moe build an unmeshed step and, on a mesh of more
-    than one device, get past the family check to the mesh's own: a
-    stand-in without ranks refuses them as it refuses a dense model (real
-    ranks: tests/test_torch_multirank_ssm.py, tests/test_torch_multirank.py
-    and tests/test_torch_multirank_moe.py); vlm and audio models on such a
-    mesh refuse, naming ROADMAP's item 5d (one-device meshes:
+    """ssm, hybrid, moe, vlm and audio build an unmeshed step and, on a
+    mesh of more than one device, reach the mesh's own check: a stand-in
+    without ranks refuses them as it refuses a dense model (real ranks:
+    tests/test_torch_multirank_ssm.py, tests/test_torch_multirank.py,
+    tests/test_torch_multirank_moe.py and
+    tests/test_torch_multirank_vlm_audio.py; one-device meshes:
     tests/test_torch_sharding.py)."""
     class Mesh:                     # a mesh as the rules read one
         shape = {"data": 16, "model": 16}
-    for arch in SSM_ARCHS + ("granite-moe-3b-a800m",):
+    for arch in SSM_ARCHS + ("granite-moe-3b-a800m", "llama-3.2-vision-90b",
+                             "musicgen-large"):
         assert callable(make_train_step(reduced_config(arch),
                                         topt.AdamWConfig()))
         with pytest.raises(NotImplementedError, match="without ranks"):
@@ -318,11 +319,6 @@ def test_other_families_refuse_to_train():
     with pytest.raises(NotImplementedError, match="without ranks"):
         make_train_step(reduced_config(ARCH), topt.AdamWConfig(),
                         mesh=Mesh())
-    for arch, item in (("llama-3.2-vision-90b", "5d"),
-                       ("musicgen-large", "5d")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            make_train_step(reduced_config(arch), topt.AdamWConfig(),
-                            mesh=Mesh())
 
 
 # ----------------------------------------------------------- optimizer
