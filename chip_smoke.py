@@ -100,10 +100,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 farthest one-device bf16 evaluation's gap to it), f32
                 cuts at 1e-4 (ssm / hybrid logits: or twice the cut's
                 f32 kernels-against-plain gap), each rank's launches equal
-                to the expected counts, collectives (``CommDebugMode``) beside
-                the dry-run twin's reckoned ones, peak memory a rank and
-                the card's memory in use (``run_mesh2`` lists its
-                checks).
+                to the expected counts, each step's collectives
+                (``CollectiveTally``) equal to the dry-run twin's count of
+                it on the rank's mesh (``twin_collectives``), peak memory
+                a rank and the card's memory in use (``run_mesh2`` lists
+                its checks).
   6c. unified — ``unified/qwen3-1.7b``: qwen3-1.7b at full width and depth
                 (bf16, seed 0) trains and serves through ONE process-driver
                 cache client (``open_cache(driver="process", n_procs=2)``,
@@ -125,10 +126,13 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 process-driver client killed mid-trace
                 (``phase_sim`` lists its checks).
   6f. dryrun  — host phase, no GPU: ``python -m repro_torch.launch.dryrun
-                --all --mesh both`` and ``paper_cells`` (the cells one card
-                cannot hold, lowered on a 1 x 1 mesh), started before phase
-                2 in processes of their own with no card visible, so that
-                they run beside the card's phases; then
+                --all --mesh both`` (each cell's collectives one rank's
+                step counted on ``meta`` DTensors over torch's fake group,
+                at two depths and extrapolated) and ``paper_cells`` (the
+                cells one card cannot hold, lowered on a 1 x 1 mesh),
+                started before phase 2 in processes of their own with no
+                card visible, so that they run beside the card's phases
+                (``sweep_wall_s``: when the sweep ended); then
                 ``python -m repro_torch.roofline.report`` on the sweep's
                 rows (``phase_dryrun`` lists its checks).
   7. profile  — one traced prefill and decode step of each model: device
@@ -1933,9 +1937,10 @@ def profile_train(cfg, params, batch) -> None:
     torch.cuda.synchronize()
     profile_once(cfg.name, "train_step", run, top_n=15)
     value_and_grad = make_value_and_grad(cfg, remat="full")
+    traced = {}
     profile_once(cfg.name, "train_step/loss_and_grads",
-                 lambda: value_and_grad(params, batch))
-    _, grads = value_and_grad(params, batch)
+                 lambda: traced.update(out=value_and_grad(params, batch)))
+    _, grads = traced.pop("out")
     profile_once(cfg.name, "train_step/adamw",
                  lambda: apply_updates(params, grads, opt_state, opt_cfg))
     del opt_state, grads
@@ -2610,6 +2615,8 @@ def run_mesh(paths: dict) -> dict:
         "losses_finite": all(bool(torch.isfinite(x)) for x in loss_mesh),
         "twin_argument_bytes": all(t["argument_bytes_equal"]
                                    for t in twin_lines),
+        "twin_collectives_none": all(
+            c.collectives().counts == {} for _, c in twins.values()),
     }
     out = {"arch": cfg.name, "path": MESH, "ok": all(checks.values()),
            "checks": checks, "mesh": axes, "rules": "DEFAULT_RULES",
@@ -2940,11 +2947,13 @@ def mesh2_rank(rank: int, job: dict) -> dict:
     under ``CollectiveTally``, the second prefill, the last decode step
     and the one train step (cold, under the tally) timed (every rank
     starts each at a barrier, and samples the card's memory in use by
-    every process after it); the peak memory of the draw and of the steps
-    apart; then the f32 pair.  After qwen3-1.7b, its decode under
-    ``MESH2_VARIANT`` (``mesh2_variant``).  Returns, by model, this rank's
-    blocks of every logits tensor, the losses and grad norms, its
-    launches, times, peak memory and collectives."""
+    every process after it), each beside the dry-run twin's count of its
+    collectives taken on this mesh before the steps (``mesh2_twins``); the
+    peak memory of the draw and of the steps apart; then the f32 pair.
+    After qwen3-1.7b, its decode under ``MESH2_VARIANT``
+    (``mesh2_variant``). Returns, by model, this rank's blocks of every
+    logits tensor, the losses and grad norms, its launches, times, peak
+    memory and collectives."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.serve.serve_step import make_prefill, make_serve_step
@@ -2994,6 +3003,10 @@ def mesh2_rank(rank: int, job: dict) -> dict:
         step = make_serve_step(cfg, mesh, DEFAULT_RULES)
         train = make_train_step(cfg, AdamWConfig(
             total_steps=MESH_TRAIN_STEPS), mesh, DEFAULT_RULES, remat="full")
+        t_twin = time.perf_counter()
+        twins = mesh2_twins(cfg, mesh, DEFAULT_RULES,
+                            ("prefill", "decode") + ("train",) * trains)
+        twin_s = time.perf_counter() - t_twin
         comm, ms = {}, {}
         reset_counts()                   # this rank's path starts here
         # a MoE model's routes: the first prefill's, every decode step's
@@ -3045,6 +3058,7 @@ def mesh2_rank(rank: int, job: dict) -> dict:
             launches=launches, marks=marks,
             routes=[t.cpu() for t in routes],
             comm={k: mesh2_comm(t) for k, t in comm.items()},
+            twin=twins, twin_s=twin_s,
             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
             draw_peak_gb=draw_peak_gb,
             card_used_gb=max(card_used) / 1e9, draw_s=draw_s)
@@ -3121,10 +3135,26 @@ def mesh2_local(t):
 
 
 def mesh2_comm(tally) -> dict:
-    """A ``CollectiveTally``'s counts and bytes by collective."""
-    return {"counts": {str(op).rsplit(".", 1)[-1]: n for op, n in
-                       tally.get_comm_counts().items()},
-            "bytes": dict(tally.comm_bytes)}
+    """A ``CollectiveTally``'s calls and bytes by the reference's kind
+    (``by_kind``: an all-reduce's bytes twice its result's), and its calls
+    by collective."""
+    counts, nbytes = tally.by_kind()
+    return {"counts": counts, "bytes": nbytes, "calls": dict(tally.calls)}
+
+
+def mesh2_twins(cfg, mesh, rules, kinds) -> dict:
+    """The dry-run twin's collectives of each of the path's steps of
+    ``kinds`` (``mesh_shapes``), counted on this rank's own ``mesh`` under
+    ``rules``: the step lowered there and run once on ``meta`` DTensors
+    (``Lowered.count_collectives``; nothing launched, nothing sent), by
+    kind as ``mesh2_comm`` gives a real step's."""
+    from repro_torch.launch.dryrun import lower_step
+    out = {}
+    for kind, shape in mesh_shapes().items():
+        if kind in kinds:
+            c = lower_step(cfg, shape, mesh, rules).count_collectives()
+            out[kind] = {"counts": c.counts, "bytes": c.bytes_by_kind}
+    return out
 
 
 def mesh2_variant(mesh, placed, timed, card_used) -> dict:
@@ -3135,12 +3165,14 @@ def mesh2_variant(mesh, placed, timed, card_used) -> dict:
     full depth (counted from 0, the first step under ``CollectiveTally``,
     the last timed), then in f32 on its ``MESH2_RUNS`` f32 depth.  Returns
     this rank's logits blocks, its cache block along the sequence and the
-    positions written into it (nonzero), launches, times and
-    collectives."""
+    positions written into it (nonzero), launches, times and collectives,
+    beside the dry-run twin's count of that step on this rank's mesh,
+    taken before the steps run."""
     from torch.distributed.tensor._utils import (
         compute_local_shape_and_global_offset)
     from repro_torch.launch.variants import apply_variant
-    from repro_torch.serve.serve_step import make_serve_step
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.serve.serve_step import lower_serve_step, make_serve_step
     from repro_torch.sharding import DEFAULT_RULES
     from repro_torch.sharding.collectives import STAGED, CollectiveTally
     arch = MESH2_VARIANT_ARCH
@@ -3157,6 +3189,11 @@ def mesh2_variant(mesh, placed, timed, card_used) -> dict:
         state = mesh2_state(cfg, params, {}, MESH2_VARIANT_MAX_SEQ)
         r = out[str(dtype).rsplit(".", 1)[1]] = {"decode": []}
         f32 = dtype == torch.float32
+        if not f32:                      # the tallied step's twin
+            c = lower_serve_step(cfg, ShapeSpec(
+                "mesh2_variant_decode", MESH2_VARIANT_MAX_SEQ, 4, "decode"),
+                mesh, rules).count_collectives()
+            r["twin"] = {"counts": c.counts, "bytes": c.bytes_by_kind}
         torch.cuda.reset_peak_memory_stats()
         reset_counts()                   # the variant's path starts here
         for i in range(MESH_DECODE_STEPS):
@@ -3241,13 +3278,9 @@ def expected_per_decode_step(cfg) -> dict:
 def mesh2_prepare(arch: str) -> dict:
     """The parent's share of a 2 x 2 path, before the ranks start: the
     unmeshed references (``mesh2_references``) in bf16 at the path's depth
-    and in f32 on its f32 depth (``MESH2_RUNS``), and the dry-run twin's
-    reckoned collectives of each step on the same mesh and rules.  Frees
-    every tensor it put on the card."""
-    from repro_torch.launch.mesh import AbstractMesh
-    from repro_torch.serve.serve_step import lower_prefill, lower_serve_step
-    from repro_torch.sharding import DEFAULT_RULES
-    from repro_torch.train.train_step import lower_train_step
+    and in f32 on its f32 depth (``MESH2_RUNS``).  Frees every tensor it
+    put on the card.  (Each rank counts the dry-run twin's collectives on
+    its own mesh: ``mesh2_twins``.)"""
     t0 = time.perf_counter()
     depth = MESH2_RUNS[arch].depth
     cfg, params = mesh2_weights(arch, torch.bfloat16, depth)
@@ -3262,19 +3295,8 @@ def mesh2_prepare(arch: str) -> dict:
     ref32 = mesh2_references(cfg32, p32, inputs, toks, batches, torch.float32)
     del p32, inputs, batches
     torch.cuda.empty_cache()
-    mesh = AbstractMesh(tuple(zip(("data", "model"), MESH2_SHAPE)))
-    lower = {"prefill": lower_prefill, "decode": lower_serve_step,
-             "train": lower_train_step}
-    reckoned = {}
-    for kind, shape in mesh_shapes().items():
-        if kind == "train" and not MESH2_RUNS[arch].trains:
-            continue
-        c = lower[kind](cfg, shape, mesh, DEFAULT_RULES).compile()
-        c = c.collectives()
-        reckoned[kind] = {"counts": c.counts, "bytes": c.bytes_by_kind}
     return {"cfg": cfg, "depth": depth, "ref": ref, "ref32": ref32,
-            "variant": variant, "reckoned": reckoned,
-            "seconds": time.perf_counter() - t0}
+            "variant": variant, "seconds": time.perf_counter() - t0}
 
 
 def mesh2_variant_references(cfg, params) -> dict:
@@ -3287,13 +3309,8 @@ def mesh2_variant_references(cfg, params) -> dict:
     version in a last bit, while the mesh's other split rounds each
     layer's partial products in bf16 once more: the ssm / hybrid / moe
     rule of ``mesh2_references``); in f32 on its f32 depth the
-    kernels' logits; and the dry-run twin's reckoned collectives of that
-    decode step under the variant's rules."""
-    from repro_torch.launch.mesh import AbstractMesh
-    from repro_torch.launch.variants import apply_variant
-    from repro_torch.models.config import ShapeSpec
-    from repro_torch.serve.serve_step import lower_serve_step, make_serve_step
-    from repro_torch.sharding import DEFAULT_RULES
+    kernels' logits."""
+    from repro_torch.serve.serve_step import make_serve_step
     _, toks, _ = mesh_inputs(cfg)
 
     def run(c, p, force_ref=False):
@@ -3315,13 +3332,7 @@ def mesh2_variant_references(cfg, params) -> dict:
     want32 = run(cfg32, p32)
     del p32, plain, exact
     torch.cuda.empty_cache()
-    rules = apply_variant(DEFAULT_RULES, cfg.name, "decode", MESH2_VARIANT)
-    mesh = AbstractMesh(tuple(zip(("data", "model"), MESH2_SHAPE)))
-    c = lower_serve_step(cfg, ShapeSpec("mesh2_variant_decode",
-                                        MESH2_VARIANT_MAX_SEQ, 4, "decode"),
-                         mesh, rules).compile().collectives()
-    return {"decode": kern, "floor": floor, "f32_decode": want32,
-            "reckoned": {"counts": c.counts, "bytes": c.bytes_by_kind}}
+    return {"decode": kern, "floor": floor, "f32_decode": want32}
 
 
 def card_memory_watch(stop: threading.Event, out: list,
@@ -3392,12 +3403,16 @@ def run_mesh2(paths: dict) -> dict:
       ``CACHE_AXES["img_kv"]`` gives them;
     * the ranks did not rebuild the kernels (``build.log`` untouched).
 
+    * on each rank, the first prefill's, decode step's and train step's
+      collectives (``CollectiveTally``: calls and bytes by the reference's
+      kind) equal the dry-run twin's count of the same step, lowered on
+      the rank's own mesh and run on ``meta`` DTensors before the steps
+      (``mesh2_twins``, ``twin_held``).
+
     Printed, not held: each rank's step times, peak memory, the card's
     memory in use while the ranks ran (sampled by the parent, and by each
-    rank after its timed steps) and collectives (counts and bytes by
-    kind, from ``CommDebugMode``) beside the dry-run twin's reckoned
-    collectives for the same step, mesh and rules, and the host-staged
-    all-gathers."""
+    rank after its timed steps), the collectives beside the twin's
+    (``mesh2_collectives`` lines) and the host-staged all-gathers."""
     from repro_torch.kernels import _build
     from repro_torch.launch.ranks import run_ranks
     torch.backends.cuda.matmul.allow_tf32 = False    # as the ranks have it
@@ -3604,6 +3619,7 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
         "four_ranks": sorted(coords) == [(0, 0), (0, 1), (1, 0), (1, 1)],
         "gloo_on_the_card": all(r["backend"] == "gloo" for r in ranks),
         "library_not_rebuilt": card["library_not_rebuilt"],
+        "twin_collectives": twin_held(ranks),
         **route_checks,
     }
     if trains:
@@ -3669,10 +3685,11 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
            "per_decode_step": {k: v for k, v in per[0]["decode"].items()
                                if v},
            "per_train_step": {k: v for k, v in per[0]["train"].items() if v}}
-    for kind in prep["reckoned"]:
+    for kind in ranks[0]["twin"]:
         emit("mesh2_collectives", arch=cfg.name, step=kind,
              measured_by_rank=[r["comm"][kind] for r in ranks],
-             reckoned=prep["reckoned"][kind])
+             twin=[r["twin"][kind] for r in ranks],
+             twin_s_by_rank=[r["twin_s"] for r in ranks])
     emit("mesh2", **out)
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in ranks[0]["launches"]}
@@ -3680,6 +3697,15 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
              "per_decode_step": per[0]["decode"],
              "per_train_step": per[0]["train"]},
             [k for k, v in checks.items() if not v])
+
+
+def twin_held(ranks: list) -> bool:
+    """Whether on every rank each tallied step's collectives equal, in
+    calls and bytes by kind, the dry-run twin's count of that step on the
+    rank's mesh (``mesh2_twins``), and a twin was counted for each."""
+    return all(set(r["twin"]) == set(r["comm"]) and all(
+        {k: r["comm"][step][k] for k in ("counts", "bytes")} == twin
+        for step, twin in r["twin"].items()) for r in ranks)
 
 
 def mesh2_variant_check(ref: dict, ranks: list, card: dict) -> tuple:
@@ -3693,8 +3719,9 @@ def mesh2_variant_check(ref: dict, ranks: list, card: dict) -> tuple:
     ``SMALL_F32_TOL``; the cache split along its sequence over "model", 4
     positions a rank, and the 8 steps' writes at positions 0-3 on the
     first "model" rank and 4-7 on the second; launches a step equal the
-    expected ones (RMSNorm only).  Returns (the path's launches, the names
-    of its failed checks)."""
+    expected ones (RMSNorm only); the first step's collectives on each
+    rank equal the dry-run twin's count of it (``twin_held``).  Returns
+    (the path's launches, the names of its failed checks)."""
     from repro_torch.configs import get_config
     cfg = get_config(MESH2_VARIANT_ARCH)
     B, V, n = 4, cfg.vocab, MESH_DECODE_STEPS
@@ -3726,6 +3753,9 @@ def mesh2_variant_check(ref: dict, ranks: list, card: dict) -> tuple:
             w == list(range(c[1] * half, (c[1] + 1) * half))
             for c, w in written.items()),
         "decode_launches": all(q == want for q in per),
+        "twin_collectives": twin_held([
+            {"comm": {"decode": r["bfloat16"]["comm"]},
+             "twin": {"decode": r["bfloat16"]["twin"]}} for r in ranks]),
     }
     out = {"arch": cfg.name, "path": MESH2_VARIANT_PATH,
            "ok": all(checks.values()), "checks": checks,
@@ -3743,7 +3773,7 @@ def mesh2_variant_check(ref: dict, ranks: list, card: dict) -> tuple:
     emit("mesh2_collectives", arch=cfg.name, step="decode",
          variant=MESH2_VARIANT,
          measured_by_rank=[r["bfloat16"]["comm"] for r in ranks],
-         reckoned=ref["reckoned"])
+         twin=[r["bfloat16"]["twin"] for r in ranks])
     emit("mesh2_variant", **out)
     launches = {k: sum(r["bfloat16"]["launches"][k] for r in ranks)
                 for k in ranks[0]["bfloat16"]["launches"]}
@@ -4006,15 +4036,15 @@ def paper_cells() -> None:
     own, with no card visible)."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
-    from repro_torch.launch.dryrun import _lower
+    from repro_torch.launch.dryrun import lower_step
     from repro_torch.launch.mesh import abstract_mesh
     from repro_torch.models.config import ShapeSpec
     from repro_torch.sharding import DEFAULT_RULES
     for arch, kind, S, B in PAPER_CELLS:
         cfg = get_config(arch)
         shape = ShapeSpec(f"chip_{kind}", S, B, kind)
-        compiled = _lower(cfg, shape, abstract_mesh(local=True),
-                          DEFAULT_RULES, "full").compile()
+        compiled = lower_step(cfg, shape, abstract_mesh(local=True),
+                              DEFAULT_RULES, "full").compile()
         r = roofline_of(cfg, shape, compiled)
         print(json.dumps({"arch": arch, "step": kind, "shape": [B, S],
                           "n_layers": cfg.n_layers, **r}), flush=True)
@@ -4023,13 +4053,21 @@ def paper_cells() -> None:
 def start_dryrun() -> dict:
     """Start the dry-run on the host, beside the card's phases, in two
     processes with no card visible (``CUDA_VISIBLE_DEVICES`` empty, one
-    thread each): ``python -m repro_torch.launch.dryrun --all --mesh both``
-    into a temporary directory, and ``paper_cells``."""
+    thread each, at a lower scheduling priority, ``nice`` 10: the card's
+    phases are host-bound and set the script's time): ``python -m
+    repro_torch.launch.dryrun --all --mesh both`` into a temporary
+    directory, and ``paper_cells``.  A thread a process records when it
+    ends (``ended``: seconds from the start)."""
     import tempfile
     out = Path(tempfile.mkdtemp(prefix="repro_torch_dryrun"))
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
                PYTHONPATH=str(ROOT / "src"))
-    procs = {}
+    procs, ended, watchers = {}, {}, []
+    t0 = time.perf_counter()
+
+    def watch(name, proc):
+        proc.wait()
+        ended[name] = time.perf_counter() - t0
     for name, argv in (
             ("sweep", ["-m", "repro_torch.launch.dryrun", "--all", "--mesh",
                        "both", "--out", str(out / "dryrun_results.json")]),
@@ -4037,8 +4075,12 @@ def start_dryrun() -> dict:
         log = open(out / f"{name}.log", "w")
         procs[name] = (subprocess.Popen(
             [sys.executable, *argv], cwd=str(ROOT), env=env, stdout=log,
-            stderr=subprocess.STDOUT), log)
-    return {"dir": out, "procs": procs, "t0": time.perf_counter()}
+            stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(10)), log)
+        watchers.append(threading.Thread(target=watch, daemon=True,
+                                         args=(name, procs[name][0])))
+        watchers[-1].start()
+    return {"dir": out, "procs": procs, "ended": ended,
+            "watchers": watchers}
 
 
 def stop_dryrun(bg) -> None:
@@ -4059,13 +4101,16 @@ def phase_dryrun(bg: dict) -> dict:
     (``dominant_adj``, ``step_ms_adj``, ``bytes_per_device_gb``,
     ``fits_hbm_80g``, from the report's enriched rows) and one a
     ``PAPER_CELLS`` step.  The sweep's wall time runs beside the card's
-    phases: ``wait_s`` is what this phase waited for it."""
+    phases: ``sweep_wall_s`` and ``paper_wall_s`` are when each process
+    ended (``start_dryrun``'s threads), ``wait_s`` what this phase waited
+    for them."""
     t0 = time.perf_counter()
     rcs = {}
     for name, (proc, log) in bg["procs"].items():
         rcs[name] = proc.wait(timeout=DRYRUN_TIMEOUT_S)
         log.close()
-    wall_s = time.perf_counter() - bg["t0"]
+    for w in bg["watchers"]:
+        w.join()
     wait_s = time.perf_counter() - t0
     out = bg["dir"]
     results = out / "dryrun_results.json"
@@ -4106,9 +4151,11 @@ def phase_dryrun(bg: dict) -> dict:
                "cells": len(rows),
                "ok_cells": sum(r.get("status") == "ok" for r in rows),
                "skipped": sum(r.get("status") == "skipped" for r in rows),
-               "sweep_wall_s": wall_s, "wait_s": wait_s,
+               "sweep_wall_s": bg["ended"]["sweep"],
+               "paper_wall_s": bg["ended"]["paper"], "wait_s": wait_s,
                "trace_s_sum": sum(r.get("trace_s", 0) for r in rows
-                                  if r.get("mesh") == "single")}
+                                  if r.get("mesh") == "single"),
+               "count_s_sum": sum(r.get("count_s", 0) for r in rows)}
     emit("dryrun", **summary)
     if not summary["ok"]:
         tail = {n: (out / f"{n}.log").read_text()[-2000:]

@@ -27,16 +27,26 @@ their own.
 
 ``abstract_mesh`` is a mesh's axis names and sizes alone (no device, no
 group): what the dry-run (``launch.dryrun``) lowers on, any number of them
-in one process.
+in one process.  To count the collectives of one rank's step
+(``roofline.trace.Lowered.count_collectives``) an abstract mesh becomes a
+``DeviceMesh`` of its axes over ranks [0, n) of torch's fake group
+(``rank_mesh``): one group of ``FAKE_WORLD`` ranks holds both production
+meshes, (2, 16, 16) and (16, 16) over ranks 0-255.  It is started only
+when the process has no default group, and destroyed when the block that
+started it ends (``fake_ranks``), so that a process which counts can build
+a local mesh afterwards.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
 from .. import resolve_device
 
 LOCAL_AXES = ("data", "model")
+FAKE_WORLD = 512         # ranks of the fake group the dry-run counts on
 _STARTED = None          # the local mesh whose call started the group
 
 
@@ -161,3 +171,70 @@ def abstract_mesh(*, multi_pod: bool = False, local: bool = False
     if multi_pod:
         return AbstractMesh((("pod", 2), ("data", 16), ("model", 16)))
     return AbstractMesh((("data", 16), ("model", 16)))
+
+
+@contextlib.contextmanager
+def fake_ranks():
+    """Torch's fake process group of ``FAKE_WORLD`` ranks (this process is
+    rank 0; collectives move nothing) for the block: started only when the
+    process has no default group, and destroyed on leaving if this call
+    started it.  A fake group already there serves as it is; a real one
+    raises.  Destroying it also empties DTensor's cache of sharding
+    decisions: a cached decision holds the mesh it was made on, whose
+    groups are gone, and a later mesh of the same layout equals it."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    started = not _have_group("production")
+    if started:
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=FAKE_WORLD)
+    try:
+        yield
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+            _forget_meshes()
+
+
+def _forget_meshes() -> None:
+    """Empty DTensor's caches that hold a mesh (its sharding decisions, in
+    Python and in its C++ dispatch path, and its redistribution plans)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import _redistribute
+    DTensor._op_dispatcher.sharding_propagator \
+        .propagate_op_sharding.cache_clear()
+    for clear in (getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                          None),
+                  getattr(_redistribute, "clear_redistribute_planner_cache",
+                          None)):
+        if clear is not None:
+            clear()
+
+
+@contextlib.contextmanager
+def rank_mesh(mesh):
+    """The ``DeviceMesh`` that one rank's step on ``mesh`` runs on, as rank
+    0: ``mesh`` itself where it is one (a rank of a real group counts on
+    its own mesh), else a mesh of its axes over ranks [0, n) of the fake
+    group, inside ``fake_ranks``.  That mesh's device type is "cuda", as
+    an H100 rank's is, whether or not a card is there (its tensors are
+    ``meta``): DTensor picks some routes by the mesh's device type (a
+    shard moved to another dimension is an all-to-all on "cuda", an
+    all-gather and a local chunk on "cpu", gloo's fallback)."""
+    if hasattr(mesh, "get_group"):
+        yield mesh
+        return
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from ..sharding.rules import mesh_axes
+    names, sizes = zip(*mesh_axes(mesh).items())
+    n = math.prod(sizes)
+    with fake_ranks():
+        if dist.get_world_size() < n:
+            raise RuntimeError(
+                f"the fake group has {dist.get_world_size()} ranks; a "
+                f"{sizes} mesh needs {n}: count in a process of its own")
+        yield DeviceMesh("cuda", torch.arange(n).reshape(sizes),
+                         mesh_dim_names=names)

@@ -143,6 +143,20 @@ def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return t.reshape(*t.shape[:-1], n, hd)
 
 
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(..., n, hd) -> (..., n * hd), ``split_heads``' inverse.  Where a
+    mesh dimension does not divide ``n`` (24 heads over 16 ranks), a
+    DTensor's gradient is brought back to the forward's placements first
+    (an identity redistribution): the product that follows may hand back a
+    gradient split along the flat columns, cutting a head, which DTensor
+    cannot view as heads."""
+    n, hd = t.shape[-2:]
+    flat = t.reshape(*t.shape[:-2], n * hd)
+    if is_dtensor(flat) and any(n % k for k in flat.device_mesh.shape):
+        flat = flat.redistribute(flat.device_mesh, flat.placements)
+    return flat
+
+
 def write_cache(cache: torch.Tensor, start: int, new: torch.Tensor) -> None:
     """``cache[:, start:start + S] = new`` in the cache's type, in place.  A
     DTensor cache takes ``new`` at its own placements, but with the
@@ -191,7 +205,7 @@ def attention(x, lp, cfg: ModelConfig, *, positions, cache=None,
     attention runs over the first ``cache_len + S`` positions.
     Returns (residual output, cache_or_None).
     """
-    B, S, d = x.shape
+    S = x.shape[1]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps, force_ref=force_ref)
     q = matmul(h, lp["wq"])
@@ -217,7 +231,7 @@ def attention(x, lp, cfg: ModelConfig, *, positions, cache=None,
         write_cache(k_cache, start, k)
         write_cache(v_cache, start, v)
         attn = decode_attention(q, k_cache, v_cache, int(cache_len) + S)
-    out = matmul(attn.reshape(B, S, H * hd), lp["wo"])
+    out = matmul(merge_heads(attn), lp["wo"])
     return out, cache
 
 

@@ -39,8 +39,9 @@ from ..kernels import flash_attention, rmsnorm
 from ..sharding.context import carried, constrain, replicated_like, whole
 from ..sharding.rules import CACHE_AXES, INPUT_AXES, distribute_inputs
 from .config import ModelConfig
-from .layers import (attention, attention_specs, embed_rows, matmul, mlp_specs,
-                     promoted, split_heads, swiglu, write_state)
+from .layers import (attention, attention_specs, embed_rows, matmul,
+                     merge_heads, mlp_specs, promoted, split_heads, swiglu,
+                     write_state)
 from .moe import moe_ffn, moe_specs
 from .params import p, tree_abstract, tree_init
 from .ssm import init_ssm_state, mamba_block, ssm_specs
@@ -131,7 +132,22 @@ def _remat(fn, remat: str):
 
 
 def _head(params, cfg: ModelConfig):
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    """The output projection: ``lm_head``, or the embedding table's
+    transpose.  A tied DTensor table whose vocabulary no mesh dimension
+    splits (49155 rows over 16 ranks) takes the head's gradient back at its
+    own placements first (an identity redistribution): the head's product
+    may leave it split along the vocabulary, and the embedding's gradient
+    arrives at the table's placements, a sum torch 2.11's DTensor cannot
+    form (it would move a shard to a pending sum)."""
+    if not cfg.tie_embeddings:
+        return params["lm_head"]
+    table = params["embed"]
+    if is_dtensor(table):
+        from torch.distributed.tensor import Shard
+        if not any(isinstance(q, Shard) and q.dim % table.ndim == 0
+                   for q in table.placements):
+            table = table.redistribute(table.device_mesh, table.placements)
+    return table.T
 
 
 def _fires_shared(cfg: ModelConfig, i: int) -> bool:
@@ -165,13 +181,12 @@ def _cross_attention(x, cap, cfg: ModelConfig, img_kv,
     no RoPE, no q/k norm, full (non-causal) attention over the image.
     Across ranks the flash call runs on each rank's batch rows and heads
     (``heads_on_shards``) and the gate is a replicated 0-d slice."""
-    B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
     h = rmsnorm(x, cap["ca_attn_norm"], cfg.norm_eps, force_ref=force_ref)
     q = split_heads(matmul(h, cap["ca_wq"]), H, hd)
     k, v = img_kv                                     # (B, n_img, KV, hd)
     attn = flash_attention(q, k, v, causal=False, force_ref=force_ref)
-    out = matmul(attn.reshape(B, S, H * hd), cap["ca_wo"])
+    out = matmul(merge_heads(attn), cap["ca_wo"])
     gate = torch.tanh(cap["ca_gate"].float()).to(x.dtype)
     return out * gate
 

@@ -9,8 +9,10 @@ mesh), in seconds:
 
 FLOPs and bytes come from ``Compiled.cost_analysis()`` of the step traced on
 ``meta`` tensors (``roofline.trace``): the global counts divided by the
-chips that share the work.  Collective bytes are reckoned from the
-placements (``reckon_collectives``): there is no HLO to read.
+chips that share the work.  Collective bytes are what one rank's step
+dispatches (``Compiled.collectives()``, counted on ``meta`` DTensors),
+where the reference reads XLA's per-device program; ``extrapolate`` takes
+two depths' counts to the full depth as the reference's ``run_cell`` does.
 
 Hardware constants: NVIDIA H100 SXM 80 GB (NVIDIA's H100 data sheet) —
 989 TFLOP/s dense bf16 on the tensor cores, 3.35 TB/s HBM3, 80 GB.  The
@@ -23,12 +25,8 @@ which no mesh here does.
 """
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence
-
-from ..sharding.rules import (DEFAULT_RULES, LogicalRules, NamedSharding,
-                              apply_rules, mesh_axes)
+from typing import Dict, Optional
 
 PEAK_FLOPS = 989e12         # bf16 per GPU, dense
 HBM_BW = 3.35e12            # bytes/s per GPU
@@ -51,88 +49,21 @@ class CollectiveStats:
                                     + nbytes * times)
 
 
-def _flat(entry) -> tuple:
-    return (entry,) if isinstance(entry, str) else tuple(entry or ())
-
-
-def reckon_collectives(kind: str, params: Sequence[dict],
-                       calls: Sequence[dict], mesh,
-                       rules: Optional[LogicalRules] = None
-                       ) -> CollectiveStats:
-    """The collectives of one step on ``mesh``, per device: counts and bytes
-    by kind, where bytes are each collective's per-device result, as
-    ``repro.roofline.analysis.parse_collectives`` sums an HLO
-    instruction's result shape (an all-reduce ×2: its reduce-scatter and
-    all-gather phases).  ``kind`` is the shape's ("train", "prefill",
-    "decode"); ``params`` the param leaves as dicts of ``shape``,
-    ``itemsize``, ``axes`` and ``spec``; ``calls`` the ``constrain`` calls
-    of the trace (``sharding.context.recording``).  Only mesh axes of more
-    than one device move bytes.  The rules:
-
-    * The "batch" axes are those the rules give the logical axis "batch"
-      (data parallel); the tensor-parallel axes those they give "heads".
-    * A param leaf sharded over batch axes (FSDP) is all-gathered over them
-      before use: its block with those axes gathered, once a step for
-      serving, twice a train step (forward, and again for the backward).
-      A stacked leaf (first axis "layers") counts one all-gather a layer.
-    * A train step reduce-scatters such a leaf's gradient over the same
-      axes (its block), and all-reduces the gradient of a leaf over the
-      batch axes it is replicated on.
-    * A ``constrain`` of the residual stream (last logical axis
-      "act_embed") receives a product contracted over the tensor-parallel
-      axes (attention's output projection, the MLP's or Mamba2's, the
-      embedding's gather from a vocab-sharded table): an all-reduce of its
-      requested block over those of them the block is not sharded on.
-    * A ``constrain`` whose first axis is "act_experts", when that is
-      sharded, is the MoE dispatch's (or its return's) all-to-all of the
-      block.
-    * Other calls (the logits, sharded on the vocab as the head's product
-      leaves them) move nothing.
-    * In a train step a call made while autograd builds the graph adds the
-      same collective once more, for its gradient; calls of a remat
-      recompute (made during the backward) count once, as XLA repeats the
-      recomputed forward's collectives.
-
-    Not seen: re-shardings that no ``constrain`` requests (a decode step's
-    attention over a sequence-sharded cache, ``long_500k``)."""
-    rules = rules or DEFAULT_RULES
-    sizes = mesh_axes(mesh)
-
-    def live(entry) -> set:
-        return {a for a in _flat(entry) if sizes.get(a, 1) > 1}
-
-    def prod(axes) -> int:
-        return math.prod(sizes[a] for a in axes)
-
-    batch, tp = live(rules.get("batch")), live(rules.get("heads"))
-    train = kind == "train"
-    stats = CollectiveStats()
-    for leaf in params:
-        used = set().union(*map(live, leaf["spec"]))
-        nbytes = math.prod(leaf["shape"]) * leaf["itemsize"]
-        block = nbytes / prod(used)
-        fsdp = used & batch
-        layers = (leaf["shape"][0] if leaf["axes"]
-                  and leaf["axes"][0] == "layers" else 1)
-        if fsdp:
-            gathered = nbytes / prod(used - fsdp)
-            uses = 2 if train else 1
-            stats.add("all-gather", gathered / layers, uses * layers)
-            if train:
-                stats.add("reduce-scatter", block)
-        if train and batch - used:
-            stats.add("all-reduce", 2 * block)
-    for c in calls:
-        spec = apply_rules(c["names"], c["shape"], mesh, rules)
-        block = (math.prod(NamedSharding(mesh, spec).shard_shape(c["shape"]))
-                 * c["itemsize"])
-        times = 2 if train and c["grad"] and not c["backward"] else 1
-        if c["names"][-1] == "act_embed":
-            if tp - set().union(*map(live, spec)):
-                stats.add("all-reduce", 2 * block, times)
-        elif c["names"][0] == "act_experts" and live(spec[0]):
-            stats.add("all-to-all", block, times)
-    return stats
+def extrapolate(c1: CollectiveStats, c2: CollectiveStats, l1: int, l2: int,
+                depth: int) -> CollectiveStats:
+    """The collectives at ``depth`` layers from the counts at ``l1`` and
+    ``l2`` (the reference's ``run_cell``: linear in depth, counts cut to
+    ints); the total's clamp (monotone in depth) is the caller's, as
+    there."""
+    scale = (depth - l1) / max(1, l2 - l1)
+    kinds = set(c1.counts) | set(c2.counts)
+    counts = {k: int(c1.counts.get(k, 0) + (c2.counts.get(k, 0)
+                                            - c1.counts.get(k, 0)) * scale)
+              for k in kinds}
+    nbytes = {k: c1.bytes_by_kind.get(k, 0) + (
+        c2.bytes_by_kind.get(k, 0) - c1.bytes_by_kind.get(k, 0)) * scale
+              for k in kinds}
+    return CollectiveStats(counts, nbytes)
 
 
 @dataclass
@@ -218,7 +149,7 @@ def analyze(arch: str, shape, mesh_name: str, chips: int, cost: dict,
             collectives: Optional[CollectiveStats], cfg,
             memory_stats: Optional[dict] = None) -> Roofline:
     """The reference's ``analyze`` with ``collectives`` (from
-    ``reckon_collectives``, or ``None`` for none) in place of its HLO
+    ``Compiled.collectives()``, or ``None`` for none) in place of its HLO
     text, and the fit test at ``HBM_BYTES``."""
     flops = float(cost.get("flops", 0.0))
     # bytes accessed: sum the "bytes accessed" keys

@@ -1,11 +1,11 @@
 """Stand-ins for ``jax.stages.Lowered`` and ``Compiled``: a step traced on
 ``meta`` tensors (shapes and dtypes, no data, no device).
 
-``Lowered`` holds a step built with ``trace=True`` (``serve.serve_step``,
+``Lowered`` holds a step's builder (``serve.serve_step``,
 ``train.train_step``), its ``meta`` arguments, their shardings on a mesh
-and the donated arguments.  ``Lowered.compile()`` runs the step once on the
-``meta`` tensors under a FLOP counter and a dispatch mode that tallies
-every aten op, and returns a ``Compiled``:
+and the donated arguments.  ``Lowered.compile()`` runs the step built with
+``trace=True`` once on the ``meta`` tensors under a FLOP counter and a
+dispatch mode that tallies every aten op, and returns a ``Compiled``:
 
 * ``cost_analysis()``: ``{"flops", "bytes accessed"}`` per device.  FLOPs
   are ``torch.utils.flop_counter.FlopCounterMode``'s count of the products
@@ -25,8 +25,8 @@ every aten op, and returns a ``Compiled``:
   outputs: the params and AdamW moments of a train step (updated in place
   here), the decode state of a serve step.  The temp size is the peak of
   the live storage the trace allocated, its outputs' storage left out.
-* ``collectives()``: ``roofline.analysis.reckon_collectives`` of the
-  placements and the trace's ``constrain`` calls.
+* ``collectives()``: the collectives one rank's step dispatches
+  (``Lowered.count_collectives``), per device.
 * ``as_text()``: a readable account of the trace.
 
 The trace is global: one process runs the whole step.  Per-device FLOPs,
@@ -35,6 +35,19 @@ work (every device of the mesh).  XLA's SPMD numbers count each device's
 own program instead (work it repeats, such as heads too few to shard,
 included), so on a production mesh the two differ.  A Python loop has no
 ``while`` body to undercount: the trace runs every layer.
+
+The collectives are not global: they are what the reference reads from
+XLA's per-device program, so ``count_collectives`` runs the step as one
+rank runs it.  Each argument leaf becomes a ``meta`` DTensor of this
+rank's block (its ``NamedSharding`` on the mesh), and the step built
+without ``trace`` (DTensor params, ``constrain`` a real redistribution,
+the kernels' ``kernels._local`` boundaries) runs once under
+``sharding.collectives.CollectiveTally``: every collective dispatches and
+moves nothing.  The mesh is the rank's own ``DeviceMesh`` where it is one,
+else the abstract mesh's axes over torch's fake group
+(``launch.mesh.rank_mesh``).  Calls and bytes come out under the
+reference's names and byte convention (``CollectiveTally.by_kind``: each
+call's result block on this rank, an all-reduce twice).
 """
 from __future__ import annotations
 
@@ -51,10 +64,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves as _pytree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
-from ..models.params import tree_leaves
-from ..sharding.context import recording
-from ..sharding.rules import NamedSharding, mesh_size
-from .analysis import CollectiveStats, reckon_collectives
+from ..models.params import tree_leaves, tree_unflatten
+from ..sharding.rules import NamedSharding, P, mesh_size
+from .analysis import CollectiveStats
 
 aten = torch.ops.aten
 # ops that allocate without writing: no bytes accessed
@@ -176,13 +188,39 @@ def _block(leaf, sharding: Optional[NamedSharding]):
     return (shape, dtype, tuple(block)), math.prod(block) * itemsize
 
 
+def _on_rank(tree, sharding, mesh):
+    """``tree`` with each tensor leaf a ``meta`` DTensor of this rank's
+    block on ``mesh``, placed as its ``NamedSharding`` (mirroring
+    ``tree``; ``None``: the subtree replicated) places it on the lowered
+    mesh; other leaves kept."""
+    if isinstance(tree, dict):
+        return {k: _on_rank(v, None if sharding is None else sharding[k],
+                            mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        parts = [_on_rank(v, None if sharding is None else sharding[i], mesh)
+                 for i, v in enumerate(tree)]
+        return type(tree)(*parts) if hasattr(tree, "_fields") \
+            else type(tree)(parts)
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    placements = NamedSharding(mesh, P() if sharding is None
+                               else sharding.spec).placements
+    block, _ = compute_local_shape_and_global_offset(tree.shape, mesh,
+                                                     placements)
+    local = torch.empty(block, dtype=tree.dtype, device="meta")
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=tree.shape, stride=tree.stride())
+
+
 @dataclass
 class Trace:
     """What one run of the step on ``meta`` tensors saw: global counts."""
     flops: float
     bytes: float
     temp_bytes: int                # peak live bytes, outputs left out
-    calls: list                    # the constrain calls (``recording``)
     outputs: Any                   # the step's return value
     unused: frozenset = frozenset()  # paths of the params no op read
     ops: Counter = field(default_factory=Counter)
@@ -201,19 +239,43 @@ class MemoryAnalysis:
 
 class Lowered:
     """A step and its ``meta`` inputs, as ``jax.jit(...).lower(...)``
-    returns them.  ``kind`` is the shape's kind ("train", "prefill",
-    "decode"); ``params_argnum`` the argument that holds the params, with
-    their logical ``axes`` (``models.params.tree_axes``) for the collective
-    estimate."""
+    returns them.  ``build(mesh, trace)`` makes the step on a mesh, taking
+    the arguments positionally (``trace=True``: the global trace's);
+    ``kind`` is the shape's kind ("train", "prefill", "decode");
+    ``params_argnum`` the argument that holds the params."""
 
-    def __init__(self, fn, args: tuple, in_shardings: tuple, *,
+    def __init__(self, build, args: tuple, in_shardings: tuple, *,
                  out_shardings=None, donate_argnums: tuple = (), mesh,
-                 rules=None, kind: str, axes=None, params_argnum: int = 0):
-        self.fn, self.args = fn, args
+                 rules=None, kind: str, params_argnum: int = 0):
+        self.build, self.fn = build, build(mesh, True)
+        self.args = args
         self.in_shardings, self.out_shardings = in_shardings, out_shardings
         self.donate_argnums = tuple(donate_argnums)
         self.mesh, self.rules, self.kind = mesh, rules, kind
-        self.axes, self.params_argnum = axes, params_argnum
+        self.params_argnum = params_argnum
+
+    def count_collectives(self, params_dtype=None) -> CollectiveStats:
+        """The collectives one rank's step dispatches on this mesh, by the
+        reference's kind (module docstring); none on one device.
+        ``params_dtype``: the params' floating type where the step's is not
+        their specs' (bf16)."""
+        if mesh_size(self.mesh) == 1:
+            return CollectiveStats()
+        from ..launch.mesh import rank_mesh
+        from ..sharding.collectives import CollectiveTally
+        args = list(self.args)
+        if params_dtype is not None:
+            args[self.params_argnum] = tree_unflatten(
+                (path, t.to(params_dtype) if t.is_floating_point() else t)
+                for path, t in tree_leaves(args[self.params_argnum]))
+        with rank_mesh(self.mesh) as mesh:
+            step = self.build(mesh, False)
+            args = [_on_rank(a, s, mesh)
+                    for a, s in zip(args, self.in_shardings)]
+            with CollectiveTally() as tally:
+                step(*args)
+        counts, nbytes = tally.by_kind()
+        return CollectiveStats(counts, nbytes)
 
     def trace(self) -> Trace:
         """Run the step once on its ``meta`` arguments."""
@@ -223,7 +285,7 @@ class Lowered:
         flops = FlopCounterMode(display=False, custom_mapping={
             aten.convolution_backward: conv_backward_flop})
         t0 = time.perf_counter()
-        with recording() as calls, flops, tally:
+        with flops, tally:
             out = self.fn(*self.args)
         by_op = flops.get_flop_counts().get("Global", {})
         unused = frozenset(
@@ -232,7 +294,7 @@ class Lowered:
         outs = [t for t, _ in _flatten(out) if isinstance(t, torch.Tensor)]
         return Trace(flops=float(flops.get_total_flops()),
                      bytes=float(tally.bytes),
-                     temp_bytes=tally.temp_bytes(outs), calls=calls,
+                     temp_bytes=tally.temp_bytes(outs),
                      outputs=out,
                      unused=unused,
                      ops=tally.calls, op_bytes=tally.op_bytes,
@@ -251,6 +313,7 @@ class Compiled:
     def __init__(self, lowered: Lowered, trace: Trace):
         self.lowered, self.trace = lowered, trace
         self.chips = mesh_size(lowered.mesh)
+        self._collectives: Optional[CollectiveStats] = None
 
     def cost_analysis(self) -> dict:
         return {"flops": self.trace.flops / self.chips,
@@ -293,24 +356,13 @@ class Compiled:
         return {k: v for k, v in kept.items() if v is not None} or None
 
     def collectives(self) -> CollectiveStats:
-        low = self.lowered
-        params = low.args[low.params_argnum]
-        shardings = low.in_shardings[low.params_argnum]
-        axes = dict(tree_leaves(low.axes)) if low.axes is not None else {}
-        leaves = []
-        for (path, t), (_, sh) in zip(tree_leaves(params),
-                                      tree_leaves(shardings)):
-            if path in self.trace.unused:
-                continue
-            leaves.append({"shape": tuple(t.shape),
-                           "itemsize": t.element_size(),
-                           "axes": axes.get(path, ()), "spec": sh.spec})
-        return reckon_collectives(low.kind, leaves, self.trace.calls,
-                                  low.mesh, low.rules)
+        if self._collectives is None:
+            self._collectives = self.lowered.count_collectives()
+        return self._collectives
 
     def as_text(self, top: int = 12) -> str:
         """The trace in words: totals, the top ops by FLOPs and by bytes,
-        the ``constrain`` calls and the collectives."""
+        and the collectives."""
         t = self.trace
         mem = self.memory_analysis()
         coll = self.collectives()
@@ -328,10 +380,6 @@ class Compiled:
         lines.append("bytes by op (calls):")
         for op, n in t.op_bytes.most_common(top):
             lines.append(f"  {op}: {n:.6g} ({t.ops[op]})")
-        names = Counter((c["names"], c["backward"]) for c in t.calls)
-        lines.append(f"constrain calls: {len(t.calls)}")
-        for (n, bwd), k in sorted(names.items()):
-            lines.append(f"  {n}{' (recompute)' if bwd else ''}: {k}")
         lines.append("collectives per device:")
         for kind in sorted(coll.counts):
             lines.append(f"  {kind}: {coll.counts[kind]} calls, "

@@ -23,8 +23,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .. import is_dtensor
 from ..models.config import ModelConfig, ShapeSpec
-from ..models.params import tree_axes
 from ..models.transformer import (abstract_params, build_specs, decode_step,
                                   forward, init_decode_state)
 from ..roofline.trace import Lowered
@@ -74,13 +74,13 @@ def decode_state_shardings(cfg: ModelConfig, shape: ShapeSpec, mesh,
 
 def _placer(dev, trace: bool, mesh=None, rules=None):
     """The step's input placer, ``place(**inputs) -> inputs``: each to the
-    device (and, across ranks, placed by ``distribute_inputs``), ``None``
-    kept; or (a traced step) each checked to be ``meta`` and passed as it
-    is."""
+    device (and, across ranks, placed by ``distribute_inputs``; a DTensor
+    is redistributed where it lies), ``None`` kept; or (a traced step)
+    each checked to be ``meta`` and passed as it is."""
     def place(**inputs):
         if trace:
             return {k: traced_input(v) for k, v in inputs.items()}
-        out = {k: torch.as_tensor(v, device=dev)
+        out = {k: v if is_dtensor(v) else torch.as_tensor(v, device=dev)
                for k, v in inputs.items() if v is not None}
         if mesh is not None:
             out = distribute_inputs(out, mesh, rules)
@@ -177,7 +177,6 @@ def lower_serve_step(cfg: ModelConfig, shape: ShapeSpec, mesh,
     state_s = decode_state_structs(cfg, shape)
     state_sh = decode_state_shardings(cfg, shape, mesh, rules)
     B = shape.global_batch
-    step = make_serve_step(cfg, mesh, rules, trace=True)
     key = "inputs_embeds" if cfg.family == "audio" else "tokens"
     if key == "inputs_embeds":
         x_s = torch.empty((B, 1, cfg.d_model), dtype=torch.bfloat16,
@@ -187,16 +186,20 @@ def lower_serve_step(cfg: ModelConfig, shape: ShapeSpec, mesh,
         x_s = torch.empty((B, 1), dtype=torch.int32, device="meta")
         names = ("batch", "seq")
 
-    def traced(params, state, x):
-        return step(params, dict(state, pos=shape.seq_len - 1), **{key: x})
+    def build(m, trace: bool):
+        step = make_serve_step(cfg, m, rules, trace=trace)
+
+        def positional(params, state, x):
+            return step(params, dict(state, pos=shape.seq_len - 1),
+                        **{key: x})
+        return positional
     logits_sh = logical_sharding(("batch", "seq", "act_vocab"),
                                  (B, 1, cfg.vocab), mesh, rules)
-    return Lowered(traced, (params_s, state_s, x_s),
+    return Lowered(build, (params_s, state_s, x_s),
                    (params_sh, state_sh,
                     logical_sharding(names, x_s.shape, mesh, rules)),
                    out_shardings=(logits_sh, state_sh), donate_argnums=(1,),
-                   mesh=mesh, rules=rules, kind="decode",
-                   axes=tree_axes(specs))
+                   mesh=mesh, rules=rules, kind="decode")
 
 
 def lower_prefill(cfg: ModelConfig, shape: ShapeSpec, mesh,
@@ -210,7 +213,6 @@ def lower_prefill(cfg: ModelConfig, shape: ShapeSpec, mesh,
     params_s = abstract_params(cfg)
     params_sh = shardings_for(specs, mesh, rules)
     B, S = shape.global_batch, shape.seq_len
-    fn = make_prefill(cfg, mesh, rules, trace=True)
 
     def meta(shp, dtype):
         return torch.empty(shp, dtype=dtype, device="meta")
@@ -229,11 +231,14 @@ def lower_prefill(cfg: ModelConfig, shape: ShapeSpec, mesh,
     args_sh = tuple(logical_sharding(names[k], kwargs_s[k].shape, mesh, rules)
                     for k in keys)
 
-    def positional(p, *vals):
-        return fn(p, **dict(zip(keys, vals)))
+    def build(m, trace: bool):
+        fn = make_prefill(cfg, m, rules, trace=trace)
+
+        def positional(p, *vals):
+            return fn(p, **dict(zip(keys, vals)))
+        return positional
     logits_sh = logical_sharding(("batch", "seq", "act_vocab"),
                                  (B, S, cfg.vocab), mesh, rules)
-    return Lowered(positional, (params_s,) + tuple(kwargs_s[k] for k in keys),
+    return Lowered(build, (params_s,) + tuple(kwargs_s[k] for k in keys),
                    (params_sh,) + args_sh, out_shardings=logits_sh,
-                   mesh=mesh, rules=rules, kind="prefill",
-                   axes=tree_axes(specs))
+                   mesh=mesh, rules=rules, kind="prefill")

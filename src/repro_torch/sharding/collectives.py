@@ -14,21 +14,35 @@ chip smoke prints beside the step's collectives.  (gloo's own collectives on
 CUDA tensors pass through host memory too, and it sums an all-reduce or a
 reduce-scatter there: the transport of ranks that share a card.)
 
-``CollectiveTally`` counts the functional collectives a block dispatches
-(DTensor issues every one of them) with torch's ``CommDebugMode``, and the
-bytes of each call's result on this rank.
+``CollectiveTally`` counts the collectives a block dispatches (DTensor
+issues the functional ones; decode attention over a split cache all-reduces
+its rows' maxima with c10d's ``all_reduce``) with torch's
+``CommDebugMode``, and the bytes of each call's result on this rank;
+``by_kind()`` gives them under the names and the byte convention of the
+reference's ``parse_collectives``.  On ``meta`` tensors the collectives
+dispatch and move nothing (the dry-run's count, ``roofline.trace``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.debug import CommDebugMode
+from torch.distributed.tensor.debug._comm_mode import c10d_collective_ops
+from torch.utils._pytree import tree_leaves
 
 # name -> {"calls": n, "bytes": b} of the host-staged collectives made
 STAGED: Dict[str, Dict[str, int]] = {}
 _LIBRARY = None
+# the reference's name (``repro.roofline.analysis.parse_collectives``) of
+# each collective a rank dispatches
+KINDS = {"all_gather_into_tensor": "all-gather",
+         "reduce_scatter_tensor": "reduce-scatter",
+         "all_to_all_single": "all-to-all",
+         "shard_dim_alltoall": "all-to-all",
+         "all_reduce": "all-reduce",
+         "allreduce_": "all-reduce"}
 
 
 def _note(name: str, nbytes: int) -> None:
@@ -71,14 +85,16 @@ def stage_through_host() -> None:
 
 
 class CollectiveTally(CommDebugMode):
-    """A ``CommDebugMode`` that also sums, by collective, the bytes of each
-    call's result on this rank: ``get_comm_counts()`` as the mode gives
-    them, ``comm_bytes`` a dict of the same names.  Dispatch modes are
-    thread-local state that autograd carries into its threads, so a
-    backward's collectives count too."""
+    """A ``CommDebugMode`` that also counts, by collective, the calls and
+    the bytes of each call's result on this rank (an in-place c10d
+    collective's result is its input): ``get_comm_counts()`` as the mode
+    gives them, ``calls`` and ``comm_bytes`` dicts of the collectives'
+    own names.  Dispatch modes are thread-local state that autograd
+    carries into its threads, so a backward's collectives count too."""
 
     def __init__(self):
         super().__init__()
+        self.calls: Dict[str, int] = {}
         self.comm_bytes: Dict[str, int] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -86,10 +102,30 @@ class CollectiveTally(CommDebugMode):
         if out is NotImplemented or any(t is DTensor for t in types):
             return out          # DTensor desugars into what comes next
         packet = getattr(func, "_overloadpacket", None)
-        if packet in self.comm_registry:
+        c10d = packet in c10d_collective_ops
+        if c10d or packet in self.comm_registry:
             name = str(packet).rsplit(".", 1)[-1]
-            results = out if isinstance(out, (list, tuple)) else [out]
+            result = args[0] if c10d else out
+            self.calls[name] = self.calls.get(name, 0) + 1
             self.comm_bytes[name] = self.comm_bytes.get(name, 0) + sum(
-                t.numel() * t.element_size() for t in results
+                t.numel() * t.element_size() for t in tree_leaves(result)
                 if isinstance(t, torch.Tensor))
         return out
+
+    def by_kind(self) -> Tuple[Dict[str, int], Dict[str, int]]:
+        """(calls, bytes) by the reference's kind (``KINDS``), an
+        all-reduce's bytes twice its result's, as ``parse_collectives``
+        folds in a ring's two phases.  A collective without a kind
+        raises."""
+        other = sorted(set(self.calls) - set(KINDS))
+        if other:
+            raise KeyError(f"collectives without a kind in KINDS: {other}")
+        counts: Dict[str, int] = {}
+        nbytes: Dict[str, int] = {}
+        for name, n in self.calls.items():
+            kind = KINDS[name]
+            factor = 2 if kind == "all-reduce" else 1
+            counts[kind] = counts.get(kind, 0) + n
+            nbytes[kind] = (nbytes.get(kind, 0)
+                            + factor * self.comm_bytes[name])
+        return counts, nbytes

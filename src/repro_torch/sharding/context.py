@@ -12,14 +12,16 @@ On a ``DeviceMesh`` of more than one rank (``launch.mesh.make_mesh``) the
 steps run with DTensor params, batch and decode state, and a plain tensor
 reaching ``constrain`` raises: a step's inputs arrive distributed
 (``sharding.rules.distribute_tree``).  Every family runs so.  A mesh
-without ranks (a stand-in whose ``shape`` is a dict,
-``launch.mesh.abstract_mesh``, or a ``DeviceMesh`` over torch's fake group)
-executes nothing: given to an untraced step builder it raises.  A step
-built with ``trace=True`` (the dry-run's, ``roofline.trace``) takes any mesh
-but runs on ``meta`` tensors only: there a plain tensor passes
-``constrain`` unchanged, and each call is recorded (``recording``) for the
-roofline's collective estimate.  A CPU or CUDA tensor given to such a step
-still raises.
+without ranks executes nothing.  A stand-in whose ``shape`` is a dict
+(``launch.mesh.abstract_mesh``) given to an untraced step builder raises.
+A ``DeviceMesh`` over torch's fake group builds the step as the ranks run
+it, but the step takes ``meta`` DTensors only (``require_distributed``):
+its collectives dispatch and move nothing, which is how the dry-run counts
+what one rank's step dispatches (``roofline.trace.Lowered.count_collectives``).
+A step built with ``trace=True`` (the dry-run's global trace) takes any
+mesh but runs on plain ``meta`` tensors only: there a plain tensor passes
+``constrain`` unchanged, and each call is recorded (``recording``).  A CPU
+or CUDA tensor given to either still raises.
 
 ``carried`` runs a function under the context current when it was made,
 in whatever thread calls it: a remat recompute runs in autograd's thread
@@ -57,9 +59,9 @@ def sharding_ctx(mesh, rules: Optional[LogicalRules] = None):
 @contextlib.contextmanager
 def recording():
     """Collect every ``constrain`` call inside the block, as dicts of
-    ``names``, ``shape``, ``itemsize``, ``grad`` (the tensor requires grad)
-    and ``backward`` (made while autograd runs a backward: a remat
-    recompute); yields the list."""
+    ``names``, ``shape``, ``backward`` (made while autograd runs a
+    backward: a remat recompute) and, for a DTensor, the ``placements``
+    it was given; yields the list."""
     calls: list = []
     token = _RECORD.set(calls)
     try:
@@ -76,8 +78,6 @@ def constrain(x: torch.Tensor, names: Sequence[Optional[str]]
     calls = _RECORD.get()
     if calls is not None:
         calls.append({"names": tuple(names), "shape": tuple(x.shape),
-                      "itemsize": x.element_size(),
-                      "grad": x.requires_grad,
                       "backward": torch._C._current_graph_task_id() != -1})
     mesh = ctx[0]
     if is_dtensor(x):
@@ -114,15 +114,24 @@ def has_ranks(mesh) -> bool:
 
 
 def require_distributed(params) -> None:
-    """Raise unless every param is a DTensor (a step across ranks)."""
+    """Raise unless every param is a DTensor (a step across ranks), and,
+    on a mesh without ranks (torch's fake group), a ``meta`` one."""
     from ..models.params import tree_leaves
-    plain = [".".join(p) for p, t in tree_leaves(params)
-             if not is_dtensor(t)]
+    leaves = list(tree_leaves(params))
+    plain = [".".join(p) for p, t in leaves if not is_dtensor(t)]
     if plain:
         raise TypeError(
             f"a step across ranks takes DTensor params; {plain[:3]} are "
             "plain: place them with sharding.distribute_tree(params, "
             "shardings_for(build_specs(cfg), mesh, rules))")
+    if leaves and not has_ranks(leaves[0][1].device_mesh):
+        held = [".".join(p) for p, t in leaves
+                if t.to_local().device.type != "meta"]
+        if held:
+            raise NotImplementedError(
+                f"a mesh without ranks (torch's fake group) executes "
+                f"nothing: its steps take meta tensors, and {held[:3]} "
+                "hold data")
 
 
 def multi_rank(mesh) -> bool:
@@ -137,8 +146,10 @@ def step_target(mesh, rules: Optional[LogicalRules] = None,
     device (a name, a ``torch.device``, or ``None`` for ``cuda``) gives the
     unmeshed step on it; a mesh, the meshed step on the mesh's device type.
     Rules without a mesh raise.  A mesh of more than one device must have
-    ranks (``has_ranks``).  ``trace`` gives a step traced on ``meta`` (on
-    any mesh), whose inputs go through ``traced_input``."""
+    ranks (``has_ranks``), or be a ``DeviceMesh`` over torch's fake group,
+    whose step runs on ``meta`` DTensors (module docstring).  ``trace``
+    gives a step traced on ``meta`` (on any mesh), whose inputs go through
+    ``traced_input``."""
     if mesh is None or isinstance(mesh, (str, torch.device)):
         if rules is not None:
             raise ValueError("rules without a mesh: pass a mesh "
@@ -148,11 +159,14 @@ def step_target(mesh, rules: Optional[LogicalRules] = None,
         return mesh, resolve_device("meta")
     n = mesh_size(mesh)
     if n != 1 and not has_ranks(mesh):
+        if hasattr(mesh, "get_group"):          # torch's fake group
+            return mesh, resolve_device("meta")
         raise NotImplementedError(
             f"a mesh of {n} devices {mesh_axes(mesh)} without ranks "
             f"({type(mesh).__name__}) executes nothing: build the step "
             "with trace=True, or pass a DeviceMesh over a real process "
-            "group (launch.mesh.make_mesh)")
+            "group (launch.mesh.make_mesh) or over torch's fake group "
+            "(meta tensors only)")
     return mesh, resolve_device(getattr(mesh, "device_type", None) or "cuda")
 
 

@@ -185,7 +185,10 @@ def distribute_tree(tree, shardings):
     full tensor (the seed's weights, the global batch) and keeps its own
     piece of it (``src_data_rank=None``): nothing is broadcast.  The
     result never shares memory with ``tree`` (an update in place of a
-    distributed param leaves the caller's tensor as it was)."""
+    distributed param leaves the caller's tensor as it was).  On a mesh
+    without ranks (torch's fake group, whose steps run on ``meta``
+    DTensors) a Python number stays as it is: its device may not exist
+    here (the dry-run counts on a "cuda" mesh without a card)."""
     import torch
     from torch.distributed.tensor import DTensor, distribute_tensor
     if isinstance(tree, dict):
@@ -200,6 +203,9 @@ def distribute_tree(tree, shardings):
     if isinstance(tree, DTensor):
         return tree.redistribute(mesh, placements)
     if not isinstance(tree, torch.Tensor):
+        from .context import has_ranks
+        if not has_ranks(mesh):
+            return tree
         tree = torch.tensor(tree, dtype=torch.int32)
     tree = tree.to(mesh.device_type)
     out = distribute_tensor(tree, mesh, placements, src_data_rank=None)

@@ -30,7 +30,7 @@ import torch
 
 from .. import is_dtensor
 from ..models.config import ModelConfig, ShapeSpec
-from ..models.params import tree_axes, tree_leaves, tree_unflatten
+from ..models.params import tree_leaves, tree_unflatten
 from ..models.transformer import (abstract_params, build_specs, forward,
                                   lm_loss, lm_loss_chunked)
 from ..roofline.trace import Lowered
@@ -181,12 +181,13 @@ def lower_train_step(cfg: ModelConfig, shape: ShapeSpec, mesh,
     params_sh = shardings_for(specs, mesh, rules)
     opt_s = abstract_state(params_s)
     opt_sh = AdamWState(NamedSharding(mesh, P()), params_sh, params_sh)
-    step = make_train_step(cfg, opt_cfg, mesh, rules, remat=remat,
-                           microbatches=microbatches, unroll=unroll,
-                           loss_impl=loss_impl, trace=True)
-    return Lowered(step, (params_s, opt_s, batch_structs(cfg, shape)),
+    def build(m, trace: bool):
+        return make_train_step(cfg, opt_cfg, m, rules, remat=remat,
+                               microbatches=microbatches, unroll=unroll,
+                               loss_impl=loss_impl, trace=trace)
+    return Lowered(build, (params_s, opt_s, batch_structs(cfg, shape)),
                    (params_sh, opt_sh,
                     batch_shardings(cfg, shape, mesh, rules)),
                    out_shardings=(params_sh, opt_sh, None),
                    donate_argnums=(0, 1), mesh=mesh, rules=rules,
-                   kind="train", axes=tree_axes(specs))
+                   kind="train")

@@ -17,10 +17,11 @@ it traces (``lower_train_step``, ``lower_prefill``, ``lower_serve_step``,
 * Depth: the full-depth count equals the reference's two-depth linear
   extrapolation (``repro.launch.dryrun.run_cell``).
 * Production meshes: ``run_cell`` gives ``ok`` rows with the reference's
-  keys on both (reduced configs, small shapes), per-device argument bytes
-  the sum of the leaves' ``shard_shape`` bytes; a real ``DeviceMesh`` on
-  torch's fake process group (in a subprocess) gives the stand-in's
-  numbers.
+  keys on both (reduced configs, small shapes; ``trace_s`` the shared
+  global trace's time, ``count_s`` the mesh's collective count's),
+  per-device argument bytes the sum of the leaves' ``shard_shape`` bytes;
+  a real ``DeviceMesh`` on torch's fake process group (in a subprocess)
+  gives the stand-in's numbers.
 * CLI: ``--out`` resumes, skipping done cells unless ``--force``.
 * Refusal: a traced step takes ``meta`` tensors only; executing on a mesh
   of more than one device still raises.
@@ -219,7 +220,7 @@ def test_run_cell_on_both_production_meshes(arch, small_dryrun):
     ref_keys = set(RefRoofline("a", "s", "m", 1, 0, 0, 0, 0, 0, 0, 0).row())
     keys = (ref_keys - {"fits_hbm_16g"}) | {
         "fits_hbm_80g", "status", "variant", "remat", "compile_s", "memory",
-        "kind", "params_b", "active_params_b", "trace_s"}
+        "kind", "params_b", "active_params_b", "trace_s", "count_s"}
     cfg = reduced_config(arch)
     for shape in SMALL_SHAPES:
         traces = {}

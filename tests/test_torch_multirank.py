@@ -24,7 +24,10 @@ the four ranks restores bit for bit on one device and in the JAX package's
 ``CheckpointManager``, and on the mesh as DTensors of the rules'
 placements; a remat recompute run in a thread of its own constrains as the
 forward did; the chunked loss (``loss_impl="chunked"``, a ragged last
-chunk) against JAX's and against the dense loss across ranks.
+chunk) against JAX's and against the dense loss across ranks; the
+collectives each step dispatches on a rank (``CollectiveTally``) equal, in
+calls and bytes by kind, the dry-run twin's count of the same step lowered
+on that rank's mesh (``Lowered.count_collectives``).
 
 The ranks run in processes of their own (``launch.ranks.run_ranks``,
 spawned, one torch thread each, a ``FileStore``), never in the pytest
@@ -376,6 +379,18 @@ def _guards(params) -> dict:
     return out
 
 
+def twin(cfg, kind: str, seq: int, mesh, **kw):
+    """The dry-run twin's collectives of a step of ``kind`` at (B, ``seq``)
+    on ``mesh`` under ``DEFAULT_RULES``, f32 params: (calls, bytes) by
+    kind, as ``CollectiveTally.by_kind`` gives a real step's."""
+    from repro_torch.launch.dryrun import lower_step
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.sharding import DEFAULT_RULES
+    c = lower_step(cfg, ShapeSpec(f"twin_{kind}", seq, B, kind), mesh,
+                   DEFAULT_RULES, **kw).count_collectives(torch.float32)
+    return c.counts, c.bytes_by_kind
+
+
 def rank_work(rank: int, where: str) -> dict:
     """One rank's share of every check (``runs`` reads the results)."""
     from torch.distributed.tensor import DTensor
@@ -385,6 +400,7 @@ def rank_work(rank: int, where: str) -> dict:
     from repro_torch.serve.serve_step import distribute_state
     from repro_torch.sharding import (DEFAULT_RULES, distribute_tree,
                                       shardings_for)
+    from repro_torch.sharding.collectives import CollectiveTally
     from repro_torch.sharding.rules import NamedSharding, P
     from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.train.optimizer import AdamWState
@@ -404,10 +420,14 @@ def rank_work(rank: int, where: str) -> dict:
         dp = distribute_tree(params, psh)
         r["shards"] = {f"param/{'/'.join(p)}": _np(t.to_local())
                        for p, t in tree_leaves(dp)}
-        with shard_calls() as calls:
-            r["prefill"] = _full(make_prefill(cfg, mesh, DEFAULT_RULES)(
-                dp, tokens=torch.from_numpy(data["tokens"])))
+        comm = r["comm"] = {}            # step -> (measured, twin)
+        with shard_calls() as calls, CollectiveTally() as tally:
+            logits = make_prefill(cfg, mesh, DEFAULT_RULES)(
+                dp, tokens=torch.from_numpy(data["tokens"]))
+        r["prefill"] = _full(logits)
         r["prefill_calls"] = calls
+        comm["prefill"] = (tally.by_kind(),
+                           twin(cfg, "prefill", S, mesh))
         placed = distribute_state(cfg, _state(cfg, data), mesh,
                                   DEFAULT_RULES)
         r["shards"].update({f"state/{k}": _np(v.to_local())
@@ -415,8 +435,12 @@ def rank_work(rank: int, where: str) -> dict:
         step = make_serve_step(cfg, mesh, DEFAULT_RULES)
         state, logits = _state(cfg, data), []    # the step places it
         for i in range(DECODE_STEPS[name]):
-            lg, state = step(dp, state, torch.from_numpy(
-                data["decode_tokens"][:, i:i + 1]))
+            with CollectiveTally() as tally:
+                lg, state = step(dp, state, torch.from_numpy(
+                    data["decode_tokens"][:, i:i + 1]))
+            if i == 0:
+                comm["decode"] = (tally.by_kind(),
+                                  twin(cfg, "decode", MAX_SEQ, mesh))
             logits.append(_full(lg))
         r["decode"] = np.stack(logits)
         r["pos_is_dtensor"] = isinstance(state["pos"], DTensor)
@@ -427,9 +451,12 @@ def rank_work(rank: int, where: str) -> dict:
             o = init_state(p)
             losses, norms, calls = [], [], None
             for i in range(TRAIN_STEPS[name]):
-                with shard_calls() as got:
+                with shard_calls() as got, CollectiveTally() as tally:
                     p, o, m = train(p, o, _batch(data, i))
                 calls = calls or got
+                if i == 0:
+                    comm[f"train/{remat}"] = (tally.by_kind(), twin(
+                        cfg, "train", S, mesh, remat=remat))
                 losses.append(float(m["loss"].full_tensor()))
                 norms.append(float(m["grad_norm"].full_tensor()))
             r[f"train/{remat}"] = {
@@ -450,7 +477,11 @@ def rank_work(rank: int, where: str) -> dict:
         r["chunked"] = {"loss": [], "grad_norm": []}
         with ragged_chunks():
             for i in range(CHUNK_STEPS):
-                cp, co, m = train(cp, co, _batch(data, i))
+                with CollectiveTally() as tally:
+                    cp, co, m = train(cp, co, _batch(data, i))
+                if i == 0:
+                    comm["chunked"] = (tally.by_kind(), twin(
+                        cfg, "train", S, mesh, loss_impl="chunked"))
                 r["chunked"]["loss"].append(float(m["loss"].full_tensor()))
                 r["chunked"]["grad_norm"].append(
                     float(m["grad_norm"].full_tensor()))
@@ -460,7 +491,11 @@ def rank_work(rank: int, where: str) -> dict:
         mo = init_state(mp)
         r["microbatched"] = []
         for i in range(2):
-            mp, mo, m = train(mp, mo, _batch(data, i))
+            with CollectiveTally() as tally:
+                mp, mo, m = train(mp, mo, _batch(data, i))
+            if i == 0:
+                comm["microbatched"] = (tally.by_kind(), twin(
+                    cfg, "train", S, mesh, microbatches=MICROBATCHES))
             r["microbatched"].append((float(m["loss"].full_tensor()),
                                       float(m["grad_norm"].full_tensor())))
         ck = CheckpointManager(os.path.join(where, "ckpt"))
@@ -599,6 +634,24 @@ def test_prefill_and_decode_match_jax_and_unmeshed(runs, mesh):
     assert first["decode"].shape == (n, B, 1, runs["cfg"].vocab)
     _close(first["decode"], jx[f"{mesh}/decode"], TOL, "decode vs JAX")
     _close(first["decode"], plain["decode"][:n], TOL, "decode vs unmeshed")
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_twin_counts_the_collectives_each_rank_dispatches(runs, mesh):
+    """Every step's collectives on each rank (the prefill, the first
+    decode step and the first train step of each remat; on the 2 x 2 mesh
+    the chunked loss's and the microbatched step's too), in calls and
+    bytes by kind, equal the dry-run twin's count of the step lowered on
+    that rank's mesh; each step gathers something."""
+    want = {"prefill", "decode"} | {f"train/{r}" for r in TRAIN[mesh]}
+    if mesh == "2x2":
+        want |= {"chunked", "microbatched"}
+    for r in runs["ranks"]:
+        comm = r[mesh]["comm"]
+        assert set(comm) == want
+        for step, (measured, counted) in comm.items():
+            assert measured == counted, (r[mesh]["coord"], step)
+            assert measured[0].get("all-gather", 0) > 0, step
 
 
 @pytest.mark.parametrize("mesh,remat", [(m, r) for m in sorted(MESHES)

@@ -32,7 +32,10 @@ against JAX's and the port's unmeshed decode; the ranks gather the same
 logits; decode attention ran on each rank's own positions with q whole on
 "model" (its local operand shapes), and the split-sequence boundary alone
 (``seq_on_shards``), on a cache whose invalid positions hold values of
-1e4, equals ``decode_attention_ref`` on a clean one.
+1e4, equals ``decode_attention_ref`` on a clean one; each step's
+collectives on a rank (``CollectiveTally``) equal, in calls and bytes by
+kind, the dry-run twin's count of the step lowered on that rank's mesh
+(``Lowered.count_collectives``).
 
 JAX runs every case: it decodes all three families under both variants.
 Four ranks and one four-device JAX process start together, under the lock
@@ -323,6 +326,17 @@ def _boundary_case(mesh, data) -> dict:
             "placements": tuple(map(repr, out.placements))}
 
 
+def twin(cfg, mesh, rules):
+    """The dry-run twin's collectives of a decode step at (B, ``MAX_SEQ``)
+    on ``mesh`` under ``rules``, f32 params: (calls, bytes) by kind, as
+    ``CollectiveTally.by_kind`` gives a real step's."""
+    from repro_torch.launch.dryrun import lower_step
+    from repro_torch.models.config import ShapeSpec
+    c = lower_step(cfg, ShapeSpec("twin_decode", MAX_SEQ, B, "decode"), mesh,
+                   rules).count_collectives(torch.float32)
+    return c.counts, c.bytes_by_kind
+
+
 def _run(arch, variant, where, data, params, out) -> None:
     """One model's decode under one variant on both meshes."""
     from torch.distributed.tensor._utils import (
@@ -334,6 +348,7 @@ def _run(arch, variant, where, data, params, out) -> None:
     from repro_torch.serve.serve_step import distribute_state
     from repro_torch.sharding import (DEFAULT_RULES, distribute_tree,
                                       shardings_for)
+    from repro_torch.sharding.collectives import CollectiveTally
     cfg = config(arch)
     rules = apply_variant(DEFAULT_RULES, arch, "decode", variant)
     for name, shape in MESHES.items():
@@ -345,14 +360,18 @@ def _run(arch, variant, where, data, params, out) -> None:
         state, logits = _state(cfg, arch, data), []
         r["init"] = {k: _np(v.to_local()) for k, v in _leaves(
             distribute_state(cfg, state, mesh, rules)).items()}
+        measured = []
         with shard_calls() as calls:
             for i in range(DECODE_STEPS):
-                lg, state = step(dp, state, torch.from_numpy(
-                    data["decode_tokens"][:, i:i + 1]))
+                with CollectiveTally() as tally:
+                    lg, state = step(dp, state, torch.from_numpy(
+                        data["decode_tokens"][:, i:i + 1]))
+                measured.append(tally.by_kind())
                 logits.append(_np(lg.full_tensor()))
                 r["steps"].append({k: _np(v.to_local())
                                    for k, v in _leaves(state).items()})
         r["decode"], r["calls"] = np.stack(logits), calls
+        r["comm"] = (measured, twin(cfg, mesh, rules))
         cache = state["k"] if "k" in state else state["shared_k"]
         size, offset = compute_local_shape_and_global_offset(
             cache.shape, mesh, cache.placements)
@@ -516,6 +535,23 @@ def test_positions_land_on_several_ranks(runs, arch, variant, mesh):
             writers.add(j)
         assert (lo < kv_len) == (j == 0)
     assert len(writers) >= 2, writers
+
+
+@pytest.mark.parametrize("arch,variant,mesh", CASES)
+def test_twin_counts_the_collectives_each_rank_dispatches(runs, arch,
+                                                          variant, mesh):
+    """Every decode step's collectives on each rank, in calls and bytes by
+    kind, equal the dry-run twin's count of the step lowered on that
+    rank's mesh under the variant's rules (it writes another position:
+    what a step dispatches does not depend on it), the split-sequence
+    boundary's all-reduce of the rows' maxima included."""
+    for r in runs["ranks"]:
+        got = r[f"{arch}/{variant}"][mesh]
+        measured, counted = got["comm"]
+        assert len(measured) == DECODE_STEPS
+        for step in measured:
+            assert step == counted, got["coord"]
+        assert counted[0].get("all-reduce", 0) > 0
 
 
 def test_split_sequence_boundary_alone(runs):

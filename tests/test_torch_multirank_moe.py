@@ -29,7 +29,10 @@ unmeshed ones; the boundary's local operand shapes (``shard_calls()``);
 the chunked loss with the aux loss across ranks; one bf16 prefill against
 the port's unmeshed bf16 prefill, its routes equal.  (Compiled JAX bf16
 MoE routes differently from its own op-by-op run, ROADMAP Queue 3: the
-bf16 case holds the port to itself.)
+bf16 case holds the port to itself.)  Each step's collectives on a rank
+(``CollectiveTally``) equal, in calls and bytes by kind, the dry-run
+twin's count of the same step lowered on that rank's mesh
+(``Lowered.count_collectives``).
 
 The ranks run in processes of their own (``launch.ranks.run_ranks``,
 spawned, one torch thread each); the JAX side runs in a subprocess with four
@@ -340,17 +343,35 @@ def routes():
         tm.route = real
 
 
+def twin(cfg, kind: str, mesh, rules, dtype=torch.float32, **kw):
+    """The dry-run twin's collectives of a step of ``kind`` at (B, S) on
+    ``mesh`` under ``rules``, ``dtype`` params: (calls, bytes) by kind, as
+    ``CollectiveTally.by_kind`` gives a real step's."""
+    from repro_torch.launch.dryrun import lower_step
+    from repro_torch.models.config import ShapeSpec
+    seq = MAX_SEQ if kind == "decode" else S
+    c = lower_step(cfg, ShapeSpec(f"twin_{kind}", seq, B, kind), mesh,
+                   rules, **kw).count_collectives(dtype)
+    return c.counts, c.bytes_by_kind
+
+
 def _train(cfg, mesh, rules, params, psh, data, **kw) -> dict:
     """``TRAIN_STEPS`` train steps from the placed params: losses, aux
-    losses of the first step's forward, grad norms, final params."""
+    losses of the first step's forward, grad norms, final params, and the
+    first step's collectives beside its twin's (``comm``)."""
     from repro_torch.sharding import distribute_tree
+    from repro_torch.sharding.collectives import CollectiveTally
     step = make_train_step(cfg, AdamWConfig(**OPT), mesh, rules,
                            remat="full", **kw)
     p = distribute_tree(params, psh)
     o = init_state(p)
     out = {"loss": [], "grad_norm": []}
     for i in range(TRAIN_STEPS):
-        p, o, m = step(p, o, _batch(data, i))
+        with CollectiveTally() as tally:
+            p, o, m = step(p, o, _batch(data, i))
+        if i == 0:
+            out["comm"] = (tally.by_kind(),
+                           twin(cfg, "train", mesh, rules, **kw))
         out["loss"].append(float(m["loss"].full_tensor()))
         out["grad_norm"].append(float(m["grad_norm"].full_tensor()))
     out["params"] = {"/".join(k): _full(v) for k, v in tree_leaves(p)}
@@ -368,6 +389,7 @@ def rank_work(rank: int, where: str) -> dict:
     from repro_torch.sharding import (DEFAULT_RULES, distribute_inputs,
                                       distribute_tree, sharding_ctx,
                                       shardings_for)
+    from repro_torch.sharding.collectives import CollectiveTally
     torch.set_num_threads(1)
     while not os.path.exists(os.path.join(where, "params.npz")):
         time.sleep(0.05)                 # the JAX side writes the init
@@ -387,9 +409,13 @@ def rank_work(rank: int, where: str) -> dict:
         r["shards"] = {f"param/{'/'.join(p)}": _np(t.to_local())
                        for p, t in tree_leaves(dp)}
         tokens = torch.from_numpy(data["tokens"])
-        with shard_calls() as calls, routes() as log:
-            r["prefill"] = _full(make_prefill(cfg, mesh, rules)(
-                dp, tokens=tokens))
+        comm = r["comm"] = {}            # step -> (measured, twin)
+        with shard_calls() as calls, routes() as log, \
+                CollectiveTally() as tally:
+            logits = make_prefill(cfg, mesh, rules)(dp, tokens=tokens)
+        r["prefill"] = _full(logits)
+        comm["prefill"] = (tally.by_kind(),
+                           twin(cfg, "prefill", mesh, rules))
         r["prefill_calls"] = calls
         r["prefill_routes"] = [ids.numpy() for ids, _ in log]
         with torch.no_grad(), sharding_ctx(mesh, rules):
@@ -404,22 +430,30 @@ def rank_work(rank: int, where: str) -> dict:
         state, logits = _state(data), []
         with shard_calls() as calls:
             for i in range(DECODE_STEPS):
-                lg, state = step(dp, state, torch.from_numpy(
-                    data["decode_tokens"][:, i:i + 1]))
+                with CollectiveTally() as tally:
+                    lg, state = step(dp, state, torch.from_numpy(
+                        data["decode_tokens"][:, i:i + 1]))
+                if i == 0:
+                    first = tally.by_kind()
                 logits.append(_full(lg))
         r["decode"] = np.stack(logits)
         r["decode_calls"] = calls
+        comm["decode"] = (first, twin(cfg, "decode", mesh, rules))
         r["train"] = _train(cfg, mesh, rules, params, psh, data)
+        comm["train"] = r["train"].pop("comm")
         if arch == CHUNK_ARCH and case == "2x2":
             with ragged_chunks():
                 r["chunked"] = _train(cfg, mesh, rules, params, psh, data,
                                       loss_impl="chunked")
+            comm["chunked"] = r["chunked"].pop("comm")
         if arch == BF16_ARCH and case == "2x2":
             bp = distribute_tree(params_bf16(params), psh)
-            with routes() as log:
-                r["bf16_prefill"] = _full(make_prefill(cfg, mesh, rules)(
-                    bp, tokens=tokens))
+            with routes() as log, CollectiveTally() as tally:
+                logits = make_prefill(cfg, mesh, rules)(bp, tokens=tokens)
+            r["bf16_prefill"] = _full(logits)
             r["bf16_routes"] = [ids.numpy() for ids, _ in log]
+            comm["bf16_prefill"] = (tally.by_kind(), twin(
+                cfg, "prefill", mesh, rules, dtype=None))
     return out
 
 
@@ -665,6 +699,24 @@ def test_boundary_ran_on_local_shards(runs, arch, case):
                 else:
                     assert shapes == ((T, d), (T, k), (T, k), (El, d, f),
                                       (El, d, f), (El, f, d)), shapes
+
+
+@pytest.mark.parametrize("arch,case", RUNS)
+def test_twin_counts_the_collectives_each_rank_dispatches(runs, arch, case):
+    """The prefill's, the first decode step's and the first train step's
+    collectives on each rank (granite on 2x2: the chunked loss's and the
+    bf16 prefill's too), in calls and bytes by kind, equal the dry-run
+    twin's count of the step lowered on that rank's mesh under the case's
+    rules."""
+    want = {"prefill", "decode", "train"}
+    if (arch, case) == (CHUNK_ARCH, "2x2"):
+        want |= {"chunked", "bf16_prefill"}
+    for r in runs["ranks"]:
+        comm = r[f"{arch}/{case}"]["comm"]
+        assert set(comm) == want
+        for step, (measured, counted) in comm.items():
+            assert measured == counted, (r[f"{arch}/{case}"]["coord"], step)
+            assert sum(measured[0].values()) > 0, step
 
 
 def test_bf16_prefill_matches_the_unmeshed_bf16_prefill(runs):

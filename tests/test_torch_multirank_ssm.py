@@ -29,7 +29,10 @@ SSD and conv boundaries' local operand shapes; a checkpoint written across
 ranks restoring on one device; and the SSD boundary run around
 ``ssd_chunked(..., ssd_chunk)`` (the chunk's autograd Function with its
 plain backward inside ``local_map``), its gradients against the unmeshed
-ones.
+ones; the collectives of the prefill, the first decode step and the first
+train step on each rank (``CollectiveTally``) equal, in calls and bytes by
+kind, the dry-run twin's count of the same step lowered on that rank's
+mesh (``Lowered.count_collectives``).
 
 The ranks run in processes of their own (``launch.ranks.run_ranks``,
 spawned, one torch thread each); the JAX side runs in a subprocess with four
@@ -332,6 +335,18 @@ def _ssd_case(mesh, data) -> dict:
                            for t in (y, final)]}
 
 
+def twin(cfg, kind: str, seq: int, mesh):
+    """The dry-run twin's collectives of a step of ``kind`` at (B, ``seq``)
+    on ``mesh`` under ``DEFAULT_RULES``, f32 params: (calls, bytes) by
+    kind, as ``CollectiveTally.by_kind`` gives a real step's."""
+    from repro_torch.launch.dryrun import lower_step
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.sharding import DEFAULT_RULES
+    c = lower_step(cfg, ShapeSpec(f"twin_{kind}", seq, B, kind), mesh,
+                   DEFAULT_RULES).count_collectives(torch.float32)
+    return c.counts, c.bytes_by_kind
+
+
 def _run_arch(arch, where, data, out) -> None:
     """One model's steps on both meshes, into ``out[mesh]``."""
     from torch.distributed.tensor import DTensor
@@ -340,6 +355,7 @@ def _run_arch(arch, where, data, out) -> None:
     from repro_torch.serve.serve_step import distribute_state
     from repro_torch.sharding import (DEFAULT_RULES, distribute_tree,
                                       shardings_for)
+    from repro_torch.sharding.collectives import CollectiveTally
     from repro_torch.sharding.rules import NamedSharding, P
     from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.train.optimizer import AdamWState
@@ -352,10 +368,13 @@ def _run_arch(arch, where, data, out) -> None:
         dp = distribute_tree(params, psh)
         r["shards"] = {f"param/{'/'.join(p)}": _np(t.to_local())
                        for p, t in tree_leaves(dp)}
-        with shard_calls() as calls:
-            r["prefill"] = _full(make_prefill(cfg, mesh, DEFAULT_RULES)(
-                dp, tokens=torch.from_numpy(data["tokens"])))
+        comm = r["comm"] = {}            # step -> (measured, twin)
+        with shard_calls() as calls, CollectiveTally() as tally:
+            logits = make_prefill(cfg, mesh, DEFAULT_RULES)(
+                dp, tokens=torch.from_numpy(data["tokens"]))
+        r["prefill"] = _full(logits)
         r["prefill_calls"] = calls
+        comm["prefill"] = (tally.by_kind(), twin(cfg, "prefill", S, mesh))
         placed = distribute_state(cfg, _state(cfg, arch, data), mesh,
                                   DEFAULT_RULES)
         r["shards"].update({f"state/{k}": _np(v.to_local())
@@ -364,9 +383,13 @@ def _run_arch(arch, where, data, out) -> None:
         state, logits = _state(cfg, arch, data), []  # the step places it
         with shard_calls() as calls:
             for i in range(DECODE_STEPS):
-                lg, state = step(dp, state, torch.from_numpy(
-                    data["decode_tokens"][:, i:i + 1]))
+                with CollectiveTally() as tally:
+                    lg, state = step(dp, state, torch.from_numpy(
+                        data["decode_tokens"][:, i:i + 1]))
+                if i == 0:
+                    first = tally.by_kind()
                 logits.append(_full(lg))
+        comm["decode"] = (first, twin(cfg, "decode", MAX_SEQ, mesh))
         r["decode"], r["decode_calls"] = np.stack(logits), calls
         r["state_after"] = {k: _full(v) for k, v in state.items()
                             if k != "pos"}
@@ -376,9 +399,11 @@ def _run_arch(arch, where, data, out) -> None:
         o = init_state(p)
         losses, norms, calls = [], [], None
         for i in range(TRAIN_STEPS):
-            with shard_calls() as got:
+            with shard_calls() as got, CollectiveTally() as tally:
                 p, o, m = train(p, o, _batch(data, i))
             calls = calls or got
+            if i == 0:
+                comm["train"] = (tally.by_kind(), twin(cfg, "train", S, mesh))
             losses.append(float(m["loss"].full_tensor()))
             norms.append(float(m["grad_norm"].full_tensor()))
         r["train"] = {
@@ -571,6 +596,19 @@ def test_train_steps_match_jax_and_unmeshed(runs, arch, mesh):
                                  for k in got["params"]}, plain["grads"])
     for r in runs["ranks"][1:]:
         assert r[arch][mesh]["train"]["loss"] == got["loss"]
+
+
+@pytest.mark.parametrize("arch,mesh", CASES)
+def test_twin_counts_the_collectives_each_rank_dispatches(runs, arch, mesh):
+    """The prefill's, the first decode step's and the first train step's
+    collectives on each rank, in calls and bytes by kind, equal the dry-run
+    twin's count of the step lowered on that rank's mesh."""
+    for r in runs["ranks"]:
+        comm = r[arch][mesh]["comm"]
+        assert set(comm) == {"prefill", "decode", "train"}
+        for step, (measured, counted) in comm.items():
+            assert measured == counted, (r[arch][mesh]["coord"], step)
+            assert sum(measured[0].values()) > 0, step
 
 
 @pytest.mark.parametrize("arch,mesh", CASES)

@@ -38,7 +38,10 @@ unmeshed ones, the final
 params at 1e-3 of each leaf's largest magnitude (``_held_params``); audio's
 ``embed``, which ``inputs_embeds`` bypasses, gets a zero gradient at its
 own placements; the flash boundary ran the cross-attention on each rank's
-batch rows and heads, in prefill and in decode.
+batch rows and heads, in prefill and in decode; each step's collectives on
+a rank (``CollectiveTally``) equal, in calls and bytes by kind, the
+dry-run twin's count of the same step lowered on that rank's mesh
+(``Lowered.count_collectives``).
 
 Four ranks and one four-device JAX process start together, under the lock
 of the multi-rank test modules.
@@ -372,6 +375,18 @@ def _load_params(where, arch):
     return params_from_jax(nested(dict(np.load(path)), ""), "cpu")
 
 
+def twin(cfg, kind: str, seq: int, mesh):
+    """The dry-run twin's collectives of a step of ``kind`` at (B, ``seq``)
+    on ``mesh`` under ``DEFAULT_RULES``, f32 params: (calls, bytes) by
+    kind, as ``CollectiveTally.by_kind`` gives a real step's."""
+    from repro_torch.launch.dryrun import lower_step
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.sharding import DEFAULT_RULES
+    c = lower_step(cfg, ShapeSpec(f"twin_{kind}", seq, B, kind), mesh,
+                   DEFAULT_RULES).count_collectives(torch.float32)
+    return c.counts, c.bytes_by_kind
+
+
 def _run_arch(arch, where, data, out) -> None:
     """One model's steps on both meshes, into ``out[mesh]``."""
     from torch.distributed.tensor import DTensor
@@ -381,6 +396,7 @@ def _run_arch(arch, where, data, out) -> None:
     from repro_torch.sharding import (DEFAULT_RULES, distribute_inputs,
                                       distribute_tree, sharding_ctx,
                                       shardings_for)
+    from repro_torch.sharding.collectives import CollectiveTally
     from repro_torch.train.train_step import make_value_and_grad
     cfg = config(arch)
     params = _load_params(where, arch)
@@ -393,9 +409,12 @@ def _run_arch(arch, where, data, out) -> None:
                        for p, t in tree_leaves(dp)}
         prefill = make_prefill(cfg, mesh, DEFAULT_RULES)
         kw = _prefill_inputs(cfg, data)
-        with shard_calls() as calls:
-            r["prefill"] = _full(prefill(dp, **kw))
+        comm = r["comm"] = {}            # step -> (measured, twin)
+        with shard_calls() as calls, CollectiveTally() as tally:
+            logits = prefill(dp, **kw)
+        r["prefill"] = _full(logits)
         r["prefill_calls"] = calls
+        comm["prefill"] = (tally.by_kind(), twin(cfg, "prefill", S, mesh))
         if cfg.family == "vlm":
             r["prefill_no_image"] = _full(prefill(dp, tokens=kw["tokens"]))
         state = _state(cfg, arch, data, dp)
@@ -410,9 +429,13 @@ def _run_arch(arch, where, data, out) -> None:
         logits = []
         with shard_calls() as calls:
             for i in range(DECODE_STEPS):
-                lg, state = step(dp, state, **_step_input(cfg, data, i))
+                with CollectiveTally() as tally:
+                    lg, state = step(dp, state, **_step_input(cfg, data, i))
+                if i == 0:
+                    first = tally.by_kind()
                 logits.append(_full(lg))
         r["decode"], r["decode_calls"] = np.stack(logits), calls
+        comm["decode"] = (first, twin(cfg, "decode", MAX_SEQ, mesh))
         if cfg.family == "audio":        # the embedding the frames bypass
             vg = make_value_and_grad(cfg, remat="full")
             batch = distribute_inputs(_batch(cfg, data, 0), mesh,
@@ -430,9 +453,11 @@ def _run_arch(arch, where, data, out) -> None:
         o = init_state(p)
         losses, norms, calls = [], [], None
         for i in range(TRAIN_STEPS):
-            with shard_calls() as got:
+            with shard_calls() as got, CollectiveTally() as tally:
                 p, o, m = train(p, o, _batch(cfg, data, i))
             calls = calls or got
+            if i == 0:
+                comm["train"] = (tally.by_kind(), twin(cfg, "train", S, mesh))
             losses.append(float(m["loss"].full_tensor()))
             norms.append(float(m["grad_norm"].full_tensor()))
         r["train"] = {
@@ -633,6 +658,19 @@ def test_train_steps_match_jax_and_unmeshed(runs, arch, mesh):
                                  for k in got["params"]}, plain["grads"])
     for r in runs["ranks"][1:]:
         assert r[arch][mesh]["train"]["loss"] == got["loss"]
+
+
+@pytest.mark.parametrize("arch,mesh", CASES)
+def test_twin_counts_the_collectives_each_rank_dispatches(runs, arch, mesh):
+    """The prefill's, the first decode step's and the first train step's
+    collectives on each rank, in calls and bytes by kind, equal the dry-run
+    twin's count of the step lowered on that rank's mesh."""
+    for r in runs["ranks"]:
+        comm = r[arch][mesh]["comm"]
+        assert set(comm) == {"prefill", "decode", "train"}
+        for step, (measured, counted) in comm.items():
+            assert measured == counted, (r[arch][mesh]["coord"], step)
+            assert sum(measured[0].values()) > 0, step
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))

@@ -11,8 +11,10 @@ package's, on the CPU.
 * The traced FLOP count's grouped ``convolution_backward`` formula counts a
   depthwise conv's backward at twice its forward, where torch's counts it
   ``groups`` times too much.
-* ``reckon_collectives`` follows the rules its docstring states, and the
-  modules hold the H100's constants and no TPU one.
+* A step's collectives (``Compiled.collectives()``, one rank's step
+  counted on ``meta`` DTensors) are none on one device, and on the
+  production mesh do not depend on the global trace reused; the modules
+  hold the H100's constants and no TPU one.
 """
 import re
 from pathlib import Path
@@ -219,47 +221,11 @@ def test_grouped_conv_backward_is_counted_at_twice_its_forward(groups):
         assert counts["torch"][1] == pytest.approx(groups * fwd, rel=0.02)
 
 
-def test_reckon_collectives_follows_its_rules():
-    from repro_torch.launch.mesh import abstract_mesh
-    pod = abstract_mesh()                                  # 16 x 16
-    leaf = {"shape": (4, 256, 512), "itemsize": 2,
-            "axes": ("layers", "embed", "heads"),
-            "spec": (None, "data", "model")}
-    norm = {"shape": (4, 256), "itemsize": 4, "axes": ("layers", "norm"),
-            "spec": (None, None)}
-    resid = {"names": ("batch", "seq", "act_embed"), "shape": (32, 8, 256),
-             "itemsize": 2, "grad": True, "backward": False}
-    recompute = dict(resid, backward=True)
-    experts = {"names": ("act_experts", "moe_capacity", None),
-               "shape": (16, 8, 256), "itemsize": 2, "grad": False,
-               "backward": False}
-    logits = {"names": ("batch", "seq", "act_vocab"), "shape": (32, 8, 1024),
-              "itemsize": 2, "grad": True, "backward": False}
-    calls = [resid, recompute, experts, logits]
-    nbytes = 4 * 256 * 512 * 2
-    block = (32 // 16) * 8 * 256 * 2
-    train = analysis.reckon_collectives("train", [leaf, norm], calls, pod,
-                                        DEFAULT_RULES)
-    assert train.counts == {"all-gather": 2 * 4, "reduce-scatter": 1,
-                            "all-reduce": 1 + 3, "all-to-all": 1}
-    assert train.bytes_by_kind == {
-        "all-gather": 2 * nbytes / 16,
-        "reduce-scatter": nbytes / 256,
-        "all-reduce": 2 * 4 * 256 * 4 + 3 * 2 * block,
-        "all-to-all": 8 * 256 * 2}
-    serve = analysis.reckon_collectives("prefill", [leaf, norm], calls, pod,
-                                        DEFAULT_RULES)
-    assert serve.counts == {"all-gather": 4, "all-reduce": 2,
-                            "all-to-all": 1}
-    local = analysis.reckon_collectives(
-        "train", [leaf, norm], calls, abstract_mesh(local=True),
-        DEFAULT_RULES)
-    assert local.counts == {} and local.total_bytes == 0
-
-
 def test_reduced_config_traces_without_collectives_on_one_device():
-    """A 1 x 1 mesh moves nothing; the production mesh reckons the
-    residual stream's all-reduces from the trace's ``constrain`` calls."""
+    """A 1 x 1 mesh moves nothing; on the production mesh one rank's train
+    step all-gathers its FSDP params, reduce-scatters their gradients and
+    all-reduces partial products, whichever trace the ``Compiled``
+    reuses (the count runs the step again, as a rank)."""
     from repro_torch.launch.mesh import abstract_mesh
     from repro_torch.models.config import ShapeSpec
     from repro_torch.train.train_step import lower_train_step
@@ -268,12 +234,10 @@ def test_reduced_config_traces_without_collectives_on_one_device():
     one = lower_train_step(cfg, shape, abstract_mesh(local=True),
                            DEFAULT_RULES).compile()
     assert one.collectives().counts == {}
-    pod = lower_train_step(cfg, shape, abstract_mesh(), DEFAULT_RULES
-                           ).compile(one.trace)
+    low = lower_train_step(cfg, shape, abstract_mesh(), DEFAULT_RULES)
+    pod = low.compile(one.trace)
     counts = pod.collectives().counts
-    # 1 + 2 per layer forward calls, each with its gradient's twin, and the
-    # recompute's 2 per layer; the logits call moves nothing
-    L = cfg.n_layers
-    assert counts["all-reduce"] >= 2 * (1 + 2 * L) + 2 * L
-    assert "all-gather" in counts and "reduce-scatter" in counts
+    assert {"all-gather", "reduce-scatter", "all-reduce"} <= set(counts)
+    assert all(n > 0 for n in counts.values())
+    assert pod.collectives() == low.count_collectives()
     assert "all-reduce" in pod.as_text()
