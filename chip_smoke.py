@@ -102,9 +102,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 f32 kernels-against-plain gap), each rank's launches equal
                 to the expected counts, each step's collectives
                 (``CollectiveTally``) equal to the dry-run twin's count of
-                it on the rank's mesh (``twin_collectives``), peak memory
-                a rank and the card's memory in use (``run_mesh2`` lists
-                its checks).
+                it on the rank's mesh (``twin_collectives``; the twin's
+                predicted FLOPs, bytes, temp and bytes per device printed
+                beside the rank's ms and peak memory, ``mesh2_collectives``
+                lines), peak memory a rank and the card's memory in use
+                (``run_mesh2`` lists its checks).
   6c. unified — ``unified/qwen3-1.7b``: qwen3-1.7b at full width and depth
                 (bf16, seed 0) trains and serves through ONE process-driver
                 cache client (``open_cache(driver="process", n_procs=2)``,
@@ -126,9 +128,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 process-driver client killed mid-trace
                 (``phase_sim`` lists its checks).
   6f. dryrun  — host phase, no GPU: ``python -m repro_torch.launch.dryrun
-                --all --mesh both`` (each cell's collectives one rank's
-                step counted on ``meta`` DTensors over torch's fake group,
-                at two depths and extrapolated) and ``paper_cells`` (the
+                --all --mesh both`` (each cell's FLOPs, bytes, temp and
+                collectives one rank's step counted on ``meta`` DTensors
+                over torch's fake group, at two depths and extrapolated;
+                ``dominant`` counts the cells by their roofline's largest
+                term) and ``paper_cells`` (the
                 cells one card cannot hold, lowered on a 1 x 1 mesh),
                 started before phase 2 in processes of their own with no
                 card visible, so that they run beside the card's phases
@@ -176,6 +180,7 @@ import subprocess
 import sys
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -1920,22 +1925,18 @@ def random_batch(cfg) -> dict:
 
 
 def profile_train(cfg, params, batch) -> None:
-    """One traced full-width train step (not on the main path's counts),
-    then its two halves traced apart: loss and grads, and the AdamW
-    update."""
+    """A full-width train step (not on the main path's counts), warm, then
+    its two halves traced apart: loss and grads, and the AdamW update (the
+    step's device time is their sum; a trace of the whole step as well
+    cost ~6-20 s of host a model and no check reads it)."""
     from repro_torch.train.optimizer import (AdamWConfig, apply_updates,
                                              init_state)
     from repro_torch.train.train_step import (make_train_step,
                                               make_value_and_grad)
     opt_cfg = AdamWConfig()
     opt_state = init_state(params)
-    step = make_train_step(cfg, opt_cfg, remat="full")
-
-    def run():
-        step(params, opt_state, batch)
-    run()
+    make_train_step(cfg, opt_cfg, remat="full")(params, opt_state, batch)
     torch.cuda.synchronize()
-    profile_once(cfg.name, "train_step", run, top_n=15)
     value_and_grad = make_value_and_grad(cfg, remat="full")
     traced = {}
     profile_once(cfg.name, "train_step/loss_and_grads",
@@ -3142,19 +3143,43 @@ def mesh2_comm(tally) -> dict:
     return {"counts": counts, "bytes": nbytes, "calls": dict(tally.calls)}
 
 
+def twin_of(cfg, shape, mesh, rules) -> dict:
+    """A step's dry-run twin on this rank's own mesh, compiled as the
+    dry-run compiles a cell: the step run on ``meta`` DTensors as this
+    rank runs it (``Lowered.count``; nothing launched, nothing sent),
+    at the dry-run's two depths and extrapolated to the path's depth
+    (``launch.dryrun.compile_step``; at the path's depth where that is no
+    deeper than 3p or not a multiple of p, such as zamba2's 14 layers
+    over a period of 6).  Its collectives by kind, as
+    ``mesh2_comm`` gives a real step's, and what it predicts for this
+    rank: FLOPs, bytes accessed, temp and bytes per device (argument +
+    temp + output - alias), and the roofline's ms of its compute and
+    memory terms (H100 SXM constants)."""
+    from repro_torch.launch.dryrun import compile_step, lower_step, period
+    from repro_torch.roofline.analysis import HBM_BW, PEAK_FLOPS
+    c = (compile_step(cfg, shape, mesh, rules, "full")
+         if cfg.n_layers % period(cfg) == 0
+         else lower_step(cfg, shape, mesh, rules).compile())
+    coll, cost, mem = c.collectives(), c.cost_analysis(), c.memory_analysis()
+    flops, nbytes = cost["flops"], cost["bytes accessed"]
+    return {"counts": coll.counts, "bytes": coll.bytes_by_kind,
+            "predicted": {
+                "flops": flops, "bytes_accessed": nbytes,
+                "temp_bytes": mem.temp_size_in_bytes,
+                "bytes_per_device": (mem.argument_size_in_bytes
+                                     + mem.temp_size_in_bytes
+                                     + mem.output_size_in_bytes
+                                     - mem.alias_size_in_bytes),
+                "roofline_ms": max(flops / PEAK_FLOPS,
+                                   nbytes / HBM_BW) * 1e3}}
+
+
 def mesh2_twins(cfg, mesh, rules, kinds) -> dict:
-    """The dry-run twin's collectives of each of the path's steps of
-    ``kinds`` (``mesh_shapes``), counted on this rank's own ``mesh`` under
-    ``rules``: the step lowered there and run once on ``meta`` DTensors
-    (``Lowered.count_collectives``; nothing launched, nothing sent), by
-    kind as ``mesh2_comm`` gives a real step's."""
-    from repro_torch.launch.dryrun import lower_step
-    out = {}
-    for kind, shape in mesh_shapes().items():
-        if kind in kinds:
-            c = lower_step(cfg, shape, mesh, rules).count_collectives()
-            out[kind] = {"counts": c.counts, "bytes": c.bytes_by_kind}
-    return out
+    """The dry-run twin (``twin_of``) of each of the path's steps of
+    ``kinds`` (``mesh_shapes``), lowered on this rank's own ``mesh`` under
+    ``rules``."""
+    return {kind: twin_of(cfg, shape, mesh, rules)
+            for kind, shape in mesh_shapes().items() if kind in kinds}
 
 
 def mesh2_variant(mesh, placed, timed, card_used) -> dict:
@@ -3172,7 +3197,7 @@ def mesh2_variant(mesh, placed, timed, card_used) -> dict:
         compute_local_shape_and_global_offset)
     from repro_torch.launch.variants import apply_variant
     from repro_torch.models.config import ShapeSpec
-    from repro_torch.serve.serve_step import lower_serve_step, make_serve_step
+    from repro_torch.serve.serve_step import make_serve_step
     from repro_torch.sharding import DEFAULT_RULES
     from repro_torch.sharding.collectives import STAGED, CollectiveTally
     arch = MESH2_VARIANT_ARCH
@@ -3190,10 +3215,9 @@ def mesh2_variant(mesh, placed, timed, card_used) -> dict:
         r = out[str(dtype).rsplit(".", 1)[1]] = {"decode": []}
         f32 = dtype == torch.float32
         if not f32:                      # the tallied step's twin
-            c = lower_serve_step(cfg, ShapeSpec(
+            r["twin"] = twin_of(cfg, ShapeSpec(
                 "mesh2_variant_decode", MESH2_VARIANT_MAX_SEQ, 4, "decode"),
-                mesh, rules).count_collectives()
-            r["twin"] = {"counts": c.counts, "bytes": c.bytes_by_kind}
+                mesh, rules)
         torch.cuda.reset_peak_memory_stats()
         reset_counts()                   # the variant's path starts here
         for i in range(MESH_DECODE_STEPS):
@@ -3688,8 +3712,12 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
     for kind in ranks[0]["twin"]:
         emit("mesh2_collectives", arch=cfg.name, step=kind,
              measured_by_rank=[r["comm"][kind] for r in ranks],
-             twin=[r["twin"][kind] for r in ranks],
-             twin_s_by_rank=[r["twin_s"] for r in ranks])
+             twin=[{k: r["twin"][kind][k] for k in ("counts", "bytes")}
+                   for r in ranks],
+             twin_s_by_rank=[r["twin_s"] for r in ranks],
+             predicted_by_rank=[r["twin"][kind]["predicted"] for r in ranks],
+             ms_by_rank=[r["ms"].get(kind) for r in ranks],
+             peak_gb_by_rank=[r["peak_gb"] for r in ranks])
     emit("mesh2", **out)
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in ranks[0]["launches"]}
@@ -3704,7 +3732,8 @@ def twin_held(ranks: list) -> bool:
     calls and bytes by kind, the dry-run twin's count of that step on the
     rank's mesh (``mesh2_twins``), and a twin was counted for each."""
     return all(set(r["twin"]) == set(r["comm"]) and all(
-        {k: r["comm"][step][k] for k in ("counts", "bytes")} == twin
+        {k: r["comm"][step][k] for k in ("counts", "bytes")}
+        == {k: twin[k] for k in ("counts", "bytes")}
         for step, twin in r["twin"].items()) for r in ranks)
 
 
@@ -3773,7 +3802,12 @@ def mesh2_variant_check(ref: dict, ranks: list, card: dict) -> tuple:
     emit("mesh2_collectives", arch=cfg.name, step="decode",
          variant=MESH2_VARIANT,
          measured_by_rank=[r["bfloat16"]["comm"] for r in ranks],
-         twin=[r["bfloat16"]["twin"] for r in ranks])
+         twin=[{k: r["bfloat16"]["twin"][k] for k in ("counts", "bytes")}
+               for r in ranks],
+         predicted_by_rank=[r["bfloat16"]["twin"]["predicted"]
+                            for r in ranks],
+         ms_by_rank=[r["bfloat16"]["ms"] for r in ranks],
+         peak_gb_by_rank=[r["bfloat16"]["peak_gb"] for r in ranks])
     emit("mesh2_variant", **out)
     launches = {k: sum(r["bfloat16"]["launches"][k] for r in ranks)
                 for k in ranks[0]["bfloat16"]["launches"]}
@@ -4124,8 +4158,12 @@ def phase_dryrun(bg: dict) -> dict:
             if report.returncode == 0 else [])
     for r in rows:
         emit("dryrun_cell", **{k: r.get(k) for k in (
-            "arch", "shape", "mesh", "status", "dominant_adj", "step_ms_adj",
-            "bytes_per_device_gb", "fits_hbm_80g")})
+            "arch", "shape", "mesh", "status", "dominant", "dominant_adj",
+            "step_ms_adj", "hlo_gflops", "hlo_gbytes", "coll_gbytes",
+            "bytes_per_device_gb", "fits_hbm_80g")},
+             **{k: (r.get("memory") or {}).get(v) for k, v in (
+                 ("temp", "temp_size_in_bytes"),
+                 ("temp_by_depth", "temp_by_depth"))})
     paper = [json.loads(line) for line in
              (out / "paper.log").read_text().splitlines()
              if line.startswith("{")]
@@ -4153,9 +4191,13 @@ def phase_dryrun(bg: dict) -> dict:
                "skipped": sum(r.get("status") == "skipped" for r in rows),
                "sweep_wall_s": bg["ended"]["sweep"],
                "paper_wall_s": bg["ended"]["paper"], "wait_s": wait_s,
-               "trace_s_sum": sum(r.get("trace_s", 0) for r in rows
-                                  if r.get("mesh") == "single"),
-               "count_s_sum": sum(r.get("count_s", 0) for r in rows)}
+               "trace_s_sum": sum(r.get("trace_s", 0) for r in rows),
+               "count_s_sum": sum(r.get("count_s", 0) for r in rows),
+               "dominant": dict(Counter(r["dominant"] for r in rows
+                                        if r.get("status") == "ok")),
+               "dominant_adj": dict(Counter(
+                   r.get("dominant_adj") for r in rows
+                   if r.get("status") == "ok"))}
     emit("dryrun", **summary)
     if not summary["ok"]:
         tail = {n: (out / f"{n}.log").read_text()[-2000:]

@@ -9,8 +9,7 @@ CPU, under ``DEFAULT_RULES`` and the ``ep_capacity``, ``expert_data`` and
 in calls and bytes by kind (``sharding.collectives.CollectiveTally``); the
 same steps lowered on rank 0's mesh under the same rules
 (``lower_prefill``, ``lower_train_step``) and run there on ``meta``
-DTensors give the twin's (``Lowered.count_collectives``: what the dry-run
-counts).  One JSON line a variant, with whether the two agree.  Counts
+DTensors give the twin's (``Lowered.count``: what the dry-run counts).  One JSON line a variant, with whether the two agree.  Counts
 only: no time is measured.
 
     PYTHONPATH=src python examples/moe_collectives_torch.py     # ~30 s
@@ -69,7 +68,7 @@ def rank_counts(rank: int) -> dict:
         out[variant] = {
             kind: {"measured": tally.by_kind(),
                    "twin": (lambda c: (c.counts, c.bytes_by_kind))(
-                       twin[kind].count_collectives())}
+                       twin[kind].count().collectives)}
             for kind, tally in (("prefill", prefill), ("train", train))}
     return out
 

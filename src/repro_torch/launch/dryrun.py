@@ -1,37 +1,45 @@
-"""Multi-pod dry-run: trace every (arch × shape × mesh) cell on ``meta``
+"""Multi-pod dry-run: count every (arch × shape × mesh) cell on ``meta``
 tensors and compute its roofline (torch; counterpart of
 ``repro.launch.dryrun``).  For each cell:
 
-    lowered  = lower_train_step / lower_prefill / lower_serve_step(...)
-    compiled = lowered.compile()          # one run of the step on meta
-    memory_analysis / cost_analysis -> results JSON
-    collectives: one rank's step counted at depths p and 2p, extrapolated
+    c1, c2   = lower_step(cfg at 2p and 3p layers).compile()  # one rank each
+    compiled = lower_step(cfg).compile(extrapolate_trace(c1, c2, ...))
+    memory_analysis / cost_analysis / collectives -> results JSON
 
 Results append incrementally to --out (resumable), with the reference's row
 keys (``fits_hbm_80g`` in place of ``fits_hbm_16g``);
 ``python -m repro_torch.roofline.report`` makes the tables from that file.
 
-Depth: XLA counts a ``while`` body once, so the reference compiles two
-shallow depths and extrapolates; here a Python loop runs every layer, so
-each cell's FLOPs, bytes and memory come from one global trace at full
-depth.  The collectives are one rank's (``Lowered.count_collectives``:
-the step run as rank 0 on ``meta`` DTensors over torch's fake group),
-counted as the reference counts them: at depths p and 2p (p = max(1,
-``cross_attn_every``, ``shared_attn_every``)) and extrapolated to the full
-depth (``roofline.analysis.extrapolate``; the count is linear in depth).
-Meshes: a mesh is ``launch.mesh.abstract_mesh`` (axis names and sizes),
-counted on a ``DeviceMesh`` of its axes over one fake group of 512 ranks
-that serves both meshes (``launch.mesh.rank_mesh``), so ``--mesh both``
-runs in one process; and since the global trace does not depend on the
-mesh, each (arch, shape, variant, remat) is traced once a process and its
-counts shared by the meshes.  A row's ``trace_s`` is that trace's time,
-``count_s`` its mesh's count's.  No device is used: all of it runs on the
-host, at full width.
+Per device means one rank's own step: on a mesh of more than one device,
+``Lowered.compile()`` runs the step as rank 0 runs it, on ``meta``
+DTensors of each argument's block over torch's fake group
+(``Lowered.count``), and counts its FLOPs, bytes, temp peak and
+collectives in that one run (``roofline.trace``).  As the reference does
+with XLA's counts, each cell is counted at two shallow depths and
+extrapolated to the full depth (``roofline.trace.extrapolate_trace``:
+linear, clamped monotone), here 2p and 3p (p = max(1,
+``cross_attn_every``, ``shared_attn_every``); ``depths`` says why not p
+and 2p), which is exact where the depth is a multiple of p (a train
+step's temp: a lower bound, ``extrapolate_trace``); a cell no deeper
+than 3p is counted at its depth.  Argument, output and alias
+bytes come from the full-depth arguments' and outputs' shardings.  A mesh
+of one device takes the global trace at full depth instead
+(``Lowered.trace``), which is one rank's step there.  Meshes: a mesh is
+``launch.mesh.abstract_mesh`` (axis names and sizes), counted on a
+``DeviceMesh`` of its axes over one fake group of 512 ranks that serves
+both meshes (``launch.mesh.rank_mesh``), so ``--mesh both`` runs in one
+process.  A row's ``trace_s`` is the time of the counted runs themselves
+(the two rank runs, or the global trace), ``count_s`` the wall time of
+lowering, building and running both depths, and its ``memory`` holds
+the temp of each (``temp_by_depth``).  No device is used: all of it runs
+on the host, at full width.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b \\
         --shape train_4k --mesh single            # one cell
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b \\
+        --shape train_4k --explain --force      # the run in words
 """
 from __future__ import annotations
 
@@ -42,10 +50,10 @@ import sys
 import time
 import traceback
 from pathlib import Path
-from typing import Optional
 
 from ..configs import CONFIGS, SHAPES, get_config
-from ..roofline.analysis import LINK_BW, analyze, extrapolate
+from ..roofline.analysis import analyze
+from ..roofline.trace import extrapolate_trace
 from ..sharding.rules import mesh_size
 from .mesh import abstract_mesh, fake_ranks
 
@@ -105,42 +113,59 @@ def lower_step(cfg, shape, mesh, rules, remat="full", unroll=1,
     return lower_serve_step(cfg, shape, mesh, rules, unroll=unroll)
 
 
-def _compile_cost(cfg, shape, mesh, rules, remat, loss_impl="dense",
-                  microbatches=1, trace=None):
-    """(compiled, flops, bytes) of one trace on ``mesh``, per device
-    (``trace``: an earlier run of the same step, reused)."""
-    compiled = lower_step(cfg, shape, mesh, rules, remat,
-                          loss_impl=loss_impl,
-                          microbatches=microbatches).compile(trace)
-    cost = compiled.cost_analysis()
-    return (compiled, float(cost["flops"]), float(cost["bytes accessed"]))
+def period(cfg) -> int:
+    """The cross / shared block period, 1 without one."""
+    return max(1, cfg.cross_attn_every or 0, cfg.shared_attn_every or 0)
 
 
-def count_collectives(cfg, shape, mesh, rules, remat, loss_impl="dense",
-                      microbatches=1):
-    """(collectives, their total bytes) of one rank's step at full depth:
-    counted at depths p and 2p and extrapolated, the total clamped to be
-    monotone in depth, as the reference's ``run_cell`` does."""
-    p = max(1, cfg.cross_attn_every or 0, cfg.shared_attn_every or 0)
-    c1, c2 = (lower_step(dataclasses.replace(cfg, n_layers=n), shape, mesh,
-                         rules, remat, loss_impl=loss_impl,
-                         microbatches=microbatches).count_collectives()
-              for n in (p, 2 * p))
-    coll = extrapolate(c1, c2, p, 2 * p, cfg.n_layers)
-    scale = (cfg.n_layers - p) / p
-    total = max(c1.total_bytes,
-                c1.total_bytes + (c2.total_bytes - c1.total_bytes) * scale)
-    return coll, total
+def depths(cfg) -> tuple:
+    """The two depths a mesh cell is counted at: 2p and 3p (``period``).
+    At depth p a stack holds one block, and DTensor gathers a stack of one
+    block as a view (the vlm's cross-attention stack, a cat from two
+    blocks on), while a serving step's temp peak has not yet levelled off
+    (from 2p on it holds one layer's working set); from 2p on each added
+    period adds the same work, so the extrapolation from 2p and 3p is
+    exact at any multiple of p (a train step's temp: a lower bound,
+    ``extrapolate_trace``)."""
+    p = period(cfg)
+    return 2 * p, 3 * p
+
+
+def shallow_pair(cfg, shape, mesh, rules, remat, loss_impl="dense",
+                 microbatches=1):
+    """The step compiled at ``depths``: on a mesh, one rank's count
+    each."""
+    return tuple(lower_step(dataclasses.replace(cfg, n_layers=n), shape,
+                            mesh, rules, remat, loss_impl=loss_impl,
+                            microbatches=microbatches).compile()
+                 for n in depths(cfg))
+
+
+def compile_step(cfg, shape, mesh, rules, remat, loss_impl="dense",
+                 microbatches=1, pair=None):
+    """The step at full depth, compiled: the step itself on one device
+    (the global trace) or where the full depth is no deeper than 3p (one
+    rank's count); else one rank's count extrapolated from depths 2p and
+    3p (``pair``: ``shallow_pair``'s, reused)."""
+    low = lower_step(cfg, shape, mesh, rules, remat, loss_impl=loss_impl,
+                     microbatches=microbatches)
+    l1, l2 = depths(cfg)
+    if mesh_size(mesh) == 1 or cfg.n_layers <= l2:
+        return low.compile()
+    c1, c2 = pair or shallow_pair(cfg, shape, mesh, rules, remat, loss_impl,
+                                  microbatches)
+    return low.compile(extrapolate_trace(c1, c2, low, l1, l2, cfg.n_layers))
 
 
 def run_cell(arch: str, shape_name: str, mesh_name: str,
              variant: str = "baseline", remat: str = "full",
-             traces: Optional[dict] = None):
-    """One dry-run cell: the step traced once at full depth, its memory
-    analysis on this cell's mesh, one rank's collectives
-    (``count_collectives``) and the roofline.  ``traces`` (a dict the
-    caller keeps) holds each (arch, shape, variant, remat)'s trace, so
-    that a cell on another mesh reuses it."""
+             explain: bool = False):
+    """One dry-run cell: one rank's step counted at depths 2p and 3p
+    (``shallow_pair``) and extrapolated, its FLOPs, bytes, temp and
+    collectives from those two runs, its memory analysis on the full-depth
+    arguments' shardings, and the roofline.  ``explain``: print the run in
+    words (``Compiled.as_text``: the 3p count's, on one device the global
+    trace's)."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     if shape_name in cfg.skip_shapes:
@@ -152,18 +177,17 @@ def run_cell(arch: str, shape_name: str, mesh_name: str,
     rules = rules_for(arch, shape_name, variant)
     loss_impl = loss_for(variant)
     micro = micro_for(variant)
-    key = (arch, shape_name, variant, remat)
-    traces = {} if traces is None else traces
     t0 = time.time()
     try:
-        compiled, flops, nbytes = _compile_cost(
-            cfg, shape, mesh, rules, remat, loss_impl, micro,
-            trace=traces.get(key))
-        traces[key] = compiled.trace
-        t1 = time.time()
-        coll, coll_bytes = count_collectives(cfg, shape, mesh, rules, remat,
-                                             loss_impl, micro)
-        count_s = time.time() - t1
+        pair = (shallow_pair(cfg, shape, mesh, rules, remat, loss_impl,
+                             micro)
+                if chips > 1 and cfg.n_layers > depths(cfg)[1] else None)
+        compiled = compile_step(cfg, shape, mesh, rules, remat, loss_impl,
+                                micro, pair)
+        count_s = time.time() - t0
+        if explain:
+            print((pair[1] if pair else compiled).as_text(), flush=True)
+        cost = compiled.cost_analysis()
         mem = compiled.memory_analysis()
         mem_stats = {}
         for attr in ("argument_size_in_bytes", "output_size_in_bytes",
@@ -174,11 +198,12 @@ def run_cell(arch: str, shape_name: str, mesh_name: str,
                 + mem_stats["output_size_in_bytes"]
                 - mem_stats["alias_size_in_bytes"])
         mem_stats["bytes_per_device"] = live
+        if pair:                       # the temp counted at 2p and 3p
+            mem_stats["temp_by_depth"] = [c.trace.temp_bytes for c in pair]
         roof = analyze(arch, shape, mesh_name, chips,
-                       {"flops": flops, "bytes accessed": nbytes},
-                       coll, cfg, mem_stats)
-        roof.collective_gbytes = coll_bytes / 1e9
-        roof.collective_s = coll_bytes / LINK_BW
+                       {"flops": float(cost["flops"]),
+                        "bytes accessed": float(cost["bytes accessed"])},
+                       compiled.collectives(), cfg, mem_stats)
         row = roof.row()
         row.update({
             "status": "ok", "variant": variant, "remat": remat,
@@ -221,6 +246,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, default=DEFAULT_OUT)
     ap.add_argument("--force", action="store_true",
                     help="recompute cells already in --out")
+    ap.add_argument("--explain", action="store_true",
+                    help="print each cell's run in words: FLOPs and bytes "
+                         "by op, what is live at the temp peak, the "
+                         "collectives (at depth 3p on a mesh)")
     args = ap.parse_args(argv)
 
     archs = list(CONFIGS) if (args.all or not args.arch) else [args.arch]
@@ -233,15 +262,14 @@ def main(argv=None) -> int:
     with fake_ranks():                 # one group counts every cell
         for arch in archs:
             for shape in shapes:
-                traces: dict = {}      # this (arch, shape)'s, for both meshes
                 for mesh in meshes:
                     key = (arch, shape, mesh, args.variant)
                     if key in done and not args.force:
                         continue
                     print(f"[dryrun] {arch} × {shape} × {mesh} "
                           f"({args.variant}) ...", flush=True)
-                    row = run_cell(arch, shape, mesh, args.variant, args.remat,
-                                   traces)
+                    row = run_cell(arch, shape, mesh, args.variant,
+                                   args.remat, args.explain)
                     print(f"  -> {row.get('status')} "
                           f"({row.get('compile_s', '?')}s) "
                           f"dominant={row.get('dominant', '-')}", flush=True)

@@ -27,8 +27,8 @@ their own.
 
 ``abstract_mesh`` is a mesh's axis names and sizes alone (no device, no
 group): what the dry-run (``launch.dryrun``) lowers on, any number of them
-in one process.  To count the collectives of one rank's step
-(``roofline.trace.Lowered.count_collectives``) an abstract mesh becomes a
+in one process.  To count one rank's step
+(``roofline.trace.Lowered.count``) an abstract mesh becomes a
 ``DeviceMesh`` of its axes over ranks [0, n) of torch's fake group
 (``rank_mesh``): one group of ``FAKE_WORLD`` ranks holds both production
 meshes, (2, 16, 16) and (16, 16) over ranks 0-255.  It is started only

@@ -248,7 +248,10 @@ def forward(params, cfg: ModelConfig, tokens=None, *, inputs_embeds=None,
             img_embeds = constrain(replicated_like(torch.zeros(
                 (B, cfg.n_image_tokens, d), dtype=x.dtype, device=x.device),
                 x), INPUT_AXES["img_embeds"])
-        img_k, img_v = _image_kv(params["cross"], cfg, img_embeds)
+        # one unbind each, as ``_layers`` does: a gradient of slices taken
+        # one at a time would write the whole stack once a cross layer
+        img_k, img_v = map(torch.unbind, _image_kv(params["cross"], cfg,
+                                                   img_embeds))
         cross = _layers(params["cross"])
 
     def body(x, lp, i):

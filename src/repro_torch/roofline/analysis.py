@@ -7,12 +7,12 @@ mesh), in seconds:
     memory     = bytes accessed per device / HBM_bw
     collective = collective bytes per device / link_bw
 
-FLOPs and bytes come from ``Compiled.cost_analysis()`` of the step traced on
-``meta`` tensors (``roofline.trace``): the global counts divided by the
-chips that share the work.  Collective bytes are what one rank's step
-dispatches (``Compiled.collectives()``, counted on ``meta`` DTensors),
-where the reference reads XLA's per-device program; ``extrapolate`` takes
-two depths' counts to the full depth as the reference's ``run_cell`` does.
+FLOPs, bytes and collective bytes are one rank's own step, run on ``meta``
+DTensors (``roofline.trace``: ``Compiled.cost_analysis()`` and
+``Compiled.collectives()``; on one device the global trace), where the
+reference reads XLA's per-device program; ``extrapolate`` takes two
+depths' collectives to the full depth as the reference's ``run_cell``
+does.
 
 Hardware constants: NVIDIA H100 SXM 80 GB (NVIDIA's H100 data sheet) —
 989 TFLOP/s dense bf16 on the tensor cores, 3.35 TB/s HBM3, 80 GB.  The

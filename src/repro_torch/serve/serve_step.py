@@ -97,18 +97,18 @@ def _grad_off(across: bool):
 
 def distribute_state(cfg: ModelConfig, state, mesh,
                      rules: Optional[LogicalRules] = None):
-    """A decode state (``init_decode_state``'s) placed by
-    ``decode_state_shardings`` at its own batch and length; DTensor
-    leaves are redistributed, so a placed state passes unchanged.  The
-    length is the KV cache's (a hybrid's: its shared block's), 1 for an
-    ssm state, which has none."""
-    lead = state["k"] if "k" in state else state["conv"]
-    B = lead.shape[1]
-    kv = state.get("k", state.get("shared_k"))
-    S = 1 if kv is None else kv.shape[2]
-    shard = decode_state_shardings(cfg, ShapeSpec("state", S, B, "decode"),
-                                   mesh, rules)
-    return distribute_tree(state, {k: shard[k] for k in state})
+    """A decode state (``init_decode_state``'s) placed as
+    ``decode_state_shardings`` places one of its shapes, each leaf by its
+    ``CACHE_AXES`` at its own shape (``pos``, a Python int, as a 0-d
+    leaf); DTensor leaves are redistributed, so a placed state passes
+    unchanged.  No tensor is made for the shapes: a rank's step runs this,
+    and the dry-run counts what that step allocates."""
+    def sharding(name, leaf):
+        return logical_sharding(CACHE_AXES[name], getattr(leaf, "shape", ()),
+                                mesh, rules)
+    return distribute_tree(state, {
+        k: (tuple(sharding(k, leaf) for leaf in v) if k == "img_kv"
+            else sharding(k, v)) for k, v in state.items()})
 
 
 def make_serve_step(cfg: ModelConfig, mesh="cuda",

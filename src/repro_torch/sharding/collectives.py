@@ -43,6 +43,11 @@ KINDS = {"all_gather_into_tensor": "all-gather",
          "shard_dim_alltoall": "all-to-all",
          "all_reduce": "all-reduce",
          "allreduce_": "all-reduce"}
+# the ops a rank's step communicates with (overload packets): what
+# ``CommDebugMode`` counts, and the functional collectives' wait
+COLLECTIVE_OPS = frozenset(
+    CommDebugMode().comm_registry | set(c10d_collective_ops)
+    | {torch.ops._c10d_functional.wait_tensor})
 
 
 def _note(name: str, nbytes: int) -> None:

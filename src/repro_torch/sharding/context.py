@@ -17,7 +17,7 @@ without ranks executes nothing.  A stand-in whose ``shape`` is a dict
 A ``DeviceMesh`` over torch's fake group builds the step as the ranks run
 it, but the step takes ``meta`` DTensors only (``require_distributed``):
 its collectives dispatch and move nothing, which is how the dry-run counts
-what one rank's step dispatches (``roofline.trace.Lowered.count_collectives``).
+what one rank's step runs and dispatches (``roofline.trace.Lowered.count``).
 A step built with ``trace=True`` (the dry-run's global trace) takes any
 mesh but runs on plain ``meta`` tensors only: there a plain tensor passes
 ``constrain`` unchanged, and each call is recorded (``recording``).  A CPU

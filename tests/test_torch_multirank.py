@@ -25,9 +25,13 @@ the four ranks restores bit for bit on one device and in the JAX package's
 placements; a remat recompute run in a thread of its own constrains as the
 forward did; the chunked loss (``loss_impl="chunked"``, a ragged last
 chunk) against JAX's and against the dense loss across ranks; the
-collectives each step dispatches on a rank (``CollectiveTally``) equal, in
-calls and bytes by kind, the dry-run twin's count of the same step lowered
-on that rank's mesh (``Lowered.count_collectives``).
+collectives each step dispatches on a rank equal, in calls and bytes by
+kind, the dry-run twin's count of the same step lowered on that rank's
+mesh (``Lowered.count``), and so do the FLOPs and bytes accessed the rank
+runs, counted by the same tally (``roofline.trace.RankTally``) on the
+same step.  A tallied step (each kind's first) takes its inputs placed
+before it, as the twin's are; later steps take the global batch or
+tokens, as a caller gives them, and place them themselves.
 
 The ranks run in processes of their own (``launch.ranks.run_ranks``,
 spawned, one torch thread each, a ``FileStore``), never in the pytest
@@ -380,15 +384,34 @@ def _guards(params) -> dict:
 
 
 def twin(cfg, kind: str, seq: int, mesh, **kw):
-    """The dry-run twin's collectives of a step of ``kind`` at (B, ``seq``)
-    on ``mesh`` under ``DEFAULT_RULES``, f32 params: (calls, bytes) by
-    kind, as ``CollectiveTally.by_kind`` gives a real step's."""
+    """The dry-run twin of a step of ``kind`` at (B, ``seq``) on ``mesh``
+    under ``DEFAULT_RULES``, f32 params, counted (``Lowered.count``)."""
     from repro_torch.launch.dryrun import lower_step
     from repro_torch.models.config import ShapeSpec
     from repro_torch.sharding import DEFAULT_RULES
-    c = lower_step(cfg, ShapeSpec(f"twin_{kind}", seq, B, kind), mesh,
-                   DEFAULT_RULES, **kw).count_collectives(torch.float32)
-    return c.counts, c.bytes_by_kind
+    return lower_step(cfg, ShapeSpec(f"twin_{kind}", seq, B, kind), mesh,
+                      DEFAULT_RULES, **kw).count(torch.float32)
+
+
+def held(tally, counted) -> tuple:
+    """A tallied step (``RankTally``) beside its twin's count: the
+    collectives' (calls, bytes) by kind and the (FLOPs, bytes accessed),
+    each a (measured, counted) pair."""
+    c = counted.collectives
+    return ((tally.by_kind(), (c.counts, c.bytes_by_kind)),
+            ((tally.flops, tally.bytes), (counted.flops, counted.bytes)))
+
+
+def step_inputs(i, inputs, mesh, rules):
+    """Step ``i``'s inputs and the tally around it: the first step's
+    placed before it, as the twin's are, under ``RankTally``; a later
+    step's global, as a caller gives them, for the step to place."""
+    from repro_torch.roofline.trace import RankTally
+    from repro_torch.sharding import distribute_inputs
+    if i:
+        return inputs, contextlib.nullcontext()
+    return distribute_inputs({k: v.contiguous() for k, v in inputs.items()},
+                             mesh, rules), RankTally()
 
 
 def rank_work(rank: int, where: str) -> dict:
@@ -400,7 +423,6 @@ def rank_work(rank: int, where: str) -> dict:
     from repro_torch.serve.serve_step import distribute_state
     from repro_torch.sharding import (DEFAULT_RULES, distribute_tree,
                                       shardings_for)
-    from repro_torch.sharding.collectives import CollectiveTally
     from repro_torch.sharding.rules import NamedSharding, P
     from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.train.optimizer import AdamWState
@@ -420,27 +442,34 @@ def rank_work(rank: int, where: str) -> dict:
         dp = distribute_tree(params, psh)
         r["shards"] = {f"param/{'/'.join(p)}": _np(t.to_local())
                        for p, t in tree_leaves(dp)}
-        comm = r["comm"] = {}            # step -> (measured, twin)
-        with shard_calls() as calls, CollectiveTally() as tally:
-            logits = make_prefill(cfg, mesh, DEFAULT_RULES)(
-                dp, tokens=torch.from_numpy(data["tokens"]))
+        # step -> (measured, twin); the tallied steps take their inputs
+        # placed, as the twin does
+        comm, cost = r["comm"], r["cost"] = {}, {}
+        inputs, tallied = step_inputs(0, {"tokens": torch.from_numpy(
+            data["tokens"])}, mesh, DEFAULT_RULES)
+        with shard_calls() as calls, tallied as tally:
+            logits = make_prefill(cfg, mesh, DEFAULT_RULES)(dp, **inputs)
         r["prefill"] = _full(logits)
         r["prefill_calls"] = calls
-        comm["prefill"] = (tally.by_kind(),
-                           twin(cfg, "prefill", S, mesh))
+        # the same prefill as a caller runs it: global tokens it places
+        r["prefill_global"] = _full(make_prefill(cfg, mesh, DEFAULT_RULES)(
+            dp, tokens=torch.from_numpy(data["tokens"])))
+        comm["prefill"], cost["prefill"] = held(
+            tally, twin(cfg, "prefill", S, mesh))
         placed = distribute_state(cfg, _state(cfg, data), mesh,
                                   DEFAULT_RULES)
         r["shards"].update({f"state/{k}": _np(v.to_local())
                             for k, v in placed.items()})
         step = make_serve_step(cfg, mesh, DEFAULT_RULES)
-        state, logits = _state(cfg, data), []    # the step places it
+        state, logits = dict(placed, pos=POS0), []
         for i in range(DECODE_STEPS[name]):
-            with CollectiveTally() as tally:
-                lg, state = step(dp, state, torch.from_numpy(
-                    data["decode_tokens"][:, i:i + 1]))
+            tokens, tallied = step_inputs(i, {"tokens": torch.from_numpy(
+                data["decode_tokens"][:, i:i + 1])}, mesh, DEFAULT_RULES)
+            with tallied as tally:
+                lg, state = step(dp, state, tokens["tokens"])
             if i == 0:
-                comm["decode"] = (tally.by_kind(),
-                                  twin(cfg, "decode", MAX_SEQ, mesh))
+                comm["decode"], cost["decode"] = held(
+                    tally, twin(cfg, "decode", MAX_SEQ, mesh))
             logits.append(_full(lg))
         r["decode"] = np.stack(logits)
         r["pos_is_dtensor"] = isinstance(state["pos"], DTensor)
@@ -451,12 +480,14 @@ def rank_work(rank: int, where: str) -> dict:
             o = init_state(p)
             losses, norms, calls = [], [], None
             for i in range(TRAIN_STEPS[name]):
-                with shard_calls() as got, CollectiveTally() as tally:
-                    p, o, m = train(p, o, _batch(data, i))
+                batch, tallied = step_inputs(i, _batch(data, i), mesh,
+                                             DEFAULT_RULES)
+                with shard_calls() as got, tallied as tally:
+                    p, o, m = train(p, o, batch)
                 calls = calls or got
                 if i == 0:
-                    comm[f"train/{remat}"] = (tally.by_kind(), twin(
-                        cfg, "train", S, mesh, remat=remat))
+                    comm[f"train/{remat}"], cost[f"train/{remat}"] = held(
+                        tally, twin(cfg, "train", S, mesh, remat=remat))
                 losses.append(float(m["loss"].full_tensor()))
                 norms.append(float(m["grad_norm"].full_tensor()))
             r[f"train/{remat}"] = {
@@ -477,10 +508,12 @@ def rank_work(rank: int, where: str) -> dict:
         r["chunked"] = {"loss": [], "grad_norm": []}
         with ragged_chunks():
             for i in range(CHUNK_STEPS):
-                with CollectiveTally() as tally:
-                    cp, co, m = train(cp, co, _batch(data, i))
+                batch, tallied = step_inputs(i, _batch(data, i), mesh,
+                                             DEFAULT_RULES)
+                with tallied as tally:
+                    cp, co, m = train(cp, co, batch)
                 if i == 0:
-                    comm["chunked"] = (tally.by_kind(), twin(
+                    comm["chunked"], cost["chunked"] = held(tally, twin(
                         cfg, "train", S, mesh, loss_impl="chunked"))
                 r["chunked"]["loss"].append(float(m["loss"].full_tensor()))
                 r["chunked"]["grad_norm"].append(
@@ -491,11 +524,14 @@ def rank_work(rank: int, where: str) -> dict:
         mo = init_state(mp)
         r["microbatched"] = []
         for i in range(2):
-            with CollectiveTally() as tally:
-                mp, mo, m = train(mp, mo, _batch(data, i))
+            batch, tallied = step_inputs(i, _batch(data, i), mesh,
+                                         DEFAULT_RULES)
+            with tallied as tally:
+                mp, mo, m = train(mp, mo, batch)
             if i == 0:
-                comm["microbatched"] = (tally.by_kind(), twin(
-                    cfg, "train", S, mesh, microbatches=MICROBATCHES))
+                comm["microbatched"], cost["microbatched"] = held(
+                    tally, twin(cfg, "train", S, mesh,
+                                microbatches=MICROBATCHES))
             r["microbatched"].append((float(m["loss"].full_tensor()),
                                       float(m["grad_norm"].full_tensor())))
         ck = CheckpointManager(os.path.join(where, "ckpt"))
@@ -652,6 +688,27 @@ def test_twin_counts_the_collectives_each_rank_dispatches(runs, mesh):
         for step, (measured, counted) in comm.items():
             assert measured == counted, (r[mesh]["coord"], step)
             assert measured[0].get("all-gather", 0) > 0, step
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_prefill_places_global_tokens_as_placed_ones(runs, mesh):
+    """The tallied prefill took its tokens placed, as the twin's are; the
+    same prefill given the global tokens places them itself and gives the
+    same logits on every rank."""
+    for r in runs["ranks"]:
+        assert np.array_equal(r[mesh]["prefill_global"], r[mesh]["prefill"])
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_twin_counts_the_flops_and_bytes_each_rank_runs(runs, mesh):
+    """The same tallied steps: each rank's FLOPs and bytes accessed, by
+    the tally that counts the twin, equal the twin's."""
+    for r in runs["ranks"]:
+        cost = r[mesh]["cost"]
+        assert set(cost) == set(r[mesh]["comm"])
+        for step, (measured, counted) in cost.items():
+            assert measured == counted, (r[mesh]["coord"], step)
+            assert measured[0] > 0 and measured[1] > 0, step
 
 
 @pytest.mark.parametrize("mesh,remat", [(m, r) for m in sorted(MESHES)

@@ -33,9 +33,15 @@ logits; decode attention ran on each rank's own positions with q whole on
 "model" (its local operand shapes), and the split-sequence boundary alone
 (``seq_on_shards``), on a cache whose invalid positions hold values of
 1e4, equals ``decode_attention_ref`` on a clean one; each step's
-collectives on a rank (``CollectiveTally``) equal, in calls and bytes by
-kind, the dry-run twin's count of the step lowered on that rank's mesh
-(``Lowered.count_collectives``).
+collectives on a rank equal, in calls and bytes by kind, the dry-run
+twin's count of the step lowered on that rank's mesh (``Lowered.count``),
+and so do its FLOPs and bytes accessed, counted by the same tally
+(``roofline.trace.RankTally``) against a twin that writes the step's own
+position.  Those tallied steps take their inputs as the twin does (the
+state and tokens placed before the step, the position an int) and run
+beside the steps checked against JAX, which take the global state and
+tokens as a caller gives them and feed each step's returned state to the
+next; both give the same logits.
 
 JAX runs every case: it decodes all three families under both variants.
 Four ranks and one four-device JAX process start together, under the lock
@@ -326,15 +332,28 @@ def _boundary_case(mesh, data) -> dict:
             "placements": tuple(map(repr, out.placements))}
 
 
-def twin(cfg, mesh, rules):
-    """The dry-run twin's collectives of a decode step at (B, ``MAX_SEQ``)
-    on ``mesh`` under ``rules``, f32 params: (calls, bytes) by kind, as
-    ``CollectiveTally.by_kind`` gives a real step's."""
+def twin(cfg, mesh, rules, pos=None):
+    """The dry-run twin of a decode step at (B, ``MAX_SEQ``) on ``mesh``
+    under ``rules``, f32 params, counted (``Lowered.count``).  ``pos``:
+    the position it writes, where not the lowered step's last one (a rank
+    writes only the positions its block of the cache holds, so its own
+    work depends on the position; what it dispatches does not); past the
+    first step (``POS0``) a conv state in f32, as the first step under f32
+    params leaves it."""
     from repro_torch.launch.dryrun import lower_step
     from repro_torch.models.config import ShapeSpec
-    c = lower_step(cfg, ShapeSpec("twin_decode", MAX_SEQ, B, "decode"), mesh,
-                   rules).count_collectives(torch.float32)
-    return c.counts, c.bytes_by_kind
+    low = lower_step(cfg, ShapeSpec("twin_decode", MAX_SEQ, B, "decode"),
+                     mesh, rules)
+    if pos is not None:
+        def build(m, trace):
+            step = make_serve_step(cfg, m, rules, trace=trace)
+            return lambda params, state, x: step(
+                params, dict(state, pos=pos), x)
+        low.build = build
+        params, state, x = low.args
+        if pos > POS0 and "conv" in state:
+            low.args = (params, dict(state, conv=state["conv"].float()), x)
+    return low.count(torch.float32)
 
 
 def _run(arch, variant, where, data, params, out) -> None:
@@ -346,9 +365,9 @@ def _run(arch, variant, where, data, params, out) -> None:
     from repro_torch.launch.variants import apply_variant
     from repro_torch.models.transformer import build_specs
     from repro_torch.serve.serve_step import distribute_state
-    from repro_torch.sharding import (DEFAULT_RULES, distribute_tree,
-                                      shardings_for)
-    from repro_torch.sharding.collectives import CollectiveTally
+    from repro_torch.roofline.trace import RankTally
+    from repro_torch.sharding import (DEFAULT_RULES, distribute_inputs,
+                                      distribute_tree, shardings_for)
     cfg = config(arch)
     rules = apply_variant(DEFAULT_RULES, arch, "decode", variant)
     for name, shape in MESHES.items():
@@ -357,22 +376,37 @@ def _run(arch, variant, where, data, params, out) -> None:
         dp = distribute_tree(params, shardings_for(build_specs(cfg), mesh,
                                                    rules))
         step = make_serve_step(cfg, mesh, rules)
+        placed = distribute_state(cfg, _state(cfg, arch, data), mesh, rules)
+        r["init"] = {k: _np(v.to_local()) for k, v in _leaves(placed).items()}
+        tokens = [torch.from_numpy(data["decode_tokens"][:, i:i + 1])
+                  for i in range(DECODE_STEPS)]
+        # as a caller decodes: the global state and tokens, which the step
+        # places, and each step's returned state fed to the next
         state, logits = _state(cfg, arch, data), []
-        r["init"] = {k: _np(v.to_local()) for k, v in _leaves(
-            distribute_state(cfg, state, mesh, rules)).items()}
-        measured = []
         with shard_calls() as calls:
-            for i in range(DECODE_STEPS):
-                with CollectiveTally() as tally:
-                    lg, state = step(dp, state, torch.from_numpy(
-                        data["decode_tokens"][:, i:i + 1]))
-                measured.append(tally.by_kind())
+            for x in tokens:
+                lg, state = step(dp, state, x)
                 logits.append(_np(lg.full_tensor()))
                 r["steps"].append({k: _np(v.to_local())
                                    for k, v in _leaves(state).items()})
         r["decode"], r["calls"] = np.stack(logits), calls
-        r["comm"] = (measured, twin(cfg, mesh, rules))
-        cache = state["k"] if "k" in state else state["shared_k"]
+        last = state
+        # the same steps tallied, on a state of their own, their inputs in
+        # the twin's form: placed before the step, the position an int
+        state, logits, measured, cost = placed, [], [], []
+        for i, x in enumerate(tokens):
+            x = distribute_inputs({"tokens": x}, mesh, rules)["tokens"]
+            with RankTally() as tally:
+                lg, state = step(dp, dict(state, pos=POS0 + i), x)
+            measured.append(tally.by_kind())
+            cost.append((tally.flops, tally.bytes))
+            logits.append(_np(lg.full_tensor()))
+        r["decode_tallied"] = np.stack(logits)
+        c = twin(cfg, mesh, rules).collectives
+        r["comm"] = (measured, (c.counts, c.bytes_by_kind))
+        r["cost"] = [(got, (t.flops, t.bytes)) for got, t in zip(cost, (
+            twin(cfg, mesh, rules, POS0 + i) for i in range(DECODE_STEPS)))]
+        cache = last["k"] if "k" in last else last["shared_k"]
         size, offset = compute_local_shape_and_global_offset(
             cache.shape, mesh, cache.placements)
         r["seq_block"] = (offset[2], size[2])
@@ -552,6 +586,32 @@ def test_twin_counts_the_collectives_each_rank_dispatches(runs, arch,
         for step in measured:
             assert step == counted, got["coord"]
         assert counted[0].get("all-reduce", 0) > 0
+
+
+@pytest.mark.parametrize("arch,variant,mesh", CASES)
+def test_tallied_steps_decode_as_the_callers_steps(runs, arch, variant,
+                                                   mesh):
+    """The steps tallied for the twin (inputs placed before each step, the
+    position an int) give the logits of the steps a caller runs (global
+    inputs the step places, its returned state fed back), on each rank."""
+    for r in runs["ranks"]:
+        got = r[f"{arch}/{variant}"][mesh]
+        assert np.array_equal(got["decode_tallied"], got["decode"]), \
+            got["coord"]
+
+
+@pytest.mark.parametrize("arch,variant,mesh", CASES)
+def test_twin_counts_the_flops_and_bytes_each_rank_runs(runs, arch,
+                                                        variant, mesh):
+    """Every decode step's FLOPs and bytes accessed on each rank, by the
+    tally that counts the twin, equal the twin's count of the step at its
+    position."""
+    for r in runs["ranks"]:
+        got = r[f"{arch}/{variant}"][mesh]
+        assert len(got["cost"]) == DECODE_STEPS
+        for i, (measured, counted) in enumerate(got["cost"]):
+            assert measured == counted, (got["coord"], i)
+            assert counted[0] > 0 and counted[1] > 0
 
 
 def test_split_sequence_boundary_alone(runs):

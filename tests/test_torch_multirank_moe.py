@@ -30,9 +30,13 @@ the chunked loss with the aux loss across ranks; one bf16 prefill against
 the port's unmeshed bf16 prefill, its routes equal.  (Compiled JAX bf16
 MoE routes differently from its own op-by-op run, ROADMAP Queue 3: the
 bf16 case holds the port to itself.)  Each step's collectives on a rank
-(``CollectiveTally``) equal, in calls and bytes by kind, the dry-run
-twin's count of the same step lowered on that rank's mesh
-(``Lowered.count_collectives``).
+equal, in calls and bytes by kind, the dry-run twin's count of the same
+step lowered on that rank's mesh (``Lowered.count``), and so do its FLOPs
+and bytes accessed, counted by the same tally
+(``roofline.trace.RankTally``) on the same step, its inputs placed before
+it as the twin's are (the route log's own work left out of the tally);
+later steps take the global batch or tokens, as a caller gives them, and
+place them themselves.
 
 The ranks run in processes of their own (``launch.ranks.run_ranks``,
 spawned, one torch thread each); the JAX side runs in a subprocess with four
@@ -54,6 +58,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.configs import reduced_config
 from repro_torch.interop import params_from_jax
@@ -334,7 +339,8 @@ def routes():
 
     def spy(h, router, k):
         probs, top_p, top_i = real(h, router, k)
-        log.append((top_i.sort(dim=-1).values, (h @ router).float()))
+        with _disable_current_modes():       # no tally counts the log
+            log.append((top_i.sort(dim=-1).values, (h @ router).float()))
         return probs, top_p, top_i
     tm.route = spy
     try:
@@ -344,34 +350,54 @@ def routes():
 
 
 def twin(cfg, kind: str, mesh, rules, dtype=torch.float32, **kw):
-    """The dry-run twin's collectives of a step of ``kind`` at (B, S) on
-    ``mesh`` under ``rules``, ``dtype`` params: (calls, bytes) by kind, as
-    ``CollectiveTally.by_kind`` gives a real step's."""
+    """The dry-run twin of a step of ``kind`` at (B, S) on ``mesh`` under
+    ``rules``, ``dtype`` params, counted (``Lowered.count``)."""
     from repro_torch.launch.dryrun import lower_step
     from repro_torch.models.config import ShapeSpec
     seq = MAX_SEQ if kind == "decode" else S
-    c = lower_step(cfg, ShapeSpec(f"twin_{kind}", seq, B, kind), mesh,
-                   rules, **kw).count_collectives(dtype)
-    return c.counts, c.bytes_by_kind
+    return lower_step(cfg, ShapeSpec(f"twin_{kind}", seq, B, kind), mesh,
+                      rules, **kw).count(dtype)
+
+
+def held(tally, counted) -> tuple:
+    """A tallied step (``RankTally``) beside its twin's count: the
+    collectives' (calls, bytes) by kind and the (FLOPs, bytes accessed),
+    each a (measured, counted) pair."""
+    c = counted.collectives
+    return ((tally.by_kind(), (c.counts, c.bytes_by_kind)),
+            ((tally.flops, tally.bytes), (counted.flops, counted.bytes)))
+
+
+def step_inputs(i, inputs, mesh, rules):
+    """Step ``i``'s inputs and the tally around it: the first step's
+    placed before it, as the twin's are, under ``RankTally``; a later
+    step's global, as a caller gives them, for the step to place."""
+    from repro_torch.roofline.trace import RankTally
+    from repro_torch.sharding import distribute_inputs
+    if i:
+        return inputs, contextlib.nullcontext()
+    return distribute_inputs({k: v.contiguous() for k, v in inputs.items()},
+                             mesh, rules), RankTally()
 
 
 def _train(cfg, mesh, rules, params, psh, data, **kw) -> dict:
     """``TRAIN_STEPS`` train steps from the placed params: losses, aux
     losses of the first step's forward, grad norms, final params, and the
-    first step's collectives beside its twin's (``comm``)."""
+    first step's collectives and cost beside its twin's (``comm``,
+    ``cost``)."""
     from repro_torch.sharding import distribute_tree
-    from repro_torch.sharding.collectives import CollectiveTally
     step = make_train_step(cfg, AdamWConfig(**OPT), mesh, rules,
                            remat="full", **kw)
     p = distribute_tree(params, psh)
     o = init_state(p)
     out = {"loss": [], "grad_norm": []}
     for i in range(TRAIN_STEPS):
-        with CollectiveTally() as tally:
-            p, o, m = step(p, o, _batch(data, i))
+        batch, tallied = step_inputs(i, _batch(data, i), mesh, rules)
+        with tallied as tally:
+            p, o, m = step(p, o, batch)
         if i == 0:
-            out["comm"] = (tally.by_kind(),
-                           twin(cfg, "train", mesh, rules, **kw))
+            out["comm"], out["cost"] = held(
+                tally, twin(cfg, "train", mesh, rules, **kw))
         out["loss"].append(float(m["loss"].full_tensor()))
         out["grad_norm"].append(float(m["grad_norm"].full_tensor()))
     out["params"] = {"/".join(k): _full(v) for k, v in tree_leaves(p)}
@@ -389,7 +415,7 @@ def rank_work(rank: int, where: str) -> dict:
     from repro_torch.sharding import (DEFAULT_RULES, distribute_inputs,
                                       distribute_tree, sharding_ctx,
                                       shardings_for)
-    from repro_torch.sharding.collectives import CollectiveTally
+    from repro_torch.roofline.trace import RankTally
     torch.set_num_threads(1)
     while not os.path.exists(os.path.join(where, "params.npz")):
         time.sleep(0.05)                 # the JAX side writes the init
@@ -409,13 +435,17 @@ def rank_work(rank: int, where: str) -> dict:
         r["shards"] = {f"param/{'/'.join(p)}": _np(t.to_local())
                        for p, t in tree_leaves(dp)}
         tokens = torch.from_numpy(data["tokens"])
-        comm = r["comm"] = {}            # step -> (measured, twin)
+        # step -> (measured, twin); the tallied steps take their inputs
+        # placed, as the twin does
+        comm, cost = r["comm"], r["cost"] = {}, {}
+        placed_tokens = distribute_inputs({"tokens": tokens}, mesh,
+                                          rules)["tokens"]
         with shard_calls() as calls, routes() as log, \
-                CollectiveTally() as tally:
-            logits = make_prefill(cfg, mesh, rules)(dp, tokens=tokens)
+                RankTally() as tally:
+            logits = make_prefill(cfg, mesh, rules)(dp, tokens=placed_tokens)
         r["prefill"] = _full(logits)
-        comm["prefill"] = (tally.by_kind(),
-                           twin(cfg, "prefill", mesh, rules))
+        comm["prefill"], cost["prefill"] = held(
+            tally, twin(cfg, "prefill", mesh, rules))
         r["prefill_calls"] = calls
         r["prefill_routes"] = [ids.numpy() for ids, _ in log]
         with torch.no_grad(), sharding_ctx(mesh, rules):
@@ -427,32 +457,37 @@ def rank_work(rank: int, where: str) -> dict:
         r["shards"].update({f"state/{k}": _np(v.to_local())
                             for k, v in placed.items()})
         step = make_serve_step(cfg, mesh, rules)
-        state, logits = _state(data), []
+        state, logits = dict(placed, pos=POS0), []
         with shard_calls() as calls:
             for i in range(DECODE_STEPS):
-                with CollectiveTally() as tally:
-                    lg, state = step(dp, state, torch.from_numpy(
-                        data["decode_tokens"][:, i:i + 1]))
+                x, tallied = step_inputs(i, {"tokens": torch.from_numpy(
+                    data["decode_tokens"][:, i:i + 1])}, mesh, rules)
+                with tallied as tally:
+                    lg, state = step(dp, state, x["tokens"])
                 if i == 0:
-                    first = tally.by_kind()
+                    first = tally
                 logits.append(_full(lg))
         r["decode"] = np.stack(logits)
         r["decode_calls"] = calls
-        comm["decode"] = (first, twin(cfg, "decode", mesh, rules))
+        comm["decode"], cost["decode"] = held(
+            first, twin(cfg, "decode", mesh, rules))
         r["train"] = _train(cfg, mesh, rules, params, psh, data)
         comm["train"] = r["train"].pop("comm")
+        cost["train"] = r["train"].pop("cost")
         if arch == CHUNK_ARCH and case == "2x2":
             with ragged_chunks():
                 r["chunked"] = _train(cfg, mesh, rules, params, psh, data,
                                       loss_impl="chunked")
             comm["chunked"] = r["chunked"].pop("comm")
+            cost["chunked"] = r["chunked"].pop("cost")
         if arch == BF16_ARCH and case == "2x2":
             bp = distribute_tree(params_bf16(params), psh)
-            with routes() as log, CollectiveTally() as tally:
-                logits = make_prefill(cfg, mesh, rules)(bp, tokens=tokens)
+            with routes() as log, RankTally() as tally:
+                logits = make_prefill(cfg, mesh, rules)(bp,
+                                                        tokens=placed_tokens)
             r["bf16_prefill"] = _full(logits)
             r["bf16_routes"] = [ids.numpy() for ids, _ in log]
-            comm["bf16_prefill"] = (tally.by_kind(), twin(
+            comm["bf16_prefill"], cost["bf16_prefill"] = held(tally, twin(
                 cfg, "prefill", mesh, rules, dtype=None))
     return out
 
@@ -717,6 +752,19 @@ def test_twin_counts_the_collectives_each_rank_dispatches(runs, arch, case):
         for step, (measured, counted) in comm.items():
             assert measured == counted, (r[f"{arch}/{case}"]["coord"], step)
             assert sum(measured[0].values()) > 0, step
+
+
+@pytest.mark.parametrize("arch,case", RUNS)
+def test_twin_counts_the_flops_and_bytes_each_rank_runs(runs, arch, case):
+    """The same tallied steps: each rank's FLOPs and bytes accessed, by
+    the tally that counts the twin, equal the twin's (an MoE rank's route
+    on the whole batch included on both)."""
+    for r in runs["ranks"]:
+        got = r[f"{arch}/{case}"]
+        assert set(got["cost"]) == set(got["comm"])
+        for step, (measured, counted) in got["cost"].items():
+            assert measured == counted, (got["coord"], step)
+            assert measured[0] > 0 and measured[1] > 0, step
 
 
 def test_bf16_prefill_matches_the_unmeshed_bf16_prefill(runs):

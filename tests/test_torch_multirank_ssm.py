@@ -30,9 +30,12 @@ ranks restoring on one device; and the SSD boundary run around
 ``ssd_chunked(..., ssd_chunk)`` (the chunk's autograd Function with its
 plain backward inside ``local_map``), its gradients against the unmeshed
 ones; the collectives of the prefill, the first decode step and the first
-train step on each rank (``CollectiveTally``) equal, in calls and bytes by
-kind, the dry-run twin's count of the same step lowered on that rank's
-mesh (``Lowered.count_collectives``).
+train step on each rank equal, in calls and bytes by kind, the dry-run
+twin's count of the same step lowered on that rank's mesh
+(``Lowered.count``), and so do their FLOPs and bytes accessed, counted by
+the same tally (``roofline.trace.RankTally``) on the same step, its inputs
+placed before it as the twin's are; later steps take the global batch or
+tokens, as a caller gives them, and place them themselves.
 
 The ranks run in processes of their own (``launch.ranks.run_ranks``,
 spawned, one torch thread each); the JAX side runs in a subprocess with four
@@ -336,15 +339,34 @@ def _ssd_case(mesh, data) -> dict:
 
 
 def twin(cfg, kind: str, seq: int, mesh):
-    """The dry-run twin's collectives of a step of ``kind`` at (B, ``seq``)
-    on ``mesh`` under ``DEFAULT_RULES``, f32 params: (calls, bytes) by
-    kind, as ``CollectiveTally.by_kind`` gives a real step's."""
+    """The dry-run twin of a step of ``kind`` at (B, ``seq``) on ``mesh``
+    under ``DEFAULT_RULES``, f32 params, counted (``Lowered.count``)."""
     from repro_torch.launch.dryrun import lower_step
     from repro_torch.models.config import ShapeSpec
     from repro_torch.sharding import DEFAULT_RULES
-    c = lower_step(cfg, ShapeSpec(f"twin_{kind}", seq, B, kind), mesh,
-                   DEFAULT_RULES).count_collectives(torch.float32)
-    return c.counts, c.bytes_by_kind
+    return lower_step(cfg, ShapeSpec(f"twin_{kind}", seq, B, kind), mesh,
+                      DEFAULT_RULES).count(torch.float32)
+
+
+def held(tally, counted) -> tuple:
+    """A tallied step (``RankTally``) beside its twin's count: the
+    collectives' (calls, bytes) by kind and the (FLOPs, bytes accessed),
+    each a (measured, counted) pair."""
+    c = counted.collectives
+    return ((tally.by_kind(), (c.counts, c.bytes_by_kind)),
+            ((tally.flops, tally.bytes), (counted.flops, counted.bytes)))
+
+
+def step_inputs(i, inputs, mesh, rules):
+    """Step ``i``'s inputs and the tally around it: the first step's
+    placed before it, as the twin's are, under ``RankTally``; a later
+    step's global, as a caller gives them, for the step to place."""
+    from repro_torch.roofline.trace import RankTally
+    from repro_torch.sharding import distribute_inputs
+    if i:
+        return inputs, contextlib.nullcontext()
+    return distribute_inputs({k: v.contiguous() for k, v in inputs.items()},
+                             mesh, rules), RankTally()
 
 
 def _run_arch(arch, where, data, out) -> None:
@@ -355,7 +377,6 @@ def _run_arch(arch, where, data, out) -> None:
     from repro_torch.serve.serve_step import distribute_state
     from repro_torch.sharding import (DEFAULT_RULES, distribute_tree,
                                       shardings_for)
-    from repro_torch.sharding.collectives import CollectiveTally
     from repro_torch.sharding.rules import NamedSharding, P
     from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.train.optimizer import AdamWState
@@ -368,28 +389,34 @@ def _run_arch(arch, where, data, out) -> None:
         dp = distribute_tree(params, psh)
         r["shards"] = {f"param/{'/'.join(p)}": _np(t.to_local())
                        for p, t in tree_leaves(dp)}
-        comm = r["comm"] = {}            # step -> (measured, twin)
-        with shard_calls() as calls, CollectiveTally() as tally:
-            logits = make_prefill(cfg, mesh, DEFAULT_RULES)(
-                dp, tokens=torch.from_numpy(data["tokens"]))
+        # step -> (measured, twin); the tallied steps take their inputs
+        # placed, as the twin does
+        comm, cost = r["comm"], r["cost"] = {}, {}
+        x, tallied = step_inputs(0, {"tokens": torch.from_numpy(
+            data["tokens"])}, mesh, DEFAULT_RULES)
+        with shard_calls() as calls, tallied as tally:
+            logits = make_prefill(cfg, mesh, DEFAULT_RULES)(dp, **x)
         r["prefill"] = _full(logits)
         r["prefill_calls"] = calls
-        comm["prefill"] = (tally.by_kind(), twin(cfg, "prefill", S, mesh))
+        comm["prefill"], cost["prefill"] = held(
+            tally, twin(cfg, "prefill", S, mesh))
         placed = distribute_state(cfg, _state(cfg, arch, data), mesh,
                                   DEFAULT_RULES)
         r["shards"].update({f"state/{k}": _np(v.to_local())
                             for k, v in placed.items()})
         step = make_serve_step(cfg, mesh, DEFAULT_RULES)
-        state, logits = _state(cfg, arch, data), []  # the step places it
+        state, logits = dict(placed, pos=POS0), []
         with shard_calls() as calls:
             for i in range(DECODE_STEPS):
-                with CollectiveTally() as tally:
-                    lg, state = step(dp, state, torch.from_numpy(
-                        data["decode_tokens"][:, i:i + 1]))
+                x, tallied = step_inputs(i, {"tokens": torch.from_numpy(
+                    data["decode_tokens"][:, i:i + 1])}, mesh, DEFAULT_RULES)
+                with tallied as tally:
+                    lg, state = step(dp, state, x["tokens"])
                 if i == 0:
-                    first = tally.by_kind()
+                    first = tally
                 logits.append(_full(lg))
-        comm["decode"] = (first, twin(cfg, "decode", MAX_SEQ, mesh))
+        comm["decode"], cost["decode"] = held(
+            first, twin(cfg, "decode", MAX_SEQ, mesh))
         r["decode"], r["decode_calls"] = np.stack(logits), calls
         r["state_after"] = {k: _full(v) for k, v in state.items()
                             if k != "pos"}
@@ -399,11 +426,14 @@ def _run_arch(arch, where, data, out) -> None:
         o = init_state(p)
         losses, norms, calls = [], [], None
         for i in range(TRAIN_STEPS):
-            with shard_calls() as got, CollectiveTally() as tally:
-                p, o, m = train(p, o, _batch(data, i))
+            batch, tallied = step_inputs(i, _batch(data, i), mesh,
+                                         DEFAULT_RULES)
+            with shard_calls() as got, tallied as tally:
+                p, o, m = train(p, o, batch)
             calls = calls or got
             if i == 0:
-                comm["train"] = (tally.by_kind(), twin(cfg, "train", S, mesh))
+                comm["train"], cost["train"] = held(
+                    tally, twin(cfg, "train", S, mesh))
             losses.append(float(m["loss"].full_tensor()))
             norms.append(float(m["grad_norm"].full_tensor()))
         r["train"] = {
@@ -609,6 +639,18 @@ def test_twin_counts_the_collectives_each_rank_dispatches(runs, arch, mesh):
         for step, (measured, counted) in comm.items():
             assert measured == counted, (r[arch][mesh]["coord"], step)
             assert sum(measured[0].values()) > 0, step
+
+
+@pytest.mark.parametrize("arch,mesh", CASES)
+def test_twin_counts_the_flops_and_bytes_each_rank_runs(runs, arch, mesh):
+    """The same tallied steps: each rank's FLOPs and bytes accessed, by
+    the tally that counts the twin, equal the twin's."""
+    for r in runs["ranks"]:
+        got = r[arch][mesh]
+        assert set(got["cost"]) == set(got["comm"])
+        for step, (measured, counted) in got["cost"].items():
+            assert measured == counted, (got["coord"], step)
+            assert measured[0] > 0 and measured[1] > 0, step
 
 
 @pytest.mark.parametrize("arch,mesh", CASES)

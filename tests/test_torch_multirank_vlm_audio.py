@@ -39,9 +39,12 @@ params at 1e-3 of each leaf's largest magnitude (``_held_params``); audio's
 ``embed``, which ``inputs_embeds`` bypasses, gets a zero gradient at its
 own placements; the flash boundary ran the cross-attention on each rank's
 batch rows and heads, in prefill and in decode; each step's collectives on
-a rank (``CollectiveTally``) equal, in calls and bytes by kind, the
-dry-run twin's count of the same step lowered on that rank's mesh
-(``Lowered.count_collectives``).
+a rank equal, in calls and bytes by kind, the dry-run twin's count of the
+same step lowered on that rank's mesh (``Lowered.count``), and so do its
+FLOPs and bytes accessed, counted by the same tally
+(``roofline.trace.RankTally``) on the same step, its inputs placed before
+it as the twin's are; later steps take the global inputs, as a caller
+gives them, and place them themselves.
 
 Four ranks and one four-device JAX process start together, under the lock
 of the multi-rank test modules.
@@ -376,15 +379,41 @@ def _load_params(where, arch):
 
 
 def twin(cfg, kind: str, seq: int, mesh):
-    """The dry-run twin's collectives of a step of ``kind`` at (B, ``seq``)
-    on ``mesh`` under ``DEFAULT_RULES``, f32 params: (calls, bytes) by
-    kind, as ``CollectiveTally.by_kind`` gives a real step's."""
+    """The dry-run twin of a step of ``kind`` at (B, ``seq``) on ``mesh``
+    under ``DEFAULT_RULES``, f32 params, counted (``Lowered.count``); a
+    vlm decode state's image K / V in f32, as f32 params make them (the
+    lowered state's are bf16, as bf16 params make them)."""
     from repro_torch.launch.dryrun import lower_step
     from repro_torch.models.config import ShapeSpec
     from repro_torch.sharding import DEFAULT_RULES
-    c = lower_step(cfg, ShapeSpec(f"twin_{kind}", seq, B, kind), mesh,
-                   DEFAULT_RULES).count_collectives(torch.float32)
-    return c.counts, c.bytes_by_kind
+    low = lower_step(cfg, ShapeSpec(f"twin_{kind}", seq, B, kind), mesh,
+                     DEFAULT_RULES)
+    if kind == "decode" and cfg.family == "vlm":
+        params, state, x = low.args
+        low.args = (params, dict(state, img_kv=tuple(
+            t.float() for t in state["img_kv"])), x)
+    return low.count(torch.float32)
+
+
+def held(tally, counted) -> tuple:
+    """A tallied step (``RankTally``) beside its twin's count: the
+    collectives' (calls, bytes) by kind and the (FLOPs, bytes accessed),
+    each a (measured, counted) pair."""
+    c = counted.collectives
+    return ((tally.by_kind(), (c.counts, c.bytes_by_kind)),
+            ((tally.flops, tally.bytes), (counted.flops, counted.bytes)))
+
+
+def step_inputs(i, inputs, mesh, rules):
+    """Step ``i``'s inputs and the tally around it: the first step's
+    placed before it, as the twin's are, under ``RankTally``; a later
+    step's global, as a caller gives them, for the step to place."""
+    from repro_torch.roofline.trace import RankTally
+    from repro_torch.sharding import distribute_inputs
+    if i:
+        return inputs, contextlib.nullcontext()
+    return distribute_inputs({k: v.contiguous() for k, v in inputs.items()},
+                             mesh, rules), RankTally()
 
 
 def _run_arch(arch, where, data, out) -> None:
@@ -396,7 +425,6 @@ def _run_arch(arch, where, data, out) -> None:
     from repro_torch.sharding import (DEFAULT_RULES, distribute_inputs,
                                       distribute_tree, sharding_ctx,
                                       shardings_for)
-    from repro_torch.sharding.collectives import CollectiveTally
     from repro_torch.train.train_step import make_value_and_grad
     cfg = config(arch)
     params = _load_params(where, arch)
@@ -409,12 +437,16 @@ def _run_arch(arch, where, data, out) -> None:
                        for p, t in tree_leaves(dp)}
         prefill = make_prefill(cfg, mesh, DEFAULT_RULES)
         kw = _prefill_inputs(cfg, data)
-        comm = r["comm"] = {}            # step -> (measured, twin)
-        with shard_calls() as calls, CollectiveTally() as tally:
-            logits = prefill(dp, **kw)
+        # step -> (measured, twin); the tallied steps take their inputs
+        # placed, as the twin does
+        comm, cost = r["comm"], r["cost"] = {}, {}
+        x, tallied = step_inputs(0, kw, mesh, DEFAULT_RULES)
+        with shard_calls() as calls, tallied as tally:
+            logits = prefill(dp, **x)
         r["prefill"] = _full(logits)
         r["prefill_calls"] = calls
-        comm["prefill"] = (tally.by_kind(), twin(cfg, "prefill", S, mesh))
+        comm["prefill"], cost["prefill"] = held(
+            tally, twin(cfg, "prefill", S, mesh))
         if cfg.family == "vlm":
             r["prefill_no_image"] = _full(prefill(dp, tokens=kw["tokens"]))
         state = _state(cfg, arch, data, dp)
@@ -426,16 +458,19 @@ def _run_arch(arch, where, data, out) -> None:
         r["shards"].update({f"state/{k}": _np(placed[k].to_local())
                             for k in ("pos", "k", "v")})
         step = make_serve_step(cfg, mesh, DEFAULT_RULES)
-        logits = []
+        state, logits = dict(placed, pos=POS0), []
         with shard_calls() as calls:
             for i in range(DECODE_STEPS):
-                with CollectiveTally() as tally:
-                    lg, state = step(dp, state, **_step_input(cfg, data, i))
+                x, tallied = step_inputs(i, _step_input(cfg, data, i), mesh,
+                                         DEFAULT_RULES)
+                with tallied as tally:
+                    lg, state = step(dp, state, **x)
                 if i == 0:
-                    first = tally.by_kind()
+                    first = tally
                 logits.append(_full(lg))
         r["decode"], r["decode_calls"] = np.stack(logits), calls
-        comm["decode"] = (first, twin(cfg, "decode", MAX_SEQ, mesh))
+        comm["decode"], cost["decode"] = held(
+            first, twin(cfg, "decode", MAX_SEQ, mesh))
         if cfg.family == "audio":        # the embedding the frames bypass
             vg = make_value_and_grad(cfg, remat="full")
             batch = distribute_inputs(_batch(cfg, data, 0), mesh,
@@ -453,11 +488,14 @@ def _run_arch(arch, where, data, out) -> None:
         o = init_state(p)
         losses, norms, calls = [], [], None
         for i in range(TRAIN_STEPS):
-            with shard_calls() as got, CollectiveTally() as tally:
-                p, o, m = train(p, o, _batch(cfg, data, i))
+            batch, tallied = step_inputs(i, _batch(cfg, data, i), mesh,
+                                         DEFAULT_RULES)
+            with shard_calls() as got, tallied as tally:
+                p, o, m = train(p, o, batch)
             calls = calls or got
             if i == 0:
-                comm["train"] = (tally.by_kind(), twin(cfg, "train", S, mesh))
+                comm["train"], cost["train"] = held(
+                    tally, twin(cfg, "train", S, mesh))
             losses.append(float(m["loss"].full_tensor()))
             norms.append(float(m["grad_norm"].full_tensor()))
         r["train"] = {
@@ -671,6 +709,18 @@ def test_twin_counts_the_collectives_each_rank_dispatches(runs, arch, mesh):
         for step, (measured, counted) in comm.items():
             assert measured == counted, (r[arch][mesh]["coord"], step)
             assert sum(measured[0].values()) > 0, step
+
+
+@pytest.mark.parametrize("arch,mesh", CASES)
+def test_twin_counts_the_flops_and_bytes_each_rank_runs(runs, arch, mesh):
+    """The same tallied steps: each rank's FLOPs and bytes accessed, by
+    the tally that counts the twin, equal the twin's."""
+    for r in runs["ranks"]:
+        got = r[arch][mesh]
+        assert set(got["cost"]) == set(got["comm"])
+        for step, (measured, counted) in got["cost"].items():
+            assert measured == counted, (got["coord"], step)
+            assert measured[0] > 0 and measured[1] > 0, step
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))

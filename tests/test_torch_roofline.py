@@ -224,8 +224,8 @@ def test_grouped_conv_backward_is_counted_at_twice_its_forward(groups):
 def test_reduced_config_traces_without_collectives_on_one_device():
     """A 1 x 1 mesh moves nothing; on the production mesh one rank's train
     step all-gathers its FSDP params, reduce-scatters their gradients and
-    all-reduces partial products, whichever trace the ``Compiled``
-    reuses (the count runs the step again, as a rank)."""
+    all-reduces partial products: ``compile()`` there runs the step as a
+    rank, and a second count of it (``Lowered.count``) agrees."""
     from repro_torch.launch.mesh import abstract_mesh
     from repro_torch.models.config import ShapeSpec
     from repro_torch.train.train_step import lower_train_step
@@ -235,9 +235,9 @@ def test_reduced_config_traces_without_collectives_on_one_device():
                            DEFAULT_RULES).compile()
     assert one.collectives().counts == {}
     low = lower_train_step(cfg, shape, abstract_mesh(), DEFAULT_RULES)
-    pod = low.compile(one.trace)
+    pod = low.compile()
     counts = pod.collectives().counts
     assert {"all-gather", "reduce-scatter", "all-reduce"} <= set(counts)
     assert all(n > 0 for n in counts.values())
-    assert pod.collectives() == low.count_collectives()
+    assert pod.collectives() == low.count().collectives
     assert "all-reduce" in pod.as_text()
