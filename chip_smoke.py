@@ -3154,7 +3154,8 @@ def twin_of(cfg, shape, mesh, rules) -> dict:
     ``mesh2_comm`` gives a real step's, and what it predicts for this
     rank: FLOPs, bytes accessed, temp and bytes per device (argument +
     temp + output - alias), and the roofline's ms of its compute and
-    memory terms (H100 SXM constants)."""
+    memory terms (H100 SXM constants); and the shapes of its allocations
+    as wide as the vocab (``vocab_wide``: the loss's blocks)."""
     from repro_torch.launch.dryrun import compile_step, lower_step, period
     from repro_torch.roofline.analysis import HBM_BW, PEAK_FLOPS
     c = (compile_step(cfg, shape, mesh, rules, "full")
@@ -3163,6 +3164,8 @@ def twin_of(cfg, shape, mesh, rules) -> dict:
     coll, cost, mem = c.collectives(), c.cost_analysis(), c.memory_analysis()
     flops, nbytes = cost["flops"], cost["bytes accessed"]
     return {"counts": coll.counts, "bytes": coll.bytes_by_kind,
+            "vocab_wide": sorted(t for t in c.trace.shapes
+                                 if len(t) > 1 and t[-1] == cfg.vocab),
             "predicted": {
                 "flops": flops, "bytes_accessed": nbytes,
                 "temp_bytes": mem.temp_size_in_bytes,
@@ -3646,6 +3649,9 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
         "twin_collectives": twin_held(ranks),
         **route_checks,
     }
+    if (trains and cfg.vocab % MESH2_SHAPE[1] == 0
+            and cfg.vocab != cfg.d_model):
+        checks["train_twin_vocab_split"] = vocab_split_held(cfg, ranks)
     if trains:
         checks.update({
             "first_loss_within_floor": gaps["first_loss"]
@@ -3716,6 +3722,7 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
                    for r in ranks],
              twin_s_by_rank=[r["twin_s"] for r in ranks],
              predicted_by_rank=[r["twin"][kind]["predicted"] for r in ranks],
+             vocab_wide=ranks[0]["twin"][kind]["vocab_wide"],
              ms_by_rank=[r["ms"].get(kind) for r in ranks],
              peak_gb_by_rank=[r["peak_gb"] for r in ranks])
     emit("mesh2", **out)
@@ -3725,6 +3732,20 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
              "per_decode_step": per[0]["decode"],
              "per_train_step": per[0]["train"]},
             [k for k, v in checks.items() if not v])
+
+
+def vocab_split_held(cfg, ranks: list) -> bool:
+    """Whether no rank's train twin allocates a tensor of the global
+    logits' shape, (B, S, V) or (B S, V), nor of a data rank's vocab-whole
+    one, (B / data, S, V) or (B S / data, V): the loss
+    (``kernels._local.vocab_on_shards``) takes each rank's block.  Held
+    where "model" splits the vocab and V is not the model's width (there
+    an activation has the shape)."""
+    data = MESH2_SHAPE[0]
+    wide = {(b, TRAIN_S, cfg.vocab) for b in (TRAIN_B, TRAIN_B // data)}
+    wide |= {(b * TRAIN_S, cfg.vocab) for b in (TRAIN_B, TRAIN_B // data)}
+    return all(not wide & set(map(tuple, r["twin"]["train"]["vocab_wide"]))
+               for r in ranks)
 
 
 def twin_held(ranks: list) -> bool:

@@ -20,7 +20,10 @@ row gather; and a route must see the whole batch to drop the tokens one
 device drops.  Decode attention over a cache whose sequence is split
 (``seq_on_shards``) keeps the cache where it is and combines each rank's
 partial attention over its own positions (flash-decoding's split-KV
-reduction).
+reduction).  The loss (``vocab_on_shards``) keeps the logits where they
+are too: each rank takes its own block of the vocab and the rows'
+statistics are combined across ranks (Megatron's vocab-parallel
+cross-entropy).
 
 Gradients: a weight or KV head that every local shard reads sums its
 gradient over those shards, so it leaves the local kernel as ``Partial()``
@@ -28,8 +31,9 @@ over each mesh dimension that splits them (RMSNorm's ``dw`` over the
 sharded rows; K and V where the KV heads are replicated and each rank reads
 its own group's; the SSD's B and C, which every head reads, over the
 heads' mesh dimension; the convolution's weight over the batch's; the
-experts' tokens and weights over the capacity's).  ``shard_calls()``
-records each boundary call's local operand shapes.
+experts' tokens and weights over the capacity's, and their tokens over
+the ``ffn`` width's).  ``shard_calls()`` records each boundary call's
+local operand shapes.
 """
 from __future__ import annotations
 
@@ -241,6 +245,61 @@ def seq_on_shards(name: str, fn: Callable, q, k, v, kv_len):
     return out.to(q.dtype).redistribute(mesh, heads)
 
 
+def vocab_on_shards(name: str, logits, labels, base: int = 0):
+    """The rows' statistics of a cross-entropy over ``logits`` (..., V), a
+    DTensor whose vocab may be split across ranks, the vocab never
+    gathered (Megatron's vocab-parallel cross-entropy): ``(m, s, gold)``,
+    each f32 of ``labels``' shape, m the rows' max, s the sum of exp(l -
+    m) and gold the logit of column ``labels - base`` (0 where that column
+    is none of the logits': a chunk's other labels).  Per mesh dimension:
+    one that splits the vocab gives each rank its own columns; one that
+    splits a leading dimension splits the labels' alike; any other is
+    gathered.  Inside the local step each
+    rank takes its columns' row max, all-reduced (max, no gradient) over
+    the vocab's mesh dimensions, and its block's sum and gold logit (0 for
+    a label outside the block), which leave it as ``Partial()`` over those
+    dimensions and are summed.  The logits' gradient comes back on each
+    rank's block, at the logits' placements."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = logits.device_mesh
+    last = logits.ndim - 1
+    lp, yp, sp, vocab_dims = [], [], [], []    # logits', labels', sums'
+    for m, p in enumerate(logits.placements):
+        d = _shard_dim(p, logits.ndim)
+        if d == last:
+            place = (Shard(last), Replicate(), Partial())
+            vocab_dims.append(m)
+        elif d is not None:
+            place = (Shard(d),) * 3
+        else:
+            place = (Replicate(),) * 3
+        for placements, q in zip((lp, yp, sp), place):
+            placements.append(q)
+    lp, yp, sp = map(tuple, (lp, yp, sp))
+    mp = tuple(Replicate() if m in vocab_dims else p
+               for m, p in enumerate(sp))
+    _, offset = compute_local_shape_and_global_offset(logits.shape, mesh, lp)
+    first = base + offset[-1]
+    groups = [mesh.get_group(m) for m in vocab_dims]
+
+    def local(lg, y):
+        lg = lg.float()
+        n = lg.shape[-1]
+        top = lg.detach().amax(-1)
+        for g in groups:
+            dist.all_reduce(top, op=dist.ReduceOp.MAX, group=g)
+        s = torch.exp(lg - top[..., None]).sum(-1)
+        col = y.long() - first
+        gold = torch.gather(lg, -1, col.clamp(0, n - 1)[..., None])[..., 0]
+        return top, s, torch.where((col >= 0) & (col < n), gold, 0.0)
+    top, s, gold = _on_shards(name, local, mesh, (mp, sp, sp),
+                              (logits, labels), (lp, yp), (lp, yp))
+    return top, _summed(s), _summed(gold)
+
+
 def _trailing(fn: Callable, t):
     """(the operands ``t`` adds, the local function): ``[t]`` and ``fn``
     where ``t`` is given, else none and ``fn`` with None as its last
@@ -324,15 +383,19 @@ def experts_on_shards(gate: Callable, experts: Callable, h, router, w_gate,
       rank (the router's is sliced back to its shards by the step);
     * the experts: ``experts(h, top_p, top_i, w_gate, w_up, w_down, e0, c0,
       Cl)`` on this rank's experts ``[e0, e0 + El)`` (the mesh dimensions
-      that split the weights' experts keep them split; everything else of
-      the weights, the FSDP axis, is gathered) and its capacity rows ``[c0,
-      c0 + Cl)`` (the mesh dimensions where ``eh_placements``, the rules'
-      placements of the (E, C, d) dispatch buffer, split the capacity and
-      not the experts).  Its ``out`` is ``Partial()`` over each mesh
-      dimension that splits the experts or the capacity, as are the
+      that split the weights' experts keep them split), its columns of the
+      ``ffn`` width (a mesh dimension that splits w_gate's / w_up's ``ffn``
+      dim 2 and w_down's dim 1, and not the experts, keeps that split: the
+      rules give "model" to ``ffn`` where it cannot split the experts, as
+      the reference's do; everything else of the weights, the FSDP axis,
+      is gathered) and its capacity rows ``[c0, c0 + Cl)`` (the mesh
+      dimensions where ``eh_placements``, the rules' placements of the (E,
+      C, d) dispatch buffer, split the capacity and neither the experts
+      nor ``ffn``).  Its ``out`` is ``Partial()`` over each mesh dimension
+      that splits the experts, ``ffn`` or the capacity, as are the
       gradients of h and top_p; each weight's gradient is partial over a
-      mesh dimension that splits the capacity and keeps its expert
-      shards."""
+      mesh dimension that splits the capacity and keeps its expert and
+      ``ffn`` shards."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor._utils import (
         compute_local_shape_and_global_offset)
@@ -343,23 +406,30 @@ def experts_on_shards(gate: Callable, experts: Callable, h, router, w_gate,
     top_p, top_i, aux = _on_shards("moe_route", gate, mesh,
                                    (whole, whole, whole), (hr, router),
                                    (whole, whole), (whole, whole))
-    split, wp, wg, outp = [], [], [], []       # buffer, weights, grads, out
+    # per mesh dimension: the buffer's, w_gate / w_up's and their grads',
+    # w_down's and its grad's, out's
+    split, wp, wg, dp, dg, outp = [], [], [], [], [], []
     for m in range(mesh.ndim):
         if _shard_dim(w_gate.placements[m], w_gate.ndim) == 0:
-            place = (Shard(0), Shard(0), Shard(0), Partial())
+            place = (Shard(0),) * 5 + (Partial(),)
+        elif (_shard_dim(w_gate.placements[m], w_gate.ndim) == 2
+              and _shard_dim(w_down.placements[m], w_down.ndim) == 1):
+            place = (Replicate(), Shard(2), Shard(2), Shard(1), Shard(1),
+                     Partial())
         elif _shard_dim(eh_placements[m], 3) == 1:
-            place = (Shard(1), Replicate(), Partial(), Partial())
+            place = (Shard(1), Replicate(), Partial(), Replicate(),
+                     Partial(), Partial())
         else:
-            place = (Replicate(),) * 4
-        for placements, q in zip((split, wp, wg, outp), place):
+            place = (Replicate(),) * 6
+        for placements, q in zip((split, wp, wg, dp, dg, outp), place):
             placements.append(q)
-    split, wp, wg, outp = map(tuple, (split, wp, wg, outp))
+    split, wp, wg, dp, dg, outp = map(tuple, (split, wp, wg, dp, dg, outp))
     (El, Cl, _), (e0, c0, _) = compute_local_shape_and_global_offset(
         (E, C, d), mesh, split)
     if _CALLS is not None:                     # the dispatch buffer's block
         _CALLS.append(("moe_buffer", ((El, Cl, d),)))
     out = _on_shards("moe_experts", experts, mesh, (outp,),
                      (hr, top_p, top_i, w_gate, w_up, w_down),
-                     (whole, whole, whole, wp, wp, wp),
-                     (outp, outp, whole, wg, wg, wg), args=(e0, c0, Cl))
+                     (whole, whole, whole, wp, wp, dp),
+                     (outp, outp, whole, wg, wg, dg), args=(e0, c0, Cl))
     return out, aux

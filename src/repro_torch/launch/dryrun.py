@@ -49,6 +49,7 @@ import json
 import sys
 import time
 import traceback
+from collections import Counter
 from pathlib import Path
 
 from ..configs import CONFIGS, SHAPES, get_config
@@ -165,7 +166,9 @@ def run_cell(arch: str, shape_name: str, mesh_name: str,
     collectives from those two runs, its memory analysis on the full-depth
     arguments' shardings, and the roofline.  ``explain``: print the run in
     words (``Compiled.as_text``: the 3p count's, on one device the global
-    trace's)."""
+    trace's) and the local operand shapes of its kernel boundary calls
+    (``kernels._local.shard_calls``, both depths' runs)."""
+    from ..kernels._local import shard_calls
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     if shape_name in cfg.skip_shapes:
@@ -179,14 +182,18 @@ def run_cell(arch: str, shape_name: str, mesh_name: str,
     micro = micro_for(variant)
     t0 = time.time()
     try:
-        pair = (shallow_pair(cfg, shape, mesh, rules, remat, loss_impl,
-                             micro)
-                if chips > 1 and cfg.n_layers > depths(cfg)[1] else None)
-        compiled = compile_step(cfg, shape, mesh, rules, remat, loss_impl,
-                                micro, pair)
+        with shard_calls() as calls:
+            pair = (shallow_pair(cfg, shape, mesh, rules, remat, loss_impl,
+                                 micro)
+                    if chips > 1 and cfg.n_layers > depths(cfg)[1] else None)
+            compiled = compile_step(cfg, shape, mesh, rules, remat,
+                                    loss_impl, micro, pair)
         count_s = time.time() - t0
         if explain:
             print((pair[1] if pair else compiled).as_text(), flush=True)
+            print("kernel boundary calls (local operand shapes; calls):")
+            for (name, shapes), n in Counter(calls).most_common():
+                print(f"  {name} {[list(t) for t in shapes]}: {n}")
         cost = compiled.cost_analysis()
         mem = compiled.memory_analysis()
         mem_stats = {}

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .. import is_dtensor
 from ..kernels import flash_attention, rmsnorm
+from ..kernels._local import vocab_on_shards
 from ..sharding.context import carried, constrain, replicated_like, whole
 from ..sharding.rules import CACHE_AXES, INPUT_AXES, distribute_inputs
 from .config import ModelConfig
@@ -405,13 +406,18 @@ def decode_step(params, cfg: ModelConfig, state, tokens=None, *,
 # ------------------------------------------------------------------- loss
 
 def lm_loss(logits, labels, aux=None, aux_weight: float = 0.01):
-    """Token cross-entropy (f32) + optional MoE aux loss.  Vocab-sharded
-    DTensor logits are gathered along the vocab first (in their own type),
-    so the log-sum-exp and the label's column are local to each row."""
-    logits = whole(logits, -1).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    loss = (logz - gold).mean()
+    """Token cross-entropy (f32) + optional MoE aux loss.  DTensor logits
+    go through ``vocab_on_shards``: each rank reads its own block of the
+    vocab, whose rows' maxima, sums and gold logits the ranks combine, and
+    takes the logits' gradient on that block."""
+    if is_dtensor(logits):
+        m, s, gold = vocab_on_shards("lm_loss", logits, labels)
+        loss = (torch.log(s) + m - gold).mean()
+    else:
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        loss = (logz - gold).mean()
     if aux is not None:
         loss = loss + aux_weight * aux / 1.0
     return loss
@@ -424,10 +430,12 @@ def lm_loss_chunked(x, params, cfg: ModelConfig, labels, aux=None,
     chunk runs under a checkpoint, so the backward recomputes it.  The last
     chunk's columns past V score -1e30, as JAX's zero-padded head masked to
     -1e30 does; the head is sliced per chunk instead of padded whole.
-    Across ranks each chunk's logits are gathered along the vocab
-    (``whole``, as ``lm_loss`` does) and the running statistics take the
-    labels' placements, the batch's: DTensor chunks meet DTensor
-    accumulators."""
+    Across ranks each chunk goes through ``vocab_on_shards``, as
+    ``lm_loss`` does (each rank's own columns of the chunk, never
+    gathered), and its statistics fold into the running ones, which take
+    the labels' placements, the batch's; the padding is left out there,
+    where each of its columns would add exp(-1e30 - m) = 0 to the sum and
+    is never the max or a label."""
     head = _head(params, cfg)
     V = head.shape[-1]
     nb = -(-V // vocab_chunk)
@@ -435,7 +443,13 @@ def lm_loss_chunked(x, params, cfg: ModelConfig, labels, aux=None,
 
     def body(m, s, gold, i):
         base = i * vocab_chunk
-        lg = whole(x @ head[:, base:base + vocab_chunk], -1).float()
+        lg = x @ head[:, base:base + vocab_chunk]
+        if is_dtensor(lg):
+            mc, sc, gc = vocab_on_shards("lm_loss_chunk", lg, labels, base)
+            m_new = torch.maximum(m, mc)
+            s = s * torch.exp(m - m_new) + sc * torch.exp(mc - m_new)
+            return m_new, s, gold + gc
+        lg = lg.float()
         if lg.shape[-1] < vocab_chunk:
             lg = torch.nn.functional.pad(
                 lg, (0, vocab_chunk - lg.shape[-1]), value=-1e30)

@@ -156,6 +156,20 @@ class _Tally(TorchDispatchMode):
                               reverse=True)[:top]
         return peak
 
+    def largest(self, top: int = 8) -> list:
+        """The ``top`` largest allocations of the run, live at the peak or
+        not: (bytes, op, shape), one an (op, shape)."""
+        most: dict = {}
+        for serial, n in self.events:
+            if n > 0:
+                key = self.made[serial]
+                most[key] = max(n, most.get(key, 0))
+        return sorted(((n, *k) for k, n in most.items()), reverse=True)[:top]
+
+    def shapes(self) -> frozenset:
+        """The shapes of every allocation of the run."""
+        return frozenset(shape for _, shape in self.made.values())
+
     def count(self, func, args, kwargs, out, moves: bool = True) -> None:
         """Tally one op that ran: its call, the storage it read, its bytes
         (``moves``: a collective's tensors move no bytes here) and the
@@ -369,6 +383,8 @@ class Trace:
     seconds: float = 0.0
     collectives: CollectiveStats = field(default_factory=CollectiveStats)
     at_peak: list = field(default_factory=list)  # (bytes, op, shape)
+    largest: list = field(default_factory=list)  # of the run, ditto
+    shapes: frozenset = frozenset()  # of every allocation
 
 
 @dataclass
@@ -431,7 +447,8 @@ class Lowered:
                      op_bytes=tally.op_bytes, op_flops=dict(tally.op_flops),
                      seconds=seconds,
                      collectives=CollectiveStats(counts, nbytes),
-                     at_peak=tally.at_peak)
+                     at_peak=tally.at_peak, largest=tally.largest(),
+                     shapes=tally.shapes())
 
     def trace(self) -> Trace:
         """Run the global step (built with ``trace=True``) once on its
@@ -457,7 +474,8 @@ class Lowered:
                      ops=tally.calls, op_bytes=tally.op_bytes,
                      op_flops=dict(by_op),
                      seconds=time.perf_counter() - t0,
-                     at_peak=tally.at_peak)
+                     at_peak=tally.at_peak, largest=tally.largest(),
+                     shapes=tally.shapes())
 
     def compile(self, trace: Optional[Trace] = None) -> "Compiled":
         """The compiled stand-in: the global trace on one device, one
@@ -527,7 +545,8 @@ def extrapolate_trace(c1: "Compiled", c2: "Compiled", lowered: Lowered,
         outputs=_deepen(t1.outputs, t2.outputs, c1.lowered.args,
                         c2.lowered.args, lowered.args),
         unused=t1.unused & t2.unused, seconds=t1.seconds + t2.seconds,
-        collectives=coll, at_peak=t2.at_peak)
+        collectives=coll, at_peak=t2.at_peak, largest=t2.largest,
+        shapes=t2.shapes)
 
 
 class Compiled:
@@ -602,6 +621,9 @@ class Compiled:
             lines.append(f"  {op}: {n:.6g} ({t.ops[op]})")
         lines.append("largest allocations live at the temp peak:")
         for n, op, shape in t.at_peak:
+            lines.append(f"  {op} {list(shape)}: {n} bytes")
+        lines.append("largest allocations of the run:")
+        for n, op, shape in t.largest:
             lines.append(f"  {op} {list(shape)}: {n} bytes")
         lines.append("collectives per device:")
         for kind in sorted(coll.counts):

@@ -244,6 +244,53 @@ def test_run_cell_on_both_production_meshes(arch, small_dryrun):
                 assert row["memory"]["argument_size_in_bytes"] == want
 
 
+@pytest.mark.parametrize("loss_impl", ["dense", "chunked"])
+def test_rank_step_keeps_the_vocab_split(small_dryrun, loss_impl):
+    """Reduced qwen3-1.7b's train step on the 16 x 16 mesh (vocab 256 over
+    16 "model" ranks, B 32 over 16 "data" ranks), counted on one rank:
+    under the dense loss and the chunked one, no allocation has the
+    global (B, S, V) shape or the vocab-whole (B / 16, S, V) shape, and
+    none of the run's largest is a logits block wider than the rank's."""
+    cfg = reduced_config("qwen3-1.7b")
+    shape = SMALL_SHAPES["train_4k"]
+    B, S, V = shape.global_batch, shape.seq_len, cfg.vocab
+    c = small_dryrun.compile_step(
+        cfg, shape, small_dryrun.mesh_for("single"),
+        small_dryrun.rules_for("qwen3-1.7b", "train_4k"), "full", loss_impl)
+    assert not {(B, S, V), (B // 16, S, V)} & c.trace.shapes
+    assert (B // 16, S, V // 16) in c.trace.shapes
+    assert c.trace.largest and all(
+        shape[-1] != V for _, _, shape in c.trace.largest)
+
+
+def test_rank_runs_its_share_of_experts_model_cannot_split(small_dryrun):
+    """granite with 40 experts (reduced widths, d_ff 64) on the 16 x 16
+    mesh: 16 "model" ranks do not divide the experts, so the rules split
+    their ffn width there, as the reference's do, and one rank's counted
+    train step runs every MoE layer's experts on (40, d, 64 / 16)
+    weights (the FSDP axis gathered) over the whole dispatch buffer."""
+    from repro_torch.kernels._local import shard_calls
+    from repro_torch.models.moe import capacity
+    cfg = dataclasses.replace(reduced_config("granite-moe-3b-a800m"),
+                              n_experts=40)
+    shape = SMALL_SHAPES["train_4k"]
+    d, f, E, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k
+    T = shape.global_batch * shape.seq_len
+    C = capacity(cfg, T)
+    with shard_calls() as calls:
+        small_dryrun.compile_step(
+            cfg, shape, small_dryrun.mesh_for("single"),
+            small_dryrun.rules_for("granite-moe-3b-a800m", "train_4k"),
+            "full")
+    experts = [shapes for name, shapes in calls if name == "moe_experts"]
+    buffers = [shapes for name, shapes in calls if name == "moe_buffer"]
+    # each layer's forward and its recompute
+    assert len(experts) == len(buffers) == 2 * cfg.n_layers
+    assert set(experts) == {((T, d), (T, k), (T, k), (E, d, f // 16),
+                             (E, d, f // 16), (E, f // 16, d))}
+    assert set(buffers) == {((E, C, d),)}
+
+
 def test_cli_resumes_and_force_recomputes(small_dryrun, tmp_path, capsys):
     out = tmp_path / "dryrun_results.json"
     argv = ["--arch", "qwen3-1.7b", "--shape", "decode_32k", "--mesh",
@@ -269,7 +316,9 @@ def test_cli_resumes_and_force_recomputes(small_dryrun, tmp_path, capsys):
 def test_cli_explains_a_cell(small_dryrun, tmp_path, capsys):
     """``--explain`` prints each cell's rank step in words beside its row:
     the ops that lead its FLOPs and bytes, what is live at its temp peak,
-    its collectives."""
+    its largest allocations, its collectives, and its kernel boundary
+    calls' local shapes (the loss on the rank's (B / 16, S, V / 16)
+    logits block, once: reduced qwen3-1.7b is counted at its depth)."""
     out = tmp_path / "dryrun_results.json"
     assert small_dryrun.main(["--arch", "qwen3-1.7b", "--shape", "train_4k",
                               "--explain", "--out", str(out)]) == 0
@@ -277,6 +326,9 @@ def test_cli_explains_a_cell(small_dryrun, tmp_path, capsys):
     assert "train step on 256 device(s), one rank's step" in printed
     for part in ("FLOPs by op:", "bytes by op (calls):",
                  "largest allocations live at the temp peak:",
+                 "largest allocations of the run:",
+                 "kernel boundary calls (local operand shapes; calls):",
+                 "  lm_loss [[2, 64, 16], [2, 64]]: 1",
                  "collectives per device:", "  all-gather: "):
         assert part in printed, part
     assert json.loads(out.read_text())[0]["status"] == "ok"

@@ -402,6 +402,42 @@ def held(tally, counted) -> tuple:
             ((tally.flops, tally.bytes), (counted.flops, counted.bytes)))
 
 
+def _made(tally) -> set:
+    """The shapes of the storage a tallied step allocated."""
+    return {shape for _, shape in tally.made.values()}
+
+
+def _loss_on_blocks(cfg, params, mesh, batch) -> dict:
+    """``lm_loss`` and its gradient on the placed logits of a forward
+    (``remat="none"``, no grad), under ``RankTally``: the loss, the
+    gradient (gathered) and its placements beside the logits', the
+    local shapes the boundary took, the largest allocation (bytes) and
+    the shapes allocated; and the same loss and gradient on one device
+    from the gathered logits."""
+    from repro_torch.kernels._local import shard_calls
+    from repro_torch.models.transformer import forward, lm_loss
+    from repro_torch.roofline.trace import RankTally
+    from repro_torch.sharding import (DEFAULT_RULES, distribute_inputs,
+                                      sharding_ctx)
+    batch = distribute_inputs(batch, mesh, DEFAULT_RULES)
+    with torch.no_grad(), sharding_ctx(mesh, DEFAULT_RULES):
+        logits, _ = forward(params, cfg, batch["tokens"], remat="none")
+    logits = logits.detach().requires_grad_(True)
+    labels = batch["labels"]
+    with shard_calls() as calls, RankTally(
+            known=(logits.to_local(), labels.to_local())) as tally:
+        loss = lm_loss(logits, labels)
+        (grad,) = torch.autograd.grad(loss, logits)
+    whole = logits.full_tensor().detach().requires_grad_(True)
+    plain = lm_loss(whole, labels.full_tensor())
+    (plain_grad,) = torch.autograd.grad(plain, whole)
+    return {"loss": float(loss.full_tensor()), "plain_loss": float(plain),
+            "grad": _full(grad), "plain_grad": _np(plain_grad),
+            "placements": (grad.placements, logits.placements),
+            "local": tuple(grad.to_local().shape), "calls": calls,
+            "largest": max(n for _, n in tally.events), "made": _made(tally)}
+
+
 def step_inputs(i, inputs, mesh, rules):
     """Step ``i``'s inputs and the tally around it: the first step's
     placed before it, as the twin's are, under ``RankTally``; a later
@@ -445,6 +481,7 @@ def rank_work(rank: int, where: str) -> dict:
         # step -> (measured, twin); the tallied steps take their inputs
         # placed, as the twin does
         comm, cost = r["comm"], r["cost"] = {}, {}
+        made = r["made"] = {}
         inputs, tallied = step_inputs(0, {"tokens": torch.from_numpy(
             data["tokens"])}, mesh, DEFAULT_RULES)
         with shard_calls() as calls, tallied as tally:
@@ -473,6 +510,7 @@ def rank_work(rank: int, where: str) -> dict:
             logits.append(_full(lg))
         r["decode"] = np.stack(logits)
         r["pos_is_dtensor"] = isinstance(state["pos"], DTensor)
+        r["loss_block"] = _loss_on_blocks(cfg, dp, mesh, _batch(data, 0))
         for remat in TRAIN[name]:
             train = make_train_step(cfg, AdamWConfig(**OPT), mesh,
                                     DEFAULT_RULES, remat=remat)
@@ -488,6 +526,7 @@ def rank_work(rank: int, where: str) -> dict:
                 if i == 0:
                     comm[f"train/{remat}"], cost[f"train/{remat}"] = held(
                         tally, twin(cfg, "train", S, mesh, remat=remat))
+                    made[f"train/{remat}"] = _made(tally)
                 losses.append(float(m["loss"].full_tensor()))
                 norms.append(float(m["grad_norm"].full_tensor()))
             r[f"train/{remat}"] = {
@@ -510,11 +549,13 @@ def rank_work(rank: int, where: str) -> dict:
             for i in range(CHUNK_STEPS):
                 batch, tallied = step_inputs(i, _batch(data, i), mesh,
                                              DEFAULT_RULES)
-                with tallied as tally:
+                with shard_calls() as got, tallied as tally:
                     cp, co, m = train(cp, co, batch)
                 if i == 0:
                     comm["chunked"], cost["chunked"] = held(tally, twin(
                         cfg, "train", S, mesh, loss_impl="chunked"))
+                    made["chunked"] = _made(tally)
+                    r["chunked"]["calls"] = got
                 r["chunked"]["loss"].append(float(m["loss"].full_tensor()))
                 r["chunked"]["grad_norm"].append(
                     float(m["grad_norm"].full_tensor()))
@@ -785,6 +826,45 @@ def test_chunked_loss_across_ranks_matches_jax_and_dense(runs):
         for k in ("loss", "grad_norm"):
             _close(got[k], jx[f"2x2/chunked/{k}"], TOL, f"{k} vs JAX")
             _close(got[k], dense[k][:CHUNK_STEPS], TOL, f"{k} vs dense")
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_loss_runs_on_each_ranks_block_of_the_logits(runs, mesh):
+    """The loss never gathers the vocab: no tallied train step (each
+    remat, on the 2x2 mesh the chunked loss's too) allocates a tensor of
+    the global (B, S, V) shape or the vocab-whole (B / data, S, V) shape
+    (the chunked loss: nor a vocab-whole chunk); the loss boundary took
+    each rank's (B / data, S, V / model) block (a chunk's columns split
+    alike); the loss alone, forward and backward, allocates at most the
+    rank's f32 logits block at a time, gives the logits' gradient on
+    that block at the logits' placements, and its loss and gradient lie
+    at 1e-4 of the loss on the gathered logits."""
+    cfg = runs["cfg"]
+    data, model = MESHES[mesh]
+    V = cfg.vocab
+    block = (B // data, S, V // model)
+    vocab_whole = {(B, S, V), (B // data, S, V)}
+    for r in runs["ranks"]:
+        got = r[mesh]
+        for step in [f"train/{remat}" for remat in TRAIN[mesh]]:
+            assert not vocab_whole & got["made"][step], step
+            assert ("lm_loss", (block, block[:2])) in got[step]["calls"]
+        if mesh == "2x2":
+            assert not vocab_whole & got["made"]["chunked"]
+            assert not {(B, S, VOCAB_CHUNK), (B // data, S, VOCAB_CHUNK)} \
+                & got["made"]["chunked"]
+            chunks = [shapes for name, shapes in got["chunked"]["calls"]
+                      if name == "lm_loss_chunk"]
+            widths = [VOCAB_CHUNK] * (V // VOCAB_CHUNK) + [V % VOCAB_CHUNK]
+            assert set(chunks) == {((B // data, S, w // model), block[:2])
+                                   for w in widths}
+        lb = got["loss_block"]
+        assert not vocab_whole & lb["made"]
+        assert lb["local"] == block
+        assert lb["placements"][0] == lb["placements"][1]
+        assert lb["largest"] <= 4 * B // data * S * V // model
+        _close(lb["loss"], lb["plain_loss"], TOL, "loss vs gathered")
+        _close(lb["grad"], lb["plain_grad"], TOL, "grad vs gathered")
 
 
 def test_cuda_launchers_refuse_dtensors(runs):
