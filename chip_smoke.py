@@ -442,6 +442,17 @@ def rmsnorm_case(rows, d, dtype, gen, flush, timed):
     return r
 
 
+# Flash at the GQA groups of the dense configs no path runs on the card,
+# forward and backward, hd 128, causal: qwen2.5-14b (H 40, KV 8: group 5;
+# its train shape timed in bf16), mistral-large-123b (96 / 8: group 12),
+# llama3-405b (128 / 8: group 16), and a ragged group 5.
+GQA_WIDE_CASES = [((4, 1024, 1024, 40, 8, 128), True, 0, (torch.bfloat16,)),
+                  ((1, 1024, 1024, 40, 8, 128), True, 0, ()),
+                  ((1, 1024, 1024, 96, 8, 128), True, 0, ()),
+                  ((1, 1024, 1024, 128, 8, 128), True, 0, ()),
+                  ((1, 1000, 1000, 40, 8, 128), True, 0, ())]
+
+
 def sdpa_computes(Sq, Skv, causal, q_offset) -> bool:
     """Whether one ``F.scaled_dot_product_attention`` call computes the same
     function: no mask, or the causal one when Sq == Skv (SDPA's causal mask
@@ -834,7 +845,8 @@ def phase_kernels(build: dict) -> list:
             # llama-vision's 2x2 shard of its cross-attention: prefill, and
             # decode's one query row
             ((2, 1024, 1601, 32, 4, 128), False, 0, (bf16,)),
-            ((2, 1, 1601, 32, 4, 128), False, 0, (bf16,))]:
+            ((2, 1, 1601, 32, 4, 128), False, 0, (bf16,)),
+            *GQA_WIDE_CASES]:
         for dtype in (bf16, f32):
             results.append(flash_case(*shape, causal, off, dtype, gen, flush,
                                       dtype in timed))
@@ -902,7 +914,8 @@ def phase_kernels(build: dict) -> list:
             ((2, 1024, 1024, 8, 4, 128), True, 0, ()),    # qwen3, 2x2 shard
             # zamba2's and musicgen's 2x2 shard
             ((2, 1024, 1024, 16, 16, 64), True, 0, (bf16,)),
-            ((2, 1024, 1024, 12, 4, 64), True, 0, (bf16,))]:  # granite, 2x2
+            ((2, 1024, 1024, 12, 4, 64), True, 0, (bf16,)),  # granite, 2x2
+            *GQA_WIDE_CASES]:
         for dtype in (bf16, f32):
             results.append(flash_bwd_case(*shape, causal, off, dtype, gen,
                                           flush, dtype in timed, build))
@@ -3154,18 +3167,24 @@ def twin_of(cfg, shape, mesh, rules) -> dict:
     ``mesh2_comm`` gives a real step's, and what it predicts for this
     rank: FLOPs, bytes accessed, temp and bytes per device (argument +
     temp + output - alias), and the roofline's ms of its compute and
-    memory terms (H100 SXM constants); and the shapes of its allocations
-    as wide as the vocab (``vocab_wide``: the loss's blocks)."""
+    memory terms (H100 SXM constants); the shapes of its allocations as
+    wide as the vocab or as a "model" rank's block of it (``vocab_wide``:
+    the loss's and the head's blocks); and the local operand shapes of
+    its output head's boundary calls (``head_calls``)."""
+    from repro_torch.kernels._local import shard_calls
     from repro_torch.launch.dryrun import compile_step, lower_step, period
     from repro_torch.roofline.analysis import HBM_BW, PEAK_FLOPS
-    c = (compile_step(cfg, shape, mesh, rules, "full")
-         if cfg.n_layers % period(cfg) == 0
-         else lower_step(cfg, shape, mesh, rules).compile())
+    with shard_calls() as calls:
+        c = (compile_step(cfg, shape, mesh, rules, "full")
+             if cfg.n_layers % period(cfg) == 0
+             else lower_step(cfg, shape, mesh, rules).compile())
     coll, cost, mem = c.collectives(), c.cost_analysis(), c.memory_analysis()
     flops, nbytes = cost["flops"], cost["bytes accessed"]
+    widths = {cfg.vocab, cfg.vocab // MESH2_SHAPE[1]}
     return {"counts": coll.counts, "bytes": coll.bytes_by_kind,
             "vocab_wide": sorted(t for t in c.trace.shapes
-                                 if len(t) > 1 and t[-1] == cfg.vocab),
+                                 if len(t) > 1 and t[-1] in widths),
+            "head_calls": sorted({s for n, s in calls if n == "lm_head"}),
             "predicted": {
                 "flops": flops, "bytes_accessed": nbytes,
                 "temp_bytes": mem.temp_size_in_bytes,
@@ -3649,10 +3668,8 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
         "twin_collectives": twin_held(ranks),
         **route_checks,
     }
-    if (trains and cfg.vocab % MESH2_SHAPE[1] == 0
-            and cfg.vocab != cfg.d_model):
-        checks["train_twin_vocab_split"] = vocab_split_held(cfg, ranks)
     if trains:
+        checks["train_twin_vocab_split"] = vocab_split_held(cfg, ranks)
         checks.update({
             "first_loss_within_floor": gaps["first_loss"]
             <= bounds["first_loss"],
@@ -3735,17 +3752,31 @@ def mesh2_check(path: str, prep: dict, ranks: list, paths: dict,
 
 
 def vocab_split_held(cfg, ranks: list) -> bool:
-    """Whether no rank's train twin allocates a tensor of the global
-    logits' shape, (B, S, V) or (B S, V), nor of a data rank's vocab-whole
-    one, (B / data, S, V) or (B S / data, V): the loss
-    (``kernels._local.vocab_on_shards``) takes each rank's block.  Held
-    where "model" splits the vocab and V is not the model's width (there
-    an activation has the shape)."""
-    data = MESH2_SHAPE[0]
-    wide = {(b, TRAIN_S, cfg.vocab) for b in (TRAIN_B, TRAIN_B // data)}
-    wide |= {(b * TRAIN_S, cfg.vocab) for b in (TRAIN_B, TRAIN_B // data)}
-    return all(not wide & set(map(tuple, r["twin"]["train"]["vocab_wide"]))
-               for r in ranks)
+    """Whether no rank's train twin holds the logits or their gradient at
+    the global batch's rows, and the head takes each rank's own rows
+    (``kernels._local.head_on_shards``, the loss ``vocab_on_shards``): the
+    twin's output head was called on (B / data, S, d) rows, and it
+    allocates no tensor of shape (B, S, Vl) or (B S, Vl), Vl a "model"
+    rank's block of the vocab (V / model, or V where "model" does not
+    divide it: granite's 49155), nor, where "model" splits the vocab, a
+    data rank's vocab-whole (B / data, S, V) or (B S / data, V).  Where V
+    is the model's width (musicgen) an activation has those shapes, and
+    the head's calls alone are held."""
+    data, model = MESH2_SHAPE
+    V = cfg.vocab
+    wide = set()
+    if V != cfg.d_model:
+        Vl = V // model if V % model == 0 else V
+        rows = (TRAIN_B, TRAIN_B // data) if Vl < V else (TRAIN_B,)
+        wide = {(TRAIN_B, TRAIN_S, Vl), (TRAIN_B * TRAIN_S, Vl)}
+        wide |= {(b, TRAIN_S, V) for b in rows}
+        wide |= {(b * TRAIN_S, V) for b in rows}
+    x = (TRAIN_B // data, TRAIN_S, cfg.d_model)
+    return all(
+        not wide & set(map(tuple, r["twin"]["train"]["vocab_wide"]))
+        and r["twin"]["train"]["head_calls"]
+        and all(tuple(xl) == x for xl, _ in r["twin"]["train"]["head_calls"])
+        for r in ranks)
 
 
 def twin_held(ranks: list) -> bool:

@@ -1296,13 +1296,21 @@ flash_bwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 //       operands K-major in shared memory),
 //       P^T = exp2(S^T scale log2e - lse log2e) (masked only on a q block
 //       that crosses the diagonal or Skv), packed to bf16,
-//       dS^T = P^T (dP^T - D) with P^T as rounded to bf16 (the operand dV
-//       sees), packed to bf16;
+//       dS^T = P^T (dP^T - D) (at hd 64 with P^T as rounded to bf16, the
+//       operand dV sees; at hd 128 with the remainder below added back),
+//       packed to bf16;
 //     P^T and dS^T go to shared memory as [q][key] tiles (stmatrix.trans,
 //     128-byte swizzle; dS in two buffers, so that a warpgroup writes the
-//     next while the other still reads this one), and
-//       dV += P^T dO and dK += dS^T Q are shared-memory wgmmas with both
-//       operands MN-major (transposed), by 64-column chunks of dK / dV;
+//     next while the other still reads this one), and at hd 128 P^T's
+//     rounding remainder, P^T - bf16(P^T), rounded to bf16, as a second P
+//     tile; then
+//       dV += P^T dO (at hd 128 from both P tiles: dV sums over the whole
+//       GQA group's q rows, and a bf16 P^T alone leaves it ~2^-9 of its
+//       size off, up to two bf16 ulps past its own rounding at group 16;
+//       the two tiles bring that to ~2^-17; dS^T's P^T, see below) and
+//       dK += dS^T Q are
+//       shared-memory wgmmas with both operands MN-major (transposed), by
+//       64-column chunks of dK / dV;
 //       after a named barrier, dQ = scale dS K (A = dS K-major, B = K
 //       MN-major) gives each warpgroup a 64 x 64 f32 tile: at hd 128 its
 //       half of the columns over all 128 keys, at hd 64 all columns over
@@ -1346,7 +1354,9 @@ struct BwdWgSmem {
   static constexpr int DO = Q + STAGES * QT_BYTES;          // [STAGES]
   static constexpr int DS = DO + STAGES * QT_BYTES;         // [2]
   static constexpr int PS = DS + 2 * DS_BYTES;              // P^T [q][key]
-  static constexpr int DQ = PS + DS_BYTES;                  // [2 consumers]
+  // P^T - bf16(P^T): hd 128 only (at hd 64's four slots 96 bytes short)
+  static constexpr int PL = PS + DS_BYTES;
+  static constexpr int DQ = PL + (HD == 128 ? DS_BYTES : 0);  // [2 consumers]
   static constexpr int LSE = DQ + 2 * DQ_BYTES;             // [STAGES][64] f32
   static constexpr int DD = LSE + STAGES * kBwdWgBQ * 4;    // [STAGES][64] f32
   static constexpr int BARS = DD + STAGES * kBwdWgBQ * 4;
@@ -1583,6 +1593,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
     uint8_t* dQw = sm + S::DQ + cw * S::DQ_BYTES;
     uint8_t* Pw = sm + S::PS;
+    uint8_t* PLw = sm + S::PL;
     // Named barriers: 1 = both consumers (dS at hd 128), 2 + cw = own.
     const int ds_bar = HD == 128 ? 1 : 2 + cw, ds_count = HD == 128 ? 256 : 128;
     int it = 0;
@@ -1678,48 +1689,75 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
             stmatrix_x4_trans(hopper::smem_u32(Pw) + st_off + kk * 2048, pa[kk]);
+          if constexpr (HD == 128) {
+            // The remainder P^T - bf16(P^T) into its own tile, in pa's
+            // registers (P^T comes back from its tile for dS^T below).
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const float h0 = __uint_as_float(pa[kk][i] << 16);  // low half
+                const float h1 = __uint_as_float(pa[kk][i] & 0xffff0000u);
+                pa[kk][i] = pack_bf16(st[8 * kk + 2 * i] - h0, st[8 * kk + 2 * i + 1] - h1);
+              }
+              stmatrix_x4_trans(hopper::smem_u32(PLw) + st_off + kk * 2048, pa[kk]);
+            }
+          }
           hopper::fence_async_smem();
           if constexpr (HD == 128) bwd_ss_k_major<HD, KV_CHUNK, QT_CHUNK>(dp, vd, dod);
           hopper::named_barrier(2 + cw, 128);
 
           // dV += P^T dO: A = P^T (MN-major: 16 q rows = 2048 bytes a step),
-          // B = dO (MN-major), both from shared memory.
+          // B = dO (MN-major), both from shared memory; at hd 128 the
+          // remainder tile's product too.
           const uint64_t dot = hopper::sw128_desc(dOt, QT_CHUNK, 1024);
           const uint64_t qt = hopper::sw128_desc(Qt, QT_CHUNK, 1024);
-          const uint64_t pd = hopper::sw128_desc(Pw + cw * (kBwdWgBQ * 128), QT_CHUNK, 1024);
 #pragma unroll
           for (int c = 0; c < CH; ++c) hopper::fence_regs(dva[c]);
           hopper::wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
+          for (int t = 0; t < (HD == 128 ? 2 : 1); ++t) {
+            const uint64_t pd =
+                hopper::sw128_desc((t ? PLw : Pw) + cw * (kBwdWgBQ * 128), QT_CHUNK, 1024);
 #pragma unroll
-            for (int c = 0; c < CH; ++c)
-              hopper::wgmma_ss_n64<1, 1>(dva[c], pd + kk * 2048 / 16,
-                                         dot + (c * QT_CHUNK + kk * 2048) / 16, 1);
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+              for (int c = 0; c < CH; ++c)
+                hopper::wgmma_ss_n64<1, 1>(dva[c], pd + kk * 2048 / 16,
+                                           dot + (c * QT_CHUNK + kk * 2048) / 16, 1);
+          }
           hopper::wgmma_commit();
           hopper::wgmma_wait<1>();  // dP^T (dV may still run)
           hopper::fence_regs(dp);
 
-          // dS^T = P^T (dP^T - D), with P^T as rounded to bf16 for dV.  At
-          // hd 128 P^T comes back from its tile (ldmatrix, the inverse of the
-          // stmatrix above), so that it does not hold 16 registers while
-          // dP^T runs.
-          if constexpr (HD == 128) {
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk)
-              ldmatrix_x4_trans(hopper::smem_u32(Pw) + st_off + kk * 2048, pa[kk]);
-          }
+          // dS^T = P^T (dP^T - D).  At hd 128 P^T comes back from its two
+          // tiles (ldmatrix, the inverse of the stmatrix above; so that it
+          // does not hold registers while dP^T runs) as bf16(P^T) plus its
+          // remainder: dK sums dS^T Q over the group's q rows, and with P^T
+          // rounded to bf16 here dS^T's rows no longer sum to 0 as D makes
+          // them, which puts dK off by up to eight of its ulps near 0.  At
+          // hd 64 P^T is bf16 as dV sees it.
           uint32_t sa[4][4];
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
+          for (int kk = 0; kk < 4; ++kk) {
+            uint32_t pl[4];
+            if constexpr (HD == 128) {
+              ldmatrix_x4_trans(hopper::smem_u32(Pw) + st_off + kk * 2048, pa[kk]);
+              ldmatrix_x4_trans(hopper::smem_u32(PLw) + st_off + kk * 2048, pl);
+            }
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               const int j = 2 * kk + (i >> 1), c = 8 * kk + 2 * i;
               const float2 d2 = *reinterpret_cast<const float2*>(D_q + 8 * j + 2 * qd);
-              const float p0 = __uint_as_float(pa[kk][i] << 16);  // low half
-              const float p1 = __uint_as_float(pa[kk][i] & 0xffff0000u);
+              float p0 = __uint_as_float(pa[kk][i] << 16);  // low half
+              float p1 = __uint_as_float(pa[kk][i] & 0xffff0000u);
+              if constexpr (HD == 128) {
+                p0 += __uint_as_float(pl[i] << 16);
+                p1 += __uint_as_float(pl[i] & 0xffff0000u);
+              }
               sa[kk][i] = pack_bf16(p0 * (dp[c] - d2.x), p1 * (dp[c + 1] - d2.y));
             }
+          }
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
             stmatrix_x4_trans(hopper::smem_u32(dSb) + st_off + kk * 2048, sa[kk]);

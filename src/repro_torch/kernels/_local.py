@@ -245,6 +245,39 @@ def seq_on_shards(name: str, fn: Callable, q, k, v, kv_len):
     return out.to(q.dtype).redistribute(mesh, heads)
 
 
+def head_on_shards(name: str, x, w):
+    """``x @ w`` of the output head (x (..., d), w (d, V)) on each rank's
+    rows and vocab columns, as the reference's sharded step forms it: per
+    mesh dimension, one that splits a leading dimension of x (its batch
+    rows) keeps that split, w whole on it; else one that splits w's vocab
+    keeps it, and one whose size divides w's columns splits them (a chunk
+    of the chunked loss, sliced from a head gathered along its vocab), x
+    whole on it; any other is gathered (w's d, the FSDP axis, and x's last
+    dimension).  The logits leave split as x's rows and w's columns are.
+    x's gradient is partial over the columns' mesh dimensions (each rank's
+    columns add their share), w's over the rows' (each rank's rows add
+    theirs, then summed to w's placements): the head's weight gradient
+    never sees another rank's rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    last = x.ndim - 1
+    xp, wp, op, xg, wg = [], [], [], [], []    # x's, w's, out's, grads'
+    for m in range(mesh.ndim):
+        d = _shard_dim(x.placements[m], x.ndim)
+        if d not in (None, last):
+            place = (Shard(d), Replicate(), Shard(d), Shard(d), Partial())
+        elif (_shard_dim(w.placements[m], w.ndim) == 1
+              or w.shape[1] % mesh.size(m) == 0):
+            place = (Replicate(), Shard(1), Shard(last), Partial(), Shard(1))
+        else:
+            place = (Replicate(),) * 5
+        for placements, q in zip((xp, wp, op, xg, wg), place):
+            placements.append(q)
+    xp, wp, op, xg, wg = map(tuple, (xp, wp, op, xg, wg))
+    return _on_shards(name, torch.matmul, mesh, (op,), (x, w), (xp, wp),
+                      (xg, wg))
+
+
 def vocab_on_shards(name: str, logits, labels, base: int = 0):
     """The rows' statistics of a cross-entropy over ``logits`` (..., V), a
     DTensor whose vocab may be split across ranks, the vocab never

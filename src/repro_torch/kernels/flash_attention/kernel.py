@@ -107,15 +107,17 @@ def bwd_plan(dtype: torch.dtype, hd: int, B: int, Skv: int,
         # K and V tiles of 128 keys (two of each at hd 64, so the next
         # item's load overlaps this one); `stages` ring slots of Q and dO
         # (64 rows each); two dS buffers and one P buffer (64 x 128 bf16
-        # each); each consumer's f32 dQ tile (64 x 64); lse and D (64 f32 a
-        # slot); the barriers (full and empty a slot, kv_full and kv_empty
-        # a K / V buffer); 1024 bytes to align the tiles to the 128-byte
-        # swizzle's period.  hd 64 takes four slots (216 KB), hd 128 two
-        # (215 KB): one CTA an SM, as the persistent grid assumes.
+        # each), at hd 128 a second P buffer (P's rounding remainder); each
+        # consumer's f32 dQ tile (64 x 64); lse and D (64 f32 a slot); the
+        # barriers (full and empty a slot, kv_full and kv_empty a K / V
+        # buffer); 1024 bytes to align the tiles to the 128-byte swizzle's
+        # period.  hd 64 takes four slots (216 KB), hd 128 two (231 KB):
+        # one CTA an SM, as the persistent grid assumes.
         block_kv, block_q = BWD_WG_BLOCK_KV, BWD_WG_BLOCK_Q
         stages, kv_bufs = (4, 2) if hd == 64 else (2, 1)
         smem = (2 * kv_bufs * block_kv * hd * 2 + 2 * stages * block_q * hd * 2
-                + 3 * block_q * block_kv * 2 + 2 * block_q * 64 * 4
+                + (4 if hd == 128 else 3) * block_q * block_kv * 2
+                + 2 * block_q * 64 * 4
                 + 2 * stages * block_q * 4 + (2 * stages + 2 * kv_bufs) * 8
                 + 1024)
         items = -(-Skv // block_kv) * KV * B

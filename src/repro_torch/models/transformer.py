@@ -36,7 +36,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .. import is_dtensor
 from ..kernels import flash_attention, rmsnorm
-from ..kernels._local import vocab_on_shards
+from ..kernels._local import head_on_shards, vocab_on_shards
 from ..sharding.context import carried, constrain, replicated_like, whole
 from ..sharding.rules import CACHE_AXES, INPUT_AXES, distribute_inputs
 from .config import ModelConfig
@@ -149,6 +149,15 @@ def _head(params, cfg: ModelConfig):
                    for q in table.placements):
             table = table.redistribute(table.device_mesh, table.placements)
     return table.T
+
+
+def _head_product(name: str, x, head):
+    """``x @ head`` in the promoted type; DTensor operands go through
+    ``head_on_shards``, which forms the head's weight gradient from each
+    rank's own rows."""
+    if is_dtensor(x):
+        return head_on_shards(name, *promoted(x, head))
+    return matmul(x, head)
 
 
 def _fires_shared(cfg: ModelConfig, i: int) -> bool:
@@ -286,7 +295,7 @@ def forward(params, cfg: ModelConfig, tokens=None, *, inputs_embeds=None,
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps, force_ref=force_ref)
     if return_hidden:
         return x, aux
-    return constrain(matmul(x, _head(params, cfg)),
+    return constrain(_head_product("lm_head", x, _head(params, cfg)),
                      ("batch", "seq", "act_vocab")), aux
 
 
@@ -443,7 +452,8 @@ def lm_loss_chunked(x, params, cfg: ModelConfig, labels, aux=None,
 
     def body(m, s, gold, i):
         base = i * vocab_chunk
-        lg = x @ head[:, base:base + vocab_chunk]
+        lg = _head_product("lm_head_chunk", x,
+                           head[:, base:base + vocab_chunk])
         if is_dtensor(lg):
             mc, sc, gc = vocab_on_shards("lm_loss_chunk", lg, labels, base)
             m_new = torch.maximum(m, mc)

@@ -204,8 +204,9 @@ def test_bwd_variant_for_dtype_and_head_dim(dtype, hd, variant):
 
 def test_bwd_wgmma_plan_matches_the_kernels_layout():
     """K and V tiles (128 keys; two of each at hd 64), `stages` slots of Q
-    and dO (64 rows), two dS buffers and a P buffer, two f32 dQ tiles, lse
-    and D, barriers, alignment slack: the byte counts of ``BwdWgSmem`` in
+    and dO (64 rows), two dS buffers and a P buffer (at hd 128 a second
+    one, P's rounding remainder), two f32 dQ tiles, lse and D, barriers,
+    alignment slack: the byte counts of ``BwdWgSmem`` in
     csrc/flash_attention.cu."""
     for hd, stages, kv_bufs in ((128, 2, 1), (64, 4, 2)):
         p = bwd_plan(torch.bfloat16, hd, 4, 1024, 8)
@@ -213,10 +214,11 @@ def test_bwd_wgmma_plan_matches_the_kernels_layout():
             64, 128, stages, 384)
         assert p.smem_bytes == (2 * kv_bufs * 128 * hd * 2
                                 + 2 * stages * 64 * hd * 2
-                                + 3 * 64 * 128 * 2 + 2 * 64 * 64 * 4
+                                + (4 if hd == 128 else 3) * 64 * 128 * 2
+                                + 2 * 64 * 64 * 4
                                 + 2 * stages * 64 * 4
                                 + (2 * stages + 2 * kv_bufs) * 8 + 1024)
-    assert bwd_plan(torch.bfloat16, 128, 4, 1024, 8).smem_bytes == 215088
+    assert bwd_plan(torch.bfloat16, 128, 4, 1024, 8).smem_bytes == 231472
     assert bwd_plan(torch.bfloat16, 64, 4, 1024, 8).smem_bytes == 216160
     # Persistent: one CTA per SM, or one per item if there are fewer.
     assert bwd_plan(torch.bfloat16, 128, 4, 1024, 8).grid == (132, 1, 1)

@@ -835,7 +835,10 @@ def test_loss_runs_on_each_ranks_block_of_the_logits(runs, mesh):
     the global (B, S, V) shape or the vocab-whole (B / data, S, V) shape
     (the chunked loss: nor a vocab-whole chunk); the loss boundary took
     each rank's (B / data, S, V / model) block (a chunk's columns split
-    alike); the loss alone, forward and backward, allocates at most the
+    alike) and the head's boundary each rank's (B / data, S, d) rows by
+    its (d, V / model) columns (local shapes: here B S = d, so a gathered
+    gradient's (B S, V / model) has the weight's own shape); the loss
+    alone, forward and backward, allocates at most the
     rank's f32 logits block at a time, gives the logits' gradient on
     that block at the logits' placements, and its loss and gradient lie
     at 1e-4 of the loss on the gathered logits."""
@@ -849,6 +852,9 @@ def test_loss_runs_on_each_ranks_block_of_the_logits(runs, mesh):
         for step in [f"train/{remat}" for remat in TRAIN[mesh]]:
             assert not vocab_whole & got["made"][step], step
             assert ("lm_loss", (block, block[:2])) in got[step]["calls"]
+            assert ("lm_head", ((*block[:2], cfg.d_model),
+                                (cfg.d_model, block[2]))) \
+                in got[step]["calls"], step
         if mesh == "2x2":
             assert not vocab_whole & got["made"]["chunked"]
             assert not {(B, S, VOCAB_CHUNK), (B // data, S, VOCAB_CHUNK)} \

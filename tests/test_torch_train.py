@@ -547,12 +547,12 @@ def test_backward_launch_plans():
     p = bwd_plan(torch.bfloat16, 128, 4, 1024, 8)
     assert (p.variant, p.block_q, p.block_kv, p.stages, p.threads, p.grid) == (
         "wgmma", 64, 128, 2, 384, (132, 1, 1))
-    # K, V (128 x 128) + 2 slots of Q, dO (64 x 128) + 2 dS and a P (64 x
-    # 128) bf16; 2 dQ tiles (64 x 64 f32); lse, D (2 x 64 f32); 6 barriers;
-    # alignment
+    # K, V (128 x 128) + 2 slots of Q, dO (64 x 128) + 2 dS and two P (64
+    # x 128: P and its rounding remainder) bf16; 2 dQ tiles (64 x 64 f32);
+    # lse, D (2 x 64 f32); 6 barriers; alignment
     assert p.smem_bytes == (2 * (2 * 128 * 128 + 2 * 2 * 64 * 128
-                                 + 3 * 64 * 128) + 4 * 2 * 64 * 64
-                            + 8 * 2 * 64 + 6 * 8 + 1024) == 215088
+                                 + 4 * 64 * 128) + 4 * 2 * 64 * 64
+                            + 8 * 2 * 64 + 6 * 8 + 1024) == 231472
     p = bwd_plan(torch.bfloat16, 16, 2, 40, 2)
     assert (p.variant, p.block_q, p.grid) == ("mma_sync", 64, (1, 2, 2))
     p = bwd_plan(torch.float32, 128, 2, 1601, 8)
