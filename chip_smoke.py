@@ -19,7 +19,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 card (TF32 off), with kernel / plain / library times (median
                 of cold-L2 runs): RMSNorm and flash attention forward and
                 backward in bf16 and f32 at the serving and training paths'
-                shapes (GQA groups 1-8, d_model 1024-2048, the q/k norms'
+                shapes (GQA groups 1-16, d_model 1024-16384, the q/k norms'
                 row counts), the SSD chunk kernel and its backward in f32
                 (the backward twice: the same bits; at a rank's shard of
                 the 2 x 2 paths too); ``ssd`` (chunk kernel +
@@ -32,7 +32,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 full width (random weights, seed 0, bf16) on 4 x 1024 tokens
                 (musicgen: 4 x 1024 frame embeddings; llama-vision: with 4
                 random images of 1601 embeddings, on its first 20 of 100
-                layers), launches per forward checked, the main path's
+                layers; mistral-large-123b on its first 12 of 88,
+                llama3-405b on its first 4 of 126: ``DEPTH``; qwen2.5-14b's
+                qkv biases drawn nonzero, ``open_gates``), launches per
+                forward checked, the main path's
                 logits held against the plain-kernel forward on the same
                 bf16 weights (``kernels_vs_plain``; MoE: with the routing
                 agreement, see ``pair_check``).
@@ -46,12 +49,13 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 also after a few steps on an image state).  Last, each
                 model's f32 pairs (``check_f32``): prefill and a decode step
                 with the weights cast to f32, kernels against plain
-                versions; qwen3-moe's and llama-vision's on a copy of their
-                first ``F32_DEPTH`` layers, made after the full weights are
-                freed.
+                versions; qwen3-moe's, llama-vision's and the three widest
+                dense models' on a copy of their first ``F32_DEPTH``
+                layers, made after the full weights are freed.
   6. train    — per trained model (qwen3-1.7b, granite-moe-3b-a800m,
                 zamba2-1.2b, mamba2-370m, musicgen-large on frame
-                embeddings drawn from the seed): the
+                embeddings drawn from the seed, qwen2.5-14b on its first 8
+                of 48 layers, ``TRAIN_DEPTH``): the
                 reduced model trained 4 steps on the card against the CPU
                 (f32); the launcher (``repro_torch.launch.train``, qwen3) on
                 the card with a checkpoint and a resume; then the model at
@@ -62,10 +66,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 bf16 and f32 (ssm / hybrid: f32 within twice the plain
                 path's own floor, and at 1e-4 on the model's first
                 ``F32_TRAIN_DEPTH`` layers; bf16 beside a floor of order
-                1, see TRAIN_TOL), and one traced step.  llama-vision: one
-                loss-and-grads on its first ``GRAD_DEPTH`` layers (the
-                non-causal flash backward), held against plain versions in
-                bf16.
+                1, see TRAIN_TOL), and one traced step.  llama-vision,
+                mistral-large-123b and llama3-405b: one loss-and-grads on
+                their first ``GRAD_DEPTH`` layers (5, 2 and 1; the
+                non-causal flash backward, RMSNorm backward rows of 12288
+                and 16384), held against plain versions in bf16.
   6b. mesh    — ``mesh/qwen3-1.7b``: qwen3-1.7b at full
                 width and depth through a one-device mesh
                 (``make_local_mesh("cuda")``, ``DEFAULT_RULES``): prefill,
@@ -162,9 +167,12 @@ attention at GQA groups 3 and 8), musicgen-large (audio; the dense kernels
 on frame embeddings) and llama-3.2-vision-90b (vlm; RMSNorm at d 8192,
 causal flash attention at H64/KV8/hd128, and non-causal cross-attention
 over 1601 image tokens: prefill's Sq 1024 and decode's Sq 1), then
-qwen3-1.7b, granite-moe-3b-a800m, zamba2-1.2b, mamba2-370m and
-musicgen-large training, and llama-vision's loss and grads (the forwards
-and the RMSNorm, flash and SSD chunk backwards).
+qwen2.5-14b, mistral-large-123b and llama3-405b (dense: RMSNorm at d
+5120, 12288 and 16384, flash attention at GQA groups 5, 12 and 16, hd 128),
+then qwen3-1.7b, granite-moe-3b-a800m, zamba2-1.2b, mamba2-370m,
+musicgen-large and qwen2.5-14b training, and the loss and grads of
+llama-vision, mistral-large and llama3-405b (the forwards and the RMSNorm,
+flash and SSD chunk backwards).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase raises
 and the script exits non-zero without it.
@@ -174,6 +182,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -189,25 +198,42 @@ import torch
 ROOT = Path(__file__).resolve().parent
 STARTED = time.perf_counter()
 VLM, AUDIO = "llama-3.2-vision-90b", "musicgen-large"
+# The dense configs of the widest rows: qwen2.5-14b (GQA group 5, qkv
+# biases), mistral-large-123b (group 12, d 12288), llama3-405b (group 16,
+# d 16384, an untied 128256-row head).
+QWEN25, MISTRAL, LLAMA3 = "qwen2.5-14b", "mistral-large-123b", "llama3-405b"
 ARCHS = ("qwen3-1.7b", "zamba2-1.2b", "mamba2-370m", "granite-moe-3b-a800m",
-         "qwen3-moe-30b-a3b", AUDIO, VLM)
+         "qwen3-moe-30b-a3b", AUDIO, VLM, QWEN25, MISTRAL, LLAMA3)
 SERVED = ("qwen3-1.7b", "zamba2-1.2b", "granite-moe-3b-a800m",
-          "qwen3-moe-30b-a3b", AUDIO, VLM)       # main path: prefill + serve
+          "qwen3-moe-30b-a3b", AUDIO, VLM, QWEN25, MISTRAL,
+          LLAMA3)                               # main path: prefill + serve
 PROFILED = ARCHS
 # Models run at full width on fewer layers than their config's: 100 layers
 # of llama-3.2-vision-90b are 88.6 G params (177 GB in bf16); 20 (with its
-# 4 cross layers) are 19.82 G, 39.6 GB.
-DEPTH = {VLM: 20}
+# 4 cross layers) are 19.82 G, 39.6 GB.  mistral-large's 88 layers are
+# 122.6 G (245 GB), 12 of them 17.4 G (34.8 GB); llama3-405b's 126 are
+# 405.8 G (812 GB), 4 of them 16.95 G (33.9 GB, 4.2 G of it embed and head).
+# qwen2.5-14b's 48 layers (14.77 G, 29.5 GB) run whole.
+DEPTH = {VLM: 20, MISTRAL: 12, LLAMA3: 4}
 # Models whose f32 pairs (kernels vs plain) run on a copy of their first
 # layers (with embed, final norm and head, and a vlm's cross layers among
 # them): qwen3-moe's 30.5 G params are 61 GB in bf16 and would be 122 GB in
-# f32; llama-vision's 20 layers would be 79 GB.  The others run at full
-# depth.
-F32_DEPTH = {"qwen3-moe-30b-a3b": 4, VLM: 5}
-# llama-vision's loss and grads (no AdamW: params, grads and moments take
-# ~78 GB at any depth from 5) run on its first GRAD_DEPTH layers, one cross
-# layer among them.
-GRAD_DEPTH = 5
+# f32; llama-vision's 20 layers would be 79 GB, qwen2.5-14b's 48 59 GB,
+# mistral-large's 12 70 GB and llama3-405b's 4 68 GB, each beside the bf16
+# copy it is cast from (8 layers of qwen2.5: 3.76 G params, 15 GB; 2 of
+# mistral: 3.57 G, 14.3 GB; 1 of llama3: 7.39 G, 29.6 GB).  The others run
+# at full depth.
+F32_DEPTH = {"qwen3-moe-30b-a3b": 4, VLM: 5, QWEN25: 8, MISTRAL: 2,
+             LLAMA3: 1}
+# Models trained on one card only as far as their loss and grads (no AdamW),
+# on their first GRAD_DEPTH layers: llama-vision (params, grads and moments
+# take ~78 GB at any depth from 5; one cross layer among its first 5),
+# mistral-large (2 layers: 3.57 G params) and llama3-405b (1 layer: 7.39 G
+# params; the params and two grads trees, 44 GB, beside the comparison).
+GRAD_DEPTH = {VLM: 5, MISTRAL: 2, LLAMA3: 1}
+# Models whose AdamW train step runs on their first TRAIN_DEPTH layers:
+# qwen2.5-14b's 8 (3.76 G params; params, grads and f32 moments ~45 GB).
+TRAIN_DEPTH = {QWEN25: 8}
 # A MoE pair whose routing differs may flip at most this many times the
 # (layer, token) routes that the plain path's floor flips (``routes_held``).
 ROUTE_FACTOR = 3
@@ -378,13 +404,15 @@ def bwd_build(build: dict, kernel: str, dtype, d: int) -> dict:
             "mma_sync": ("flash_bwd_mma_kernel", f"ILi{d}E"),
             "fma": ("flash_bwd_fma_kernel", f"ILi{d}E")}[p.variant]
         return kernel_build(build, name, args)
-    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_plan
+    from repro_torch.kernels.rmsnorm.kernel import (BWD_THREADS,
+                                                    rmsnorm_bwd_plan)
     size = 2 if dtype == torch.bfloat16 else 4
     p = rmsnorm_bwd_plan(1, d, size)
     t = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
     if p.groups == 1:                    # rows of more than 512 vectors
-        return kernel_build(build, "rmsnorm_bwd_long_kernel",
-                            f"I{t}Li{p.vecs}EE")
+        kernel = ("rmsnorm_bwd_wide_kernel" if p.lanes > BWD_THREADS
+                  else "rmsnorm_bwd_long_kernel")
+        return kernel_build(build, kernel, f"I{t}Li{p.vecs}EE")
     return kernel_build(build, "rmsnorm_bwd_kernel",
                         f"I{t}Li{p.vecs}ELi{p.lanes}E")
 
@@ -442,15 +470,23 @@ def rmsnorm_case(rows, d, dtype, gen, flush, timed):
     return r
 
 
-# Flash at the GQA groups of the dense configs no path runs on the card,
-# forward and backward, hd 128, causal: qwen2.5-14b (H 40, KV 8: group 5;
-# its train shape timed in bf16), mistral-large-123b (96 / 8: group 12),
-# llama3-405b (128 / 8: group 16), and a ragged group 5.
+# Flash at the GQA groups of the widest dense configs, forward and
+# backward, hd 128, causal: qwen2.5-14b (H 40, KV 8: group 5),
+# mistral-large-123b (96 / 8: group 12), llama3-405b (128 / 8: group 16),
+# each at its prefill / train shape (4 x 1024, timed in bf16) and on one
+# sequence, and a ragged group 5.
 GQA_WIDE_CASES = [((4, 1024, 1024, 40, 8, 128), True, 0, (torch.bfloat16,)),
                   ((1, 1024, 1024, 40, 8, 128), True, 0, ()),
                   ((1, 1024, 1024, 96, 8, 128), True, 0, ()),
                   ((1, 1024, 1024, 128, 8, 128), True, 0, ()),
-                  ((1, 1000, 1000, 40, 8, 128), True, 0, ())]
+                  ((1, 1000, 1000, 40, 8, 128), True, 0, ()),
+                  ((4, 1024, 1024, 96, 8, 128), True, 0, (torch.bfloat16,)),
+                  ((4, 1024, 1024, 128, 8, 128), True, 0, (torch.bfloat16,))]
+# RMSNorm rows of the same configs, forward and backward: d_model over 4 x
+# 1024 tokens (timed in bf16), llama3-405b's over decode's 7 rows (fewer
+# than CTAs) and mistral-large's over a ragged row count.
+WIDE_ROWS = [(4096, 5120, True), (4096, 12288, True), (4096, 16384, True),
+             (7, 16384, False), (1000, 12288, False)]
 
 
 def sdpa_computes(Sq, Skv, causal, q_offset) -> bool:
@@ -516,9 +552,21 @@ def grad_close(got, want, dtype, kind: str) -> tuple:
     return close_enough(got, want, tol, dtype)
 
 
+REL_L2_SLICE = 1 << 26
+
+
 def rel_l2(got, want) -> float:
-    got, want = got.float(), want.float()
-    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+    """||got - want|| / ||want||, summed in f32 over slices of REL_L2_SLICE
+    elements: llama3-405b's embedding gradient (2.1 G elements) would take
+    8.4 GB a float copy, beside its params and two grads trees."""
+    got, want = got.reshape(-1), want.reshape(-1)
+    num = den = 0.0
+    for i in range(0, got.numel(), REL_L2_SLICE):
+        g = got[i:i + REL_L2_SLICE].float()
+        w = want[i:i + REL_L2_SLICE].float()
+        num += float((g - w).square().sum())
+        den += float(w.square().sum())
+    return math.sqrt(num) / max(math.sqrt(den), 1e-30)
 
 
 def rmsnorm_bwd_case(rows, d, dtype, gen, flush, timed, build):
@@ -803,7 +851,10 @@ def phase_kernels(build: dict) -> list:
     # too), its 4 KV heads' norms (its 8 q heads' 16384 rows are a case
     # above) and decode's 2 rows; mamba2's 2 x 1024 rows of its d_model;
     # granite's 2 x 1024 rows of its d_model (timed); musicgen's (timed, the
-    # (2048, 2048) case) and llama-vision's (2048, 8192) (timed).
+    # (2048, 2048) case) and llama-vision's (2048, 8192) (timed).  The
+    # widest dense rows over 4 x 1024 tokens (timed): qwen2.5-14b's 5120,
+    # mistral-large's 12288 and llama3-405b's 16384 (the one-CTA-a-row
+    # kernel past 8192 bf16, 4096 f32), decode's 7 rows and a ragged count.
     for rows, d, timed in [(4096, 2048, True), (65536, 128, True),
                            (32768, 128, True), (4, 2048, True),
                            (4096, 1024, True), (1000, 2048, False),
@@ -812,7 +863,8 @@ def phase_kernels(build: dict) -> list:
                            (4096, 8192, True), (4, 8192, False),
                            (2048, 2048, True), (8192, 128, False),
                            (2, 2048, False), (2048, 1024, False),
-                           (2048, 1536, True), (2048, 8192, True)]:
+                           (2048, 1536, True), (2048, 8192, True),
+                           *WIDE_ROWS]:
         for dtype in (torch.bfloat16, torch.float32):
             results.append(rmsnorm_case(rows, d, dtype, gen, flush,
                                         timed and dtype == torch.bfloat16))
@@ -882,7 +934,8 @@ def phase_kernels(build: dict) -> list:
     # eight vectors a thread), an f32 width just past the row groups' 512
     # vectors, fewer long rows than CTAs, a rank's shard of qwen3 on the
     # (2, 2) mesh (d_model, the q and the k norms; musicgen's too, timed),
-    # of mamba2 and of granite (timed).
+    # of mamba2 and of granite (timed); the widest dense rows (``WIDE_ROWS``:
+    # past d 8192 the wide-row kernel, 512 threads a row).
     for rows, d, timed in [(4096, 2048, True), (65536, 128, True),
                            (32768, 128, False), (1000, 2048, False),
                            (80, 64, False), (640, 16, False),
@@ -890,7 +943,7 @@ def phase_kernels(build: dict) -> list:
                            (1000, 2056, False), (7, 8192, False),
                            (2048, 2048, True), (16384, 128, False),
                            (8192, 128, False), (2048, 1024, False),
-                           (2048, 1536, True)]:
+                           (2048, 1536, True), *WIDE_ROWS]:
         for dtype in (bf16, f32):
             results.append(rmsnorm_bwd_case(rows, d, dtype, gen, flush,
                                             timed and dtype == bf16, build))
@@ -1024,14 +1077,32 @@ def step_inputs(cfg, batch: int, seed: int) -> dict:
 
 
 def open_gates(cfg, params, seed: int = 0):
-    """A vlm's ``ca_gate`` set to 0.5 + 0.1 N(0, 1) (in place): the init's
-    zeros (tanh(0) = 0) would hide every cross-attention error."""
+    """A vlm's ``ca_gate`` set to 0.5 + 0.1 N(0, 1), and the qkv biases
+    (qwen2.5-14b's ``bq``, ``bk``, ``bv``) to 0.1 N(0, 1), in place and
+    drawn from ``seed``: the init's zeros would hide every cross-attention
+    error (tanh(0) = 0) and every error of the bias add."""
     if cfg.family == "vlm":
         gate = params["cross"]["ca_gate"]
         gen = torch.Generator(device=gate.device).manual_seed(seed)
         gate.copy_(0.5 + 0.1 * torch.randn(gate.shape, generator=gen,
                                            device=gate.device))
+    if cfg.qkv_bias:
+        blocks = params["blocks"]
+        gen = torch.Generator(device=blocks["bq"].device).manual_seed(seed)
+        for name in ("bq", "bk", "bv"):      # one stream: bk's draw is not bv's
+            b = blocks[name]
+            b.copy_(0.1 * torch.randn(b.shape, generator=gen,
+                                      device=b.device))
     return params
+
+
+def depth_cut(cfg):
+    """The depth cut of ``cfg`` against its config's, for a line's
+    ``reduced`` (None at full depth)."""
+    from repro_torch.configs import get_config
+    full = get_config(cfg.name).n_layers
+    return f"n_layers {full} -> {cfg.n_layers}" if cfg.n_layers < full \
+        else None
 
 
 def small_model_check(arch: str) -> None:
@@ -1325,7 +1396,8 @@ def check_prefill(cfg, params, pre) -> None:
     logits_max_abs = float(pre["logits"].abs().max())
     cmp = kernels_vs_plain(cfg, params, run, got=pre.pop("logits"),
                            rk=pre.pop("routes"))
-    emit("prefill", arch=cfg.name, batch=pre["batch"], seq=pre["seq"],
+    emit("prefill", arch=cfg.name, depth=cfg.n_layers,
+         reduced=depth_cut(cfg), batch=pre["batch"], seq=pre["seq"],
          ms=pre["ms"], tokens_per_s=pre["tokens_per_s"],
          launches_per_forward=pre["launches"], **cmp,
          logits_max_abs=logits_max_abs,
@@ -1424,14 +1496,16 @@ def check_serve(cfg, params, srv) -> None:
                    for v in eng.state.values() if torch.is_tensor(v)) / 1e6
     cmp = decode_step_check(cfg, params, eng.state)
     per_step = {k: v / max(1, srv["steps"]) for k, v in srv["launches"].items()}
-    emit("serve", arch=cfg.name, ok=srv["ok"], requests=srv["requests"],
+    emit("serve", arch=cfg.name, depth=cfg.n_layers, reduced=depth_cut(cfg),
+         ok=srv["ok"], requests=srv["requests"],
          tokens=srv["tokens"], steps=srv["steps"], seconds=srv["seconds"],
          tokens_per_s=srv["tokens"] / srv["seconds"],
          ms_per_decode_step=srv["seconds"] / max(1, srv["steps"]) * 1e3,
          launches_per_decode_step=per_step, decode_state_mb=state_mb,
          **cmp, retrieval="on (the port's igtcache client)",
          retrievals=srv["retrievals"], cache_reads=srv["cache_reads"],
-         cache_hit_ratio=srv["cache_hit_ratio"])
+         cache_hit_ratio=srv["cache_hit_ratio"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     if not srv["ok"]:
         raise AssertionError(f"{cfg.name} serving left requests unfinished")
 
@@ -1484,7 +1558,8 @@ def check_f32(cfg, params, inputs, state) -> None:
     decode = pair_check(p32, decode_run(cfg, state))
     ok = prefill["ok"] and decode["ok"]
     emit("f32", arch=cfg.name, check="kernels vs plain, f32 weights",
-         depth=depth, ok=ok, prefill_f32=prefill, decode_f32=decode,
+         depth=depth, reduced=depth_cut(cfg), ok=ok, prefill_f32=prefill,
+         decode_f32=decode,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     del p32
     torch.cuda.empty_cache()
@@ -1509,15 +1584,16 @@ def check_decode(cfg, params, steps: int = 8, img_embeds=None) -> dict:
     cmp = decode_step_check(cfg, params, state)
     emit("serve", arch=cfg.name, check="decode step after "
          f"{steps} steps" + (" on an image state" if img_embeds is not None
-                             else "") + ", kernels vs plain", ok=True, **cmp)
+                             else "") + ", kernels vs plain",
+         depth=cfg.n_layers, reduced=depth_cut(cfg), ok=True, **cmp)
     return state
 
 
 # --------------------------------------------------------------- phase 6
 
 TRAIN_ARCHS = ("qwen3-1.7b", "granite-moe-3b-a800m", "zamba2-1.2b",
-               "mamba2-370m", AUDIO)
-GRAD_ARCHS = (VLM,)          # loss and grads only, at GRAD_DEPTH
+               "mamba2-370m", AUDIO, QWEN25)
+GRAD_ARCHS = (VLM, MISTRAL, LLAMA3)  # loss and grads only, at GRAD_DEPTH
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 3       # timed steps, after one more
 # A full-width step with kernels against the same step with plain versions:
 # loss relative error, and each leaf's gradient by relative L2 error.  In
@@ -1909,7 +1985,8 @@ def check_train(cfg, params, tr) -> None:
         del p, cut
         torch.cuda.empty_cache()
     flops = train_step_flops(cfg, TRAIN_B, TRAIN_S)
-    emit("train", arch=cfg.name, batch=TRAIN_B, seq=TRAIN_S, remat="full",
+    emit("train", arch=cfg.name, depth=cfg.n_layers, reduced=depth_cut(cfg),
+         batch=TRAIN_B, seq=TRAIN_S, remat="full",
          loss="dense", ms_per_step=tr["ms"], tokens_per_s=tr["tokens_per_s"],
          data_ms_per_step=tr["data_ms"],
          step_tflop=flops / 1e12,
@@ -1962,8 +2039,9 @@ def profile_train(cfg, params, batch) -> None:
 
 def run_train(arch: str) -> dict:
     """One model's train path, counted from 0 as each model's serving path
-    is; then its checks and profile."""
-    cfg, params = init_model(arch)
+    is; then its checks and profile.  On the model's first TRAIN_DEPTH
+    layers where it has an entry."""
+    cfg, params = init_model(arch, depth=TRAIN_DEPTH.get(arch))
     torch.cuda.reset_peak_memory_stats()
     reset_counts()                       # the train path starts here
     tr = phase_train(cfg, params)
@@ -1977,19 +2055,19 @@ def run_train(arch: str) -> dict:
 
 
 def run_grads(arch: str) -> dict:
-    """A model trained on one card only as far as its loss and grads
-    (llama-vision: its first GRAD_DEPTH layers, one cross layer among them;
-    a full step's AdamW state would not fit): two calls of
+    """A model trained on one card only as far as its loss and grads, on
+    its first GRAD_DEPTH layers (llama-vision's with one cross layer among
+    them; a full step's AdamW state would not fit): two calls of
     ``make_value_and_grad`` (remat "full", dense loss) on a TRAIN_B x
     TRAIN_S batch from the launcher's ``CachedTokenPipeline`` with random
-    image embeddings, counted from 0 as a train path, the second timed; then
-    one call with kernels against plain versions in bf16 (``grad_pair``:
-    its own kernel call, as the three grads trees and the params take ~52
-    GB)."""
+    image embeddings (a vlm), counted from 0 as a train path, the second
+    timed; then one call with kernels against plain versions in bf16
+    (``grad_pair``: its own kernel call, as the grads trees and the params
+    take 44-52 GB for llama-vision and llama3-405b)."""
     from repro_torch.launch.train import build_pipeline
     from repro_torch.storage import RemoteStore
     from repro_torch.train.train_step import make_value_and_grad
-    cfg, params = init_model(arch, depth=GRAD_DEPTH)
+    cfg, params = init_model(arch, depth=GRAD_DEPTH[arch])
     pipe, client = build_pipeline(RemoteStore(), cfg.vocab, batch=TRAIN_B,
                                   seq=TRAIN_S, steps=1, cache_mb=256,
                                   cache_bundle="igtcache")
@@ -2009,15 +2087,20 @@ def run_grads(arch: str) -> dict:
     per_call = {k: v / 2 for k, v in launches.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9
     del _
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     r = grad_pair(cfg, params, batch, torch.bfloat16)
+    peak_pair = torch.cuda.max_memory_allocated() / 1e9
     flops = train_step_flops(cfg, TRAIN_B, TRAIN_S)
     ok = (r["ok"] and bool(torch.isfinite(loss0))
           and per_call == expected_per_train_step(cfg))
-    emit("train", arch=cfg.name, check=f"loss and grads, first {GRAD_DEPTH} "
-         "layers, kernels vs plain (bf16)", depth=GRAD_DEPTH, batch=TRAIN_B,
+    emit("train", arch=cfg.name, check=f"loss and grads, first "
+         f"{cfg.n_layers} layers, kernels vs plain (bf16)",
+         depth=cfg.n_layers, reduced=depth_cut(cfg), batch=TRAIN_B,
          seq=TRAIN_S, remat="full", loss="dense", ms_per_loss_and_grads=ms,
          tokens_per_s=TRAIN_B * TRAIN_S / ms * 1e3, tflop=flops / 1e12,
          achieved_tflops=flops / ms / 1e9, peak_mem_gb=peak,
+         peak_mem_gb_pair=peak_pair,
          launches_per_call=per_call,
          expected_per_call=expected_per_train_step(cfg), ok=ok,
          kernels_vs_plain={"bfloat16": r})
@@ -4326,8 +4409,6 @@ def init_model(arch: str, depth=None):
     from repro_torch.models.transformer import init_params
     cfg = get_config(arch)
     depth = depth or DEPTH.get(arch, cfg.n_layers)
-    reduced = (f"n_layers {cfg.n_layers} -> {depth}"
-               if depth < cfg.n_layers else None)
     cfg = dataclasses.replace(cfg, n_layers=depth)
     t0 = time.perf_counter()
     params = open_gates(cfg, init_params(
@@ -4335,7 +4416,7 @@ def init_model(arch: str, depth=None):
     torch.cuda.synchronize()
     n_params = sum(t.numel() for v in params.values()
                    for t in (v.values() if isinstance(v, dict) else [v]))
-    emit("init", arch=cfg.name, params=n_params, reduced=reduced,
+    emit("init", arch=cfg.name, params=n_params, reduced=depth_cut(cfg),
          gb=n_params * 2 / 1e9, seconds=time.perf_counter() - t0)
     return cfg, params
 
@@ -4397,7 +4478,7 @@ def main() -> int:
         for arch in TRAIN_ARCHS:
             if named and arch not in named:
                 continue
-            cfg, params = init_model(arch)
+            cfg, params = init_model(arch, depth=TRAIN_DEPTH.get(arch))
             profile_train(cfg, params, random_batch(cfg))
             del params
             torch.cuda.empty_cache()

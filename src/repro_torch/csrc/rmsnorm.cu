@@ -288,8 +288,9 @@ cudaError_t launch(const void* x, const void* w, void* y, long long rows,
 // reach device memory as one row a CTA.
 // Rows must allow 16-byte vectors and hold at most 512 of them (d <= 4096
 // bf16, 2048 f32) for this kernel; longer rows, up to d = 8192 in either
-// type (llama-3.2-vision's d_model), take rmsnorm_bwd_long_kernel below.
-// The wrapper refuses others.
+// type (llama-3.2-vision's d_model), take rmsnorm_bwd_long_kernel below,
+// and rows up to d = 16384 (mistral-large's 12288, llama3-405b's 16384)
+// rmsnorm_bwd_wide_kernel after it.  The wrapper refuses others.
 
 constexpr int kBwdThreads = 256;
 constexpr int kBwdCtasPerSm = 4;  // resident CTAs an SM: the plan's grid
@@ -322,7 +323,7 @@ __device__ __forceinline__ void dw_finish(float* __restrict__ ws,
   __syncthreads();
   if (last_cta) {
     __threadfence();
-    for (int c = threadIdx.x; c < d; c += kBwdThreads) {
+    for (int c = threadIdx.x; c < d; c += blockDim.x) {
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < kDwRows; ++j) sum += __ldcg(ws + (long long)j * d + c);
@@ -594,15 +595,159 @@ rmsnorm_bwd_long_kernel(const T* __restrict__ x, const T* __restrict__ w,
   dw_finish(ws, dw, d);
 }
 
+// Wide rows (d in (8192, 16384] in either type: mistral-large-123b's 12288
+// and llama3-405b's 16384 d_model).  The long kernel above cannot take them:
+// at 256 threads a bf16 thread would hold 8 vectors of x and 8 of dy (64
+// registers) beside its columns' dw share (64 floats), an f32 thread 12-16
+// vectors of each (96-128 registers) beside 48-64 floats, past the 128
+// registers a thread has at two CTAs an SM.  So a row takes a CTA of
+// kBwdWideThreads (512) threads of 32 elements each (V = 4 bf16 or 8 f32
+// vectors, 32-64 registers, and 32 floats of dw: the long kernel's f32 case
+// at d 8192), one CTA an SM (512 threads of at most 128 registers fill the
+// register file).  With
+// no second CTA on the SM to hide a row's load latency, the next row is
+// staged once through shared memory: each thread copies its own vectors of
+// the next row's x and dy by cp.async (into its own slots, so waiting on
+// its own copies is enough, as in rmsnorm_bwd_kernel) while it reduces and
+// writes the current row from registers.  The slots hold one row: 2 V x
+// 512 x 16 bytes, 64 KB bf16 and 128 KB f32 (a second row would pass the
+// 227 KB an SM offers in f32), so a thread moves its vectors of the row into
+// registers and uses them (the partial sums) before it asks for the next
+// row's copies into the same slots.  Each byte of x and dy is read from HBM
+// once; w is read per row through L1 (its 24-64 KB fit beside the slots);
+// the row sums go through shared memory as in the long kernel; dw as there.
+constexpr int kBwdWideThreads = 512;
+constexpr int kBwdWideCtasPerSm = 1;
+constexpr int kBwdWideElems = 32;  // row elements a thread: 512 x 32 = 16384
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kBwdWideThreads, kBwdWideCtasPerSm)
+rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                        const T* __restrict__ dy, T* __restrict__ dx,
+                        T* __restrict__ dw, float* __restrict__ ws,
+                        long long rows, int d, float eps) {
+  constexpr int N = 16 / sizeof(T);          // elements per vector
+  static_assert(V * N == kBwdWideElems, "a thread holds 32 elements");
+  constexpr int kWarps = kBwdWideThreads / 32;
+  extern __shared__ uint4 slots[];           // [x, dy][vector][thread]
+  __shared__ float red[2][kWarps][2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nvec = d / N;
+  const uint4* wv = reinterpret_cast<const uint4*>(w);
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  float dwa[V][N];
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) dwa[i][j] = 0.f;
+
+  auto stage = [&](long long row) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int c = tid + i * kBwdWideThreads;
+      const bool in = row < rows && c < nvec;
+      const long long off = in ? row * d + (long long)c * N : 0;
+      cp_async16(&slots[i * kBwdWideThreads + tid], x + off, in);
+      cp_async16(&slots[(V + i) * kBwdWideThreads + tid], dy + off, in);
+    }
+    cp_async_commit();
+  };
+  stage(blockIdx.x);
+  int k = 0;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x, ++k) {
+    cp_async_wait<0>();  // this thread's copies of the row have landed
+    uint4 xv[V], gv[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      xv[i] = slots[i * kBwdWideThreads + tid];
+      gv[i] = slots[(V + i) * kBwdWideThreads + tid];
+    }
+    float ss = 0.f, gx = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int c = tid + i * kBwdWideThreads;
+      float fx[N], fg[N], fw[N];
+      unpack16<T>(xv[i], fx);
+      unpack16<T>(gv[i], fg);
+      unpack16<T>(c < nvec ? __ldg(wv + c) : zero, fw);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        ss += fx[j] * fx[j];
+        gx += fg[j] * fw[j] * fx[j];
+      }
+    }
+    // The slots' values are in registers and used: the next row's copies
+    // may overwrite them (cp_async16's "memory" clobber keeps the loads
+    // above it).
+    stage(row + gridDim.x);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      gx += __shfl_xor_sync(0xffffffffu, gx, o);
+    }
+    if (lane == 0) {
+      red[k & 1][warp][0] = ss;
+      red[k & 1][warp][1] = gx;
+    }
+    __syncthreads();
+    ss = gx = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) {
+      ss += red[k & 1][i][0];
+      gx += red[k & 1][i][1];
+    }
+    const float r = inv_rms(ss, d, eps);
+    const float mean_gxh = r * gx / (float)d;  // mean(g x^)
+    uint4* dxr = reinterpret_cast<uint4*>(dx + row * d);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int c = tid + i * kBwdWideThreads;
+      if (c >= nvec) continue;
+      float fx[N], fg[N], fw[N];
+      unpack16<T>(xv[i], fx);
+      unpack16<T>(gv[i], fg);
+      unpack16<T>(__ldg(wv + c), fw);
+      uint4 out;
+      T* e = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float xh = fx[j] * r;
+        e[j] = from_f<T>(r * (fg[j] * fw[j] - xh * mean_gxh));
+        dwa[i][j] += fg[j] * xh;
+      }
+      __stcs(dxr + c, out);
+    }
+  }
+  cp_async_wait<0>();  // the copies past the last row (all zero-filled)
+  float* ws_row = ws + (long long)(blockIdx.x % kDwRows) * d;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int c = tid + i * kBwdWideThreads;
+    if (c >= nvec) continue;
+#pragma unroll
+    for (int j = 0; j < N; j += 4)
+      asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(
+                       ws_row + c * N + j),
+                   "f"(dwa[i][j]), "f"(dwa[i][j + 1]), "f"(dwa[i][j + 2]),
+                   "f"(dwa[i][j + 3])
+                   : "memory");
+  }
+  dw_finish(ws, dw, d);
+}
+
 // The resident CTAs an SM that `kern` must reach for the plan's one-wave
-// grid (asked once per instantiation), then a memset of the workspace and
-// the launch.
+// grid (asked once per instantiation, after allowing `smem` bytes of dynamic
+// shared memory), then a memset of the workspace and the launch.
 template <typename K>
 cudaError_t launch_bwd_kernel(K kern, int min_ctas_per_sm, int& ctas_per_sm,
-                              float* ws, int d, int grid, cudaStream_t stream) {
+                              float* ws, int d, int grid, cudaStream_t stream,
+                              int threads = kBwdThreads, int smem = 0) {
   if (!ctas_per_sm) {
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &ctas_per_sm, kern, kBwdThreads, 0);
+    cudaError_t err = smem > 0 ? cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) : cudaSuccess;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas_per_sm, kern,
+                                                          threads, smem);
     if (err != cudaSuccess) return err;
   }
   // Refuse a build that fits fewer CTAs an SM (it would run in two waves).
@@ -620,6 +765,22 @@ cudaError_t launch_bwd_long(const T* x, const T* w, const T* dy, T* dx, T* dw,
                                       d, grid, stream);
   if (err != cudaSuccess) return err;
   kern<<<grid, kBwdThreads, 0, stream>>>(x, w, dy, dx, dw, ws, rows, d, eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_wide(const T* x, const T* w, const T* dy, T* dx, T* dw,
+                            float* ws, int grid, long long rows, int d, float eps,
+                            cudaStream_t stream) {
+  constexpr int V = kBwdWideElems * int(sizeof(T)) / 16;
+  constexpr int smem = 2 * V * kBwdWideThreads * 16;  // x and dy of one row
+  auto kern = rmsnorm_bwd_wide_kernel<T, V>;
+  static int ctas_per_sm = 0;  // per instantiation
+  cudaError_t err = launch_bwd_kernel(kern, kBwdWideCtasPerSm, ctas_per_sm, ws,
+                                      d, grid, stream, kBwdWideThreads, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, kBwdWideThreads, smem, stream>>>(x, w, dy, dx, dw, ws, rows, d,
+                                               eps);
   return cudaGetLastError();
 }
 
@@ -658,7 +819,9 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* dy, void* dx,
   if (nvec <= 256) return BWD(2, 128);
   if (nvec <= 512) return BWD(2, 256);
 #undef BWD
-  if (d > 8192) return cudaErrorInvalidValue;
+  if (d > kBwdWideThreads * kBwdWideElems) return cudaErrorInvalidValue;
+  if (d > 8192)
+    return launch_bwd_wide<T>(xp, wp, gp, dxp, dwp, ws, grid, rows, d, eps, s);
   if (nvec <= 1024)
     return launch_bwd_long<T, 4>(xp, wp, gp, dxp, dwp, ws, grid, rows, d, eps, s);
   if constexpr (sizeof(T) == 4)
@@ -686,10 +849,11 @@ extern "C" int rmsnorm_fwd(const void* x, const void* w, void* y,
 }
 
 // Backward of rmsnorm_fwd.  x, dy, dx: (rows, d) row-major; w, dw: (d,); all
-// of dtype, 16-byte aligned, d * sizeof(T) % 16 == 0 and d <= 8192.  ws:
+// of dtype, 16-byte aligned, d * sizeof(T) % 16 == 0 and d <= 16384.  ws:
 // 8 d + 4 f32 scratch (kDwRows rows of dw's f32 sums, then a counter),
 // zeroed here.  `grid` CTAs (rmsnorm_bwd_plan() in kernels/rmsnorm/kernel.py:
-// at most four an SM, two for rows of more than 512 vectors).  A memset of ws and one launch on `stream`.  Returns
+// at most four an SM, two for rows of more than 512 vectors, one for rows
+// wider than 8192).  A memset of ws and one launch on `stream`.  Returns
 // cudaGetLastError() after them (0 on success).
 extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy,
                            void* dx, void* dw, float* ws, int grid,

@@ -16,7 +16,10 @@ at most 64 registers a thread, on a one-wave persistent grid
 folds into one f32 row by ``red.global.add`` and the last CTA casts it.
 Rows of more than 512 vectors (d up to 8192 in either type: llama-3.2-
 vision's d_model) take a CTA of 256 threads a row, 4 or 8 vectors a
-thread, two CTAs an SM.  ``rmsnorm_bwd_cuda.launches`` counts its calls.
+thread, two CTAs an SM; rows wider than 8192 (up to MAX_D: mistral-large's
+12288, llama3-405b's 16384) a CTA of 512 threads of 32 elements a row, one
+CTA an SM, the next row staged through shared memory by ``cp.async``.
+``rmsnorm_bwd_cuda.launches`` counts its calls.
 """
 from __future__ import annotations
 
@@ -27,11 +30,15 @@ import torch
 from .. import _build
 
 MAX_D = 16384
-MAX_BWD_D = 8192        # the backward's widest row, in either type
+MAX_BWD_D = MAX_D       # the backward's widest row, in either type
 BWD_ROW_VECS = 512      # 16-byte vectors a row of the row-group kernel
 BWD_THREADS = 256
 BWD_CTAS_PER_SM = 4     # csrc/rmsnorm.cu kBwdCtasPerSm
 BWD_LONG_CTAS_PER_SM = 2  # csrc/rmsnorm.cu kBwdLongCtasPerSm
+BWD_LONG_D = 8192       # the long-row kernel's widest row; wider: the wide one
+BWD_WIDE_THREADS = 512  # csrc/rmsnorm.cu kBwdWideThreads
+BWD_WIDE_ELEMS = 32     # csrc/rmsnorm.cu kBwdWideElems: row elements a thread
+BWD_WIDE_CTAS_PER_SM = 1  # csrc/rmsnorm.cu kBwdWideCtasPerSm
 BWD_DW_ROWS = 8         # csrc/rmsnorm.cu kDwRows
 
 
@@ -86,8 +93,18 @@ def rmsnorm_bwd_plan(rows: int, d: int, itemsize: int,
     at most the BWD_CTAS_PER_SM an SM that the kernel's register bound lets
     fit (one wave).  A row of more than BWD_ROW_VECS vectors takes the
     long-row kernel: a CTA of BWD_THREADS threads, 4 vectors a thread (8
-    past 1024 vectors), BWD_LONG_CTAS_PER_SM CTAs an SM."""
+    past 1024 vectors), BWD_LONG_CTAS_PER_SM CTAs an SM; a row wider than
+    BWD_LONG_D the wide-row kernel: a CTA of BWD_WIDE_THREADS threads of
+    BWD_WIDE_ELEMS elements (4 bf16 or 8 f32 vectors), BWD_WIDE_CTAS_PER_SM
+    an SM.  A row wider than MAX_BWD_D raises, as the launch refuses it."""
+    if d > MAX_BWD_D:
+        raise ValueError(f"rmsnorm_bwd_plan: no backward kernel takes rows "
+                         f"of {d} (at most {MAX_BWD_D})")
     nvec = d * itemsize // 16
+    if d > BWD_LONG_D:
+        return RmsNormBwdPlan(BWD_WIDE_ELEMS * itemsize // 16,
+                              BWD_WIDE_THREADS, 1,
+                              max(1, min(rows, BWD_WIDE_CTAS_PER_SM * sms)))
     if nvec > BWD_ROW_VECS:
         return RmsNormBwdPlan(4 if nvec <= 1024 else 8, BWD_THREADS, 1,
                               max(1, min(rows, BWD_LONG_CTAS_PER_SM * sms)))
@@ -103,10 +120,6 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
                      eps: float = 1e-5):
     """(dx, dw) of ``rmsnorm_cuda`` at ``dy``: dx like x, dw like weight."""
     _build.plain("rmsnorm_bwd_cuda", x, weight, dy)
-    if not (x.is_cuda and weight.device == x.device and dy.device == x.device):
-        raise ValueError("rmsnorm_bwd_cuda: x, weight and dy must be on one "
-                         f"CUDA device (got {x.device}, {weight.device}, "
-                         f"{dy.device})")
     if (x.dtype not in _build.DTYPE_CODES
             or not x.dtype == weight.dtype == dy.dtype):
         raise TypeError("rmsnorm_bwd_cuda: x, weight and dy must all be "
@@ -120,6 +133,10 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
         raise ValueError(f"rmsnorm_bwd_cuda: a row of {d} x {x.dtype} must be "
                          f"a multiple of 16 bytes and at most {MAX_BWD_D} "
                          "wide")
+    if not (x.is_cuda and weight.device == x.device and dy.device == x.device):
+        raise ValueError("rmsnorm_bwd_cuda: x, weight and dy must be on one "
+                         f"CUDA device (got {x.device}, {weight.device}, "
+                         f"{dy.device})")
     if not (x.is_contiguous() and weight.is_contiguous()
             and dy.is_contiguous()):
         raise ValueError("rmsnorm_bwd_cuda: x, weight and dy must be "

@@ -77,7 +77,8 @@ def _leaf_close(got, want, tol=1e-4, what=""):
 
 # ----------------------------------------------------------- kernels
 
-@pytest.mark.parametrize("shape", [(3, 5, 64), (7, 16)])
+@pytest.mark.parametrize("shape", [(3, 5, 64), (7, 16),
+                                   (3, 12288), (2, 16384)])  # the widest rows
 @pytest.mark.parametrize("path", ["ref", "function"])
 def test_rmsnorm_backward_matches_jax_grad(shape, path):
     rng = np.random.default_rng(0)

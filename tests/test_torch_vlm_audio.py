@@ -578,15 +578,50 @@ def test_flash_f32_query_over_bf16_keys_and_values():
     (4096, 8192, 2, 4),       # llama-3.2-vision's d_model, bf16
     (640, 8192, 4, 8),        # ... in f32
     (100, 4096, 4, 4),        # the first f32 width past the row groups
-    (7, 6144, 2, 4)])         # fewer rows than CTAs
+    (7, 6144, 2, 4),          # fewer rows than CTAs
+    (4096, 12288, 2, 4),      # mistral-large-123b's d_model, bf16
+    (4096, 16384, 2, 4),      # llama3-405b's
+    (4096, 12288, 4, 8),      # ... both in f32
+    (4096, 16384, 4, 8),
+    (7, 16384, 2, 4)])        # llama3-405b's decode rows
 def test_rmsnorm_bwd_plan_for_long_rows(rows, d, itemsize, vecs):
     """Rows of more than 512 vectors take the long-row backward: one row a
     CTA of 256 threads, 4 vectors a thread (8 past 1024 vectors), on a
-    one-wave grid of two CTAs an SM that strides over the rows."""
+    one-wave grid of two CTAs an SM that strides over the rows.  Rows wider
+    than 8192 take the wide-row backward: one row a CTA of 512 threads of
+    32 elements (4 bf16 or 8 f32 vectors), one CTA an SM."""
     from repro_torch.kernels.rmsnorm.kernel import (BWD_LONG_CTAS_PER_SM,
-                                                    BWD_THREADS, MAX_BWD_D,
+                                                    BWD_LONG_D, BWD_THREADS,
+                                                    BWD_WIDE_CTAS_PER_SM,
+                                                    BWD_WIDE_ELEMS,
+                                                    BWD_WIDE_THREADS,
+                                                    MAX_BWD_D,
                                                     rmsnorm_bwd_plan)
     p = rmsnorm_bwd_plan(rows, d, itemsize, 132)
-    assert p == (vecs, BWD_THREADS, 1, min(rows, BWD_LONG_CTAS_PER_SM * 132))
+    threads, ctas = ((BWD_WIDE_THREADS, BWD_WIDE_CTAS_PER_SM) if d > BWD_LONG_D
+                     else (BWD_THREADS, BWD_LONG_CTAS_PER_SM))
+    assert p == (vecs, threads, 1, min(rows, ctas * 132))
     nvec = d * itemsize // 16
-    assert vecs * BWD_THREADS >= nvec > 512 and d <= MAX_BWD_D
+    assert vecs * threads >= nvec > 512 and d <= MAX_BWD_D
+    if d > BWD_LONG_D:
+        assert vecs * 16 // itemsize == BWD_WIDE_ELEMS
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_bwd_refuses_rows_past_16384(dtype):
+    """d 16392 (16384 and one more 16-byte vector) has no backward kernel:
+    the plan and the wrapper refuse it before any launch, with no plain
+    version behind them; 16384 itself is planned."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
+    from repro_torch.kernels.rmsnorm.kernel import MAX_BWD_D, rmsnorm_bwd_plan
+    assert MAX_BWD_D == 16384
+    size = torch.finfo(dtype).bits // 8
+    assert rmsnorm_bwd_plan(4, 16384, size).lanes == 512
+    with pytest.raises(ValueError, match="16392"):
+        rmsnorm_bwd_plan(4, 16392, size)
+    x = torch.ones(2, 16392, dtype=dtype)
+    w = torch.ones(16392, dtype=dtype)
+    before = rmsnorm_bwd_cuda.launches
+    with pytest.raises(ValueError, match="at most 16384"):
+        rmsnorm_bwd_cuda(x, w, x)
+    assert rmsnorm_bwd_cuda.launches == before
