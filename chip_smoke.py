@@ -20,7 +20,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
                 of cold-L2 runs): RMSNorm and flash attention forward and
                 backward in bf16 and f32 at the serving and training paths'
                 shapes (GQA groups 1-16, d_model 1024-16384, the q/k norms'
-                row counts), the SSD chunk kernel and its backward in f32
+                row counts), flash's decode variant at one query row
+                (``DECODE_CASES``: GQA groups 1-24, hd 64, 1-4096 keys,
+                causal, lse; timed at llama-vision's decode shapes beside
+                the ``wgmma`` variant, ``wgmma_ms``), the SSD chunk kernel
+                and its backward in f32
                 (the backward twice: the same bits; at a rank's shard of
                 the 2 x 2 paths too); ``ssd`` (chunk kernel +
                 recurrence) against ``ssd_ref`` at the zamba2 prefill shape,
@@ -154,10 +158,13 @@ Phases, each printing one JSON line (``{"phase": ...}``):
      model's prefill and serving, each model's train steps
      (``train/<arch>``), ``mesh/qwen3-1.7b``, the three ``mesh2x2/`` paths
      (each one's four ranks' launches summed) and ``unified/qwen3-1.7b``,
-     each counted from 0 and summed; flash attention's forward and backward also by variant,
-     and every prefill and training flash launch must be the ``wgmma``
-     one), errors, times and bounds, for the three forward kernels and the
-     three backward ones.
+     each counted from 0 and summed; flash attention's forward and
+     backward also by variant: every prefill and training flash launch
+     must be the ``wgmma`` one, and every decode launch (a vlm's
+     cross-attention, one query row) the ``decode`` one), errors, times
+     and bounds, for the three forward kernels, the three backward ones
+     and the forward's decode variant (``flash_attention/decode``: its own
+     kernel, launched through ``flash_attention_cuda``).
 
 The models, in order: qwen3-1.7b (dense; RMSNorm and flash attention),
 zamba2-1.2b (hybrid; all three forward kernels), mamba2-370m (ssm; RMSNorm
@@ -166,7 +173,8 @@ granite-moe-3b-a800m and qwen3-moe-30b-a3b (moe; RMSNorm and flash
 attention at GQA groups 3 and 8), musicgen-large (audio; the dense kernels
 on frame embeddings) and llama-3.2-vision-90b (vlm; RMSNorm at d 8192,
 causal flash attention at H64/KV8/hd128, and non-causal cross-attention
-over 1601 image tokens: prefill's Sq 1024 and decode's Sq 1), then
+over 1601 image tokens: prefill's Sq 1024 and decode's Sq 1, the latter
+the ``decode`` variant), then
 qwen2.5-14b, mistral-large-123b and llama3-405b (dense: RMSNorm at d
 5120, 12288 and 16384, flash attention at GQA groups 5, 12 and 16, hd 128),
 then qwen3-1.7b, granite-moe-3b-a800m, zamba2-1.2b, mamba2-370m,
@@ -263,6 +271,12 @@ SOURCES = {
                 "src/repro/kernels/rmsnorm/kernel.py:24"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:72"),
+    # The forward's decode variant (one query row), a kernel of its own in
+    # the source launched through flash_attention_cuda: its cases and its
+    # launches (``flash_attention/decode``) apart from the other variants'.
+    "flash_attention/decode": ("src/repro_torch/csrc/flash_attention.cu",
+                               "src/repro/kernels/flash_attention/"
+                               "kernel.py:72"),
     "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
                   "src/repro/kernels/ssd/kernel.py:44"),
     # The TPU kernels have no backward: these are the gradients of the three
@@ -506,22 +520,37 @@ def attention_work(B, Sq, Skv, H, hd, causal, q_offset):
 
 
 def flash_case(B, Sq, Skv, H, KV, hd, causal, q_offset, dtype, gen, flush,
-               timed):
+               timed, build=None, lse=False):
+    """The forward against ``flash_attention_ref`` (with ``lse``, the rows'
+    log-sum-exp too, at the same tolerance).  A ``decode`` case also carries
+    its plan and ptxas's numbers for its kernel (``build``), and, timed,
+    the ``wgmma`` variant's time at the same shape (``wgmma_ms``)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_ref)
+    from repro_torch.kernels.flash_attention.kernel import plan
     q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, Skv, KV, hd, generator=gen, device="cuda").to(dtype)
     v = torch.randn(B, Skv, KV, hd, generator=gen, device="cuda").to(dtype)
     kw = dict(causal=causal, q_offset=q_offset)
-    ok, err = close_enough(flash_attention_cuda(q, k, v, **kw),
-                           flash_attention_ref(q, k, v, **kw),
-                           TOL[dtype]["flash_attention"], dtype)
-    from repro_torch.kernels.flash_attention.kernel import plan
+    p = plan(dtype, hd, B, Sq, H, Skv=Skv, KV=KV, **kw)
+    got = flash_attention_cuda(q, k, v, return_lse=lse, **kw)
+    want = flash_attention_ref(q, k, v, return_lse=lse, **kw)
+    tol = TOL[dtype]["flash_attention"]
+    if lse:
+        (got, got_lse), (want, want_lse) = got, want
+        ok_lse, err_lse = close_enough(got_lse, want_lse, tol, torch.float32)
+    ok, err = close_enough(got, want, tol, dtype)
     r = {"kernel": "flash_attention", "shape": [B, Sq, Skv, H, KV, hd],
-         "variant": plan(dtype, hd, B, Sq, H).variant,
+         "variant": p.variant,
          "causal": causal, "q_offset": q_offset, "dtype": str(dtype)[6:],
-         "ok": ok, "max_abs_err": err, "tol": TOL[dtype]["flash_attention"]}
+         "ok": ok, "max_abs_err": err, "tol": tol}
+    if lse:
+        r.update(ok=ok and ok_lse, lse_max_abs_err=err_lse)
+    if p.variant == "decode":
+        r.update(grid=list(p.grid), split_keys=p.block_kv, smem=p.smem_bytes,
+                 **kernel_build(build or {}, "flash_fwd_decode_kernel",
+                                f"ILi{hd}E"))
     if timed:
         flops = attention_work(B, Sq, Skv, H, hd, causal, q_offset)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -539,7 +568,33 @@ def flash_case(B, Sq, Skv, H, KV, hd, causal, q_offset, dtype, gen, flush,
                  bound_ms=max(t_ops, t_bytes),
                  bound_by="operations" if t_ops >= t_bytes else "bytes")
         r["tflops"] = flops / r["ms"] / 1e9
+        if p.variant == "decode":
+            r["wgmma_ms"] = time_ms(lambda: flash_attention_cuda(
+                q, k, v, variant="wgmma", **kw), flush)
     return r
+
+
+# Decode's one query row (the ``decode`` variant), bf16, untimed, beside
+# the two timed llama-vision shapes: GQA groups 1, 5, 12, 16 and 24 (two
+# row tiles), hd 64, key counts of 1 (one split), 65 and 129 (a last chunk
+# of one key) and 4096 (16 splits of 256), the causal row at q_offset 0
+# (one key) and 700, and lse at Sq 1 (the flash Function's forward asks
+# for it).
+# ((B, Sq, Skv, H, KV, hd), causal, q_offset, lse)
+DECODE_CASES = [((4, 1, 1601, 8, 8, 128), False, 0, False),
+                ((4, 1, 1601, 40, 8, 128), False, 0, False),
+                ((2, 1, 1601, 96, 8, 128), False, 0, False),
+                ((2, 1, 1601, 128, 8, 128), False, 0, False),
+                ((1, 1, 300, 48, 2, 128), False, 0, False),
+                ((4, 1, 1601, 64, 8, 64), False, 0, False),
+                ((3, 1, 1, 16, 8, 128), False, 0, False),
+                ((3, 1, 65, 16, 4, 128), False, 0, False),
+                ((3, 1, 129, 32, 4, 64), False, 0, False),
+                ((2, 1, 4096, 64, 8, 128), False, 0, False),
+                ((2, 1, 1024, 32, 8, 128), True, 0, False),
+                ((2, 1, 1024, 32, 8, 128), True, 700, False),
+                ((2, 1, 1024, 40, 8, 64), True, 700, True),
+                ((4, 1, 1601, 64, 8, 128), False, 0, True)]
 
 
 def grad_close(got, want, dtype, kind: str) -> tuple:
@@ -884,9 +939,9 @@ def phase_kernels(build: dict) -> list:
             ((4, 1024, 1024, 24, 8, 64), True, 0, (bf16,)),   # granite, GQA 3
             ((4, 1024, 1024, 32, 4, 128), True, 0, (bf16,)),  # qwen3-moe, 8
             ((1, 1000, 1000, 6, 2, 64), True, 0, ()),         # ragged group 3
-            # llama-vision: cross-attention over 1601 image tokens (prefill
-            # and decode's one row, whose 128-row Q tile holds one valid row
-            # and whose last KV tile 65 keys), and its self-attention.
+            # llama-vision: cross-attention over 1601 image tokens (prefill,
+            # and decode's one row: the decode variant, a cluster of 8 key
+            # splits of 192-208 keys), and its self-attention.
             ((4, 1024, 1601, 64, 8, 128), False, 0, (bf16,)),
             ((4, 1, 1601, 64, 8, 128), False, 0, (bf16,)),
             ((4, 1024, 1024, 64, 8, 128), True, 0, (bf16,)),
@@ -895,13 +950,16 @@ def phase_kernels(build: dict) -> list:
             ((2, 1024, 1024, 16, 16, 64), True, 0, (bf16,)),
             ((2, 1024, 1024, 12, 4, 64), True, 0, (bf16,)),   # granite, 2x2
             # llama-vision's 2x2 shard of its cross-attention: prefill, and
-            # decode's one query row
+            # decode's one query row (16 key splits of 96-112 keys)
             ((2, 1024, 1601, 32, 4, 128), False, 0, (bf16,)),
             ((2, 1, 1601, 32, 4, 128), False, 0, (bf16,)),
             *GQA_WIDE_CASES]:
         for dtype in (bf16, f32):
             results.append(flash_case(*shape, causal, off, dtype, gen, flush,
-                                      dtype in timed))
+                                      dtype in timed, build))
+    for shape, causal, off, lse in DECODE_CASES:
+        results.append(flash_case(*shape, causal, off, bf16, gen, flush,
+                                  False, build, lse))
     # (b, c, l, h, p, n, B/C scale): zamba2 and mamba2 prefill (4 x 1024
     # tokens), the reduced configs, tests/test_kernels.py's shape, a chunk
     # that is not a multiple of the 64-row tile, ragged head groups (5
@@ -1145,9 +1203,9 @@ def cross_fired(cfg) -> int:
 
 def expected_per_forward(cfg) -> dict:
     """Kernel launches one prefill forward must make; every flash launch is
-    the wgmma variant (bf16, hd 64 / 128).  moe and audio count as dense
-    (moe's ``ffn_norm`` takes the place of the SwiGLU's); a vlm's cross
-    layer adds its norm and its flash launch each time it fires."""
+    the wgmma variant (bf16, hd 64 / 128, Sq >= 2).  moe and audio count as
+    dense (moe's ``ffn_norm`` takes the place of the SwiGLU's); a vlm's
+    cross layer adds its norm and its flash launch each time it fires."""
     L = cfg.n_layers
     if cfg.family in ("dense", "moe", "audio", "vlm"):
         norms = L * (2 + 2 * cfg.qk_norm) + cross_fired(cfg) + 1
@@ -1158,7 +1216,8 @@ def expected_per_forward(cfg) -> dict:
     return {"rmsnorm": norms, "flash_attention": flash, "ssd_chunk": ssd,
             "rmsnorm_bwd": 0, "flash_attention_bwd": 0, "ssd_chunk_bwd": 0,
             "flash_attention/wgmma": flash, "flash_attention/mma_sync": 0,
-            "flash_attention/fma": 0, "flash_attention_bwd/wgmma": 0,
+            "flash_attention/fma": 0, "flash_attention/decode": 0,
+            "flash_attention_bwd/wgmma": 0,
             "flash_attention_bwd/mma_sync": 0, "flash_attention_bwd/fma": 0}
 
 
@@ -1445,12 +1504,13 @@ def phase_serve(cfg, params) -> dict:
     client.close()
     retrievals = sum(r.retrieved for r in done)
     # Decode reaches the flash kernel only through a vlm's cross-attention
-    # (one q row over the image): once a step for each cross layer that
-    # fires.
+    # (one q row over the image): its decode variant, once a step for each
+    # cross layer that fires.
     ok = (len(done) == n_req and retrievals == 4 * n_req
           and all(len(r.output) == max_new for r in done)
           and launches["flash_attention"] == eng.steps * cross_fired(cfg)
-          == launches["flash_attention/wgmma"])
+          == launches["flash_attention/decode"]
+          and launches["flash_attention/wgmma"] == 0)
     return {"engine": eng, "ok": ok, "requests": len(done),
             "tokens": sum(len(r.output) for r in done), "seconds": dt,
             "steps": eng.steps, "launches": launches,
@@ -1745,6 +1805,7 @@ def expected_per_train_step(cfg) -> dict:
             "flash_attention_bwd": flash, "ssd_chunk_bwd": ssd,
             "flash_attention/wgmma": 2 * flash,
             "flash_attention/mma_sync": 0, "flash_attention/fma": 0,
+            "flash_attention/decode": 0,
             "flash_attention_bwd/wgmma": flash,
             "flash_attention_bwd/mma_sync": 0, "flash_attention_bwd/fma": 0}
 
@@ -3398,10 +3459,12 @@ def expected_per_decode_step(cfg) -> dict:
     """Kernel launches of one decode step: a forward's RMSNorms, no SSD
     chunk launch and no flash launch for self-attention (decode attention
     and the SSD step are plain torch); a vlm's cross-attention launches
-    flash (one query row) each time a cross layer fires."""
+    flash's ``decode`` variant (one query row) each time a cross layer
+    fires, and no ``wgmma`` one."""
     fwd = expected_per_forward(cfg)
     return {**fwd, "ssd_chunk": 0, "flash_attention": cross_fired(cfg),
-            "flash_attention/wgmma": cross_fired(cfg)}
+            "flash_attention/wgmma": 0,
+            "flash_attention/decode": cross_fired(cfg)}
 
 
 def mesh2_prepare(arch: str) -> dict:
@@ -4386,11 +4449,12 @@ def profile_once(arch: str, what: str, fn, top_n: int = 10) -> None:
     # By substring: "ssd_" is every SSD kernel, the backward's three
     # ("ssd_chunk_bwd") included, and an older checkout's two;
     # "rmsnorm" is every RMSNorm kernel, backward ("rmsnorm_bwd", and its
-    # dw column sums "rmsnorm_dw") included; "flash_bwd" includes the D pass.
+    # dw column sums "rmsnorm_dw") included; "flash_bwd" includes the D pass;
+    # "flash_fwd" every forward variant, "flash_fwd_decode" the decode one.
     ours = {k: [sum(ms for name, ms, _ in rows if k in name),
                 sum(n for name, _, n in rows if k in name)]
-            for k in ("ssd_", "ssd_chunk_bwd", "flash_fwd", "flash_bwd",
-                      "rmsnorm", "rmsnorm_bwd", "rmsnorm_dw")}
+            for k in ("ssd_", "ssd_chunk_bwd", "flash_fwd", "flash_fwd_decode",
+                      "flash_bwd", "rmsnorm", "rmsnorm_bwd", "rmsnorm_dw")}
     emit("profile", arch=arch, what=what, wall_ms=wall_ms,
          device_ms=device_ms,
          busy_share=device_ms / wall_ms if wall_ms else None,
@@ -4510,7 +4574,8 @@ def main() -> int:
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
-        mine = [c for c in cases if c["kernel"] == name]
+        mine = [c for c in cases if c["kernel"] + (
+            "/decode" if c.get("variant") == "decode" else "") == name]
         timed = [c for c in mine if "ms" in c]
         r = timed[0]                     # the main path's first shape
         kernels.append({
@@ -4525,7 +4590,7 @@ def main() -> int:
             "cases_ok": sum(c["ok"] for c in mine), "cases": len(mine),
             "timed": [{k: c[k] for k in ("shape", "dtype", "variant", "ms",
                                          "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms") if k in c}
+                                         "library_ms", "wgmma_ms") if k in c}
                       for c in timed],
             "launches_by_path": {
                 arch: ({"path": p["launches"][name],

@@ -24,7 +24,8 @@ more batch, from seed 100 s + 99, is evaluated.
 ``--main-path`` draws as ``chip_smoke.run_train`` does instead: each draw
 is a fresh model trained by ``chip_smoke.phase_train`` (kernels, the
 cached token pipeline) and held by ``chip_smoke.grad_pair`` in f32 on its
-last batch, the check itself; the draws differ only where the kernels'
+last batch, the check itself, then broken down as above (no breakdown
+with ``--kernels-only``); the draws differ only where the kernels'
 backwards do from run to run.
 
     python3 examples/train_f32_draws_torch.py
@@ -117,7 +118,7 @@ def main() -> int:
         torch.use_deterministic_algorithms(True, warn_only=True)
         torch.utils.deterministic.fill_uninitialized_memory = True
     if args.main_path:
-        return main_path(args.arch, args.draws)
+        return main_path(args.arch, args.draws, args.kernels_only)
     cfg, init = init_model(args.arch)
     plain_vg = make_value_and_grad(cfg, remat="full", force_ref=True)
     kern_vg = make_value_and_grad(cfg, remat="full")
@@ -155,18 +156,36 @@ def main() -> int:
     return 0
 
 
-def main_path(arch: str, draws: int) -> int:
+def main_path(arch: str, draws: int, kernels_only: bool) -> int:
+    """Each draw's ``grad_pair`` line; unless ``kernels_only``, also the
+    same weights' second kernel run and each kernel family alone against
+    the plain versions (``only``), as the other draws report them."""
     for s in range(draws):
         cfg, params = init_model(arch)
         tr = phase_train(cfg, params)
         p = tree_to(params, lambda t: t.float())
         del params
         torch.cuda.empty_cache()
-        r = grad_pair(cfg, p, tr["batch"], torch.float32)
-        print(json.dumps({"arch": arch, "draw": s, "train_losses": tr["losses"],
-                          "ratio": r["worst_grad_rel_l2"]
-                          / r["floor_worst_grad_rel_l2"], **r}), flush=True)
-        del p, tr
+        batch = tr["batch"]
+        r = grad_pair(cfg, p, batch, torch.float32)
+        out = {"arch": arch, "draw": s, "train_losses": tr["losses"],
+               "ratio": r["worst_grad_rel_l2"] / r["floor_worst_grad_rel_l2"],
+               **r}
+        if not kernels_only:
+            kern_vg = make_value_and_grad(cfg, remat="full")
+            plain = make_value_and_grad(cfg, remat="full", force_ref=True)(
+                p, batch)
+            kern = kern_vg(p, batch)
+            out["kernels"] = worst(grad_gap(kern, plain)[1])
+            out["repeat"] = worst(grad_gap(kern_vg(p, batch), kern)[1])
+            del kern
+            for fam in FAMILIES:
+                with only(fam):
+                    out[f"{fam}_only"] = worst(
+                        grad_gap(kern_vg(p, batch), plain)[1])
+            del plain
+        print(json.dumps(out), flush=True)
+        del p, tr, batch
         torch.cuda.empty_cache()
     return 0
 

@@ -1,6 +1,6 @@
 // Flash-attention forward and backward for Hopper (sm_90a): online softmax,
 // GQA, causal with q_offset, any Sq and Skv.  The backward is described
-// where it starts, below the forward's three variants.
+// where it starts, below the forward's four variants.
 //
 // Replaces the TPU kernel `flash_attention_pallas` / `_flash_kernel`
 // (src/repro/kernels/flash_attention/kernel.py).  It computes what that
@@ -11,13 +11,15 @@
 // l and its slice of acc in registers.
 //
 // Bound on the H100: tensor FLOPs (4 * B * H * Sq * Skv * hd, about half of
-// it under the causal mask, against 989 TFLOP/s bf16).  Three kernels, one
-// per variant; the launch plan (variant, tiles, grid, shared memory) comes
-// from `plan()` in kernels/flash_attention/kernel.py, and nothing falls back
-// from one variant to another:
-//   * wgmma (bf16, hd 64 and 128: every serving shape).  FlashAttention-3 in
-//     outline.  A persistent grid (one CTA per SM) walks the work items (128
-//     q rows of one (b, h)) heaviest first.  A CTA has three warpgroups.
+// it under the causal mask, against 989 TFLOP/s bf16), but for one query
+// row (decode), where it is bytes.  Four kernels, one per variant; the
+// launch plan (variant, tiles, grid, shared memory) comes from `plan()` in
+// kernels/flash_attention/kernel.py, and nothing falls back from one
+// variant to another:
+//   * wgmma (bf16, hd 64 and 128, Sq >= 2: prefill and training).
+//     FlashAttention-3 in outline.  A persistent grid (one CTA per SM)
+//     walks the work items (128 q rows of one (b, h)) heaviest first.  A
+//     CTA has three warpgroups.
 //     Warpgroup 0 is the producer: its one elected thread TMA-loads each
 //     item's Q tile into one of two Q buffers (so the next item's Q arrives
 //     while the current one runs) and the K and V tiles of 128 keys into a
@@ -48,6 +50,10 @@
 //     of 16 q rows, K and V tiles loaded synchronously into shared memory.
 //   * fma (f32): plain f32 FMA from shared memory (f32 inputs must not be
 //     rounded to bf16), 16 x 16 threads each owning 4 q rows x 4 KV columns.
+//   * decode (bf16, hd 64 and 128, Sq = 1: decode's cross-attention): split
+//     KV ("flash-decoding"), the GQA group's heads as one tile's rows, the
+//     splits of a group one cluster, merged through distributed shared
+//     memory; described where it starts, below.
 // All skip the work the mask removes: KV tiles wholly above the causal
 // diagonal are never loaded or multiplied, and the heaviest q tiles are
 // scheduled first.
@@ -59,10 +65,14 @@
 #include "common.cuh"
 #include "hopper.cuh"
 
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
 // Variant codes passed from Python (kernels/flash_attention/kernel.py: VARIANTS).
-enum Variant : int { kWgmma = 0, kMmaSync = 1, kFma = 2 };
+enum Variant : int { kWgmma = 0, kMmaSync = 1, kFma = 2, kDecode = 3 };
 
 constexpr int kBQ = 64;       // fma and mma_sync: q rows per CTA
 constexpr int kBK = 64;       // fma and mma_sync: KV rows per tile
@@ -805,6 +815,344 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Skv, H,
       KV, causal, q_offset, scale);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------- bf16 decode (Sq = 1, hd 64, 128)
+//
+// One query row a (b, q head): decode's cross-attention over an image's
+// keys.  Bound on the H100 by bytes, not FLOPs: each K and V row is read
+// once and used for the G = H / KV query heads of its GQA group, about 4 G
+// FLOPs a byte pair, far below the tensor cores' ~295 a byte.  The wgmma
+// variant would spend a 128-row Q tile on one valid row and stream each KV
+// head's keys once for each of its G heads, one KV tile after another.
+// Here ("flash-decoding"): one CTA per (key split, KV head x row tile, b).
+// Its rows are the group's heads (up to 16 a row tile, padded: mma.sync
+// m16n8k16's M), so each key's K and V leave HBM once for the whole group.
+// The 4 warps take 16-key chunks of the split in turn (chunk c goes to warp
+// c % 4); each warp streams its chunks' K and V rows by cp.async into its
+// own two-slot ring in shared memory (zeros past the split's last key), so
+// the next chunk loads while this one is used, and no barrier is shared
+// across warps until the end.  S = Q K^T and O += P V run on mma.sync as in
+// the mma_sync variant (P packed to bf16 from the score registers), with an
+// online softmax per warp.  The warps' (m, l, o) merge through shared
+// memory (weights exp(m_w - max)) into the split's partial: o unnormalised
+// in f32, m and l, kept in shared memory.  The splits of one (KV head, row
+// tile, b) are one thread-block cluster (grid x, at most 16 CTAs, split by
+// 16-key chunks as evenly as they go, none empty): after a cluster barrier
+// each CTA reads every split's partial from its peers' shared memory
+// (distributed shared memory), merges a share of the output's elements
+// with weights exp(m_i - max) (a split with no valid key would weigh
+// exactly 0), casts o to bf16 once and, when asked, writes lse; a second
+// barrier keeps every CTA's shared memory alive until its peers are done.
+// One launch, and no partial goes through global memory.  On an H100 at
+// llama-vision's decode shape (q (4, 1, 64, 128) over 1601 keys, 8 KV
+// heads) the loads and products end ~19.6 us after the launch (~4.8 us of
+// it the launch itself, timed after a write that fills L2 with dirty
+// lines) and the two merges take ~6 more; merging through global memory
+// after an atomic ticket instead (a __threadfence, the ticket, the last
+// CTA's reads) took 8-9 (examples/flash_decode_bench_torch.py --phases).
+// Keys at or past Skv, and under the causal mask past q_offset, are never
+// loaded.
+
+constexpr int kDecRows = 16;                     // q rows a row tile (m16)
+constexpr int kDecChunk = 16;                    // keys a warp takes at a time
+constexpr int kDecWarps = 4;
+constexpr int kDecThreads = kDecWarps * 32;
+constexpr int kDecStages = 2;                    // ring slots a warp
+constexpr int kDecMaxSplits = 16;                // CTAs a cluster (non-portable past 8)
+
+template <int HD>
+struct DecSmem {
+  static constexpr int LD = HD + 8;              // bf16 row stride: conflict-free fragments
+  static constexpr int SLOT = 2 * kDecChunk * LD;  // one chunk's K rows, then its V rows
+  static constexpr int KV_BYTES = kDecWarps * kDecStages * SLOT * 2;
+  static constexpr int ACC_LD = HD + 8;          // f32 row stride of the warps' o
+  static constexpr int ACC_BYTES = kDecWarps * kDecRows * ACC_LD * 4;
+  static constexpr int PART = ACC_BYTES;         // the split's o: [row][HD] f32
+  static constexpr int PART_BYTES = kDecRows * HD * 4;
+  // The rings, then (once they are drained) the warps' o and the split's.
+  static constexpr int BUF = KV_BYTES > PART + PART_BYTES ? KV_BYTES : PART + PART_BYTES;
+  static constexpr int ML = BUF;                 // the warps' m, l: [2][warp][row] f32
+  static constexpr int ROW = ML + 2 * kDecWarps * kDecRows * 4;  // the split's m, l: [2][row]
+  static constexpr int BYTES = ROW + 2 * kDecRows * 4;
+};
+
+// 16-byte asynchronous copy to shared memory, bypassing L1; zeros when !in.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The first key of split `i` of `n` over `chunks` 16-key chunks (the splits
+// differ by at most one chunk; kernel.py's decode_splits mirrors it).
+__device__ __forceinline__ int dec_split_begin(int i, int n, int chunks) {
+  return (int)((long long)i * chunks / n) * kDecChunk;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kDecThreads)
+flash_fwd_decode_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                        int Skv, int H, int KV, int n_keys, float scale) {
+  using S = DecSmem<HD>;
+  constexpr int KSTEPS = HD / 16;   // k-steps of S = Q K^T
+  constexpr int NT_O = HD / 8;      // n-tiles of O (8 columns each)
+  constexpr int PIECES = HD / 8;    // 16-byte pieces a row
+  constexpr int V4 = HD / 4;        // float4s a row of o
+  extern __shared__ __align__(16) uint8_t dsm[];
+  float* wm = reinterpret_cast<float*>(dsm + S::ML);  // [warp][row]
+  float* wl = wm + kDecWarps * kDecRows;
+  float* rm = reinterpret_cast<float*>(dsm + S::ROW);  // [row]
+  float* rl = rm + kDecRows;
+  float* part = reinterpret_cast<float*>(dsm + S::PART);  // [row][HD]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int split = blockIdx.x, n_splits = gridDim.x;  // one cluster: grid x
+  const int G = H / KV, RT = (G + kDecRows - 1) / kDecRows;
+  const int kvh = blockIdx.y / RT, rt = blockIdx.y % RT, b = blockIdx.z;
+  const int h0 = kvh * G + rt * kDecRows;            // the tile's first q head
+  const int rows = min(kDecRows, G - rt * kDecRows);  // its valid rows
+  const long long kv_ld = (long long)KV * HD;
+  const __nv_bfloat16* kb = k + (long long)b * Skv * kv_ld + (long long)kvh * HD;
+  const __nv_bfloat16* vb = v + (long long)b * Skv * kv_ld + (long long)kvh * HD;
+  const int chunks = (n_keys + kDecChunk - 1) / kDecChunk;
+  const int k_begin = dec_split_begin(split, n_splits, chunks);
+  const int k_end = min(dec_split_begin(split + 1, n_splits, chunks), n_keys);
+  const int n_chunks = (k_end - k_begin + kDecChunk - 1) / kDecChunk;
+  const int mine = n_chunks > warp ? (n_chunks - warp + kDecWarps - 1) / kDecWarps : 0;
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(dsm) + warp * kDecStages * S::SLOT;
+
+  // This warp's i-th chunk (split chunk warp + 4 i) into slot i & 1.
+  auto load = [&](int i) {
+    __nv_bfloat16* dst = ring + (i & 1) * S::SLOT;
+    const int k0 = k_begin + (warp + i * kDecWarps) * kDecChunk;
+#pragma unroll 2
+    for (int e = lane; e < kDecChunk * PIECES; e += 32) {
+      const int r = e / PIECES, d0 = (e % PIECES) * 8;
+      const bool in = k0 + r < k_end;
+      const long long off = (long long)(in ? k0 + r : k_begin) * kv_ld + d0;
+      cp_async16(dst + r * S::LD + d0, kb + off, in);
+      cp_async16(dst + (kDecChunk + r) * S::LD + d0, vb + off, in);
+    }
+  };
+  if (mine > 0) load(0);
+  cp_async_commit();
+  if (mine > 1) load(1);
+  cp_async_commit();
+
+  // Q's A fragments straight from global memory (rows g and g + 8; zero
+  // past the group's heads).
+  uint32_t qa[KSTEPS][4];
+  {
+    const __nv_bfloat16* q0 = q + ((long long)b * H + h0 + g) * HD + 2 * t;
+    const __nv_bfloat16* q1 = q0 + 8 * HD;
+    const bool in0 = g < rows, in1 = g + 8 < rows;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      qa[kk][0] = in0 ? ld32(q0 + kk * 16) : 0u;
+      qa[kk][1] = in1 ? ld32(q1 + kk * 16) : 0u;
+      qa[kk][2] = in0 ? ld32(q0 + kk * 16 + 8) : 0u;
+      qa[kk][3] = in1 ? ld32(q1 + kk * 16 + 8) : 0u;
+    }
+  }
+
+  float acc[NT_O][4];
+#pragma unroll
+  for (int n = 0; n < NT_O; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int i = 0; i < mine; ++i) {
+    cp_async_wait<1>();  // chunk i has landed (chunk i + 1 may still fly)
+    __syncwarp();
+    const __nv_bfloat16* Ks = ring + (i & 1) * S::SLOT;
+    const __nv_bfloat16* Vs = Ks + kDecChunk * S::LD;
+    const int k0 = k_begin + (warp + i * kDecWarps) * kDecChunk;
+
+    // S = Q K^T (unscaled): 16 rows x 16 keys.
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      const __nv_bfloat16* kr = &Ks[(j * 8 + g) * S::LD + 2 * t];
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk)
+        mma_bf16(s[j], qa[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
+    }
+    // Scale, mask past the split's last key, online softmax (rows g, g + 8).
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = k0 + j * 8 + 2 * t + (e & 1) < k_end;
+        s[j][e] = ok ? s[j][e] * scale : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = m_new == -INFINITY ? 1.f : expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+    l[0] *= alpha[0];
+    l[1] *= alpha[1];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        s[j][e] = s[j][e] == -INFINITY ? 0.f : expf(s[j][e] - m[r]);
+        l[r] += s[j][e];  // this thread's columns; quad-summed at the end
+      }
+#pragma unroll
+    for (int n = 0; n < NT_O; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+    // acc += P V.
+    uint32_t pa[4];
+    pa[0] = pack_bf16(s[0][0], s[0][1]);
+    pa[1] = pack_bf16(s[0][2], s[0][3]);
+    pa[2] = pack_bf16(s[1][0], s[1][1]);
+    pa[3] = pack_bf16(s[1][2], s[1][3]);
+    const __nv_bfloat16* vrow = &Vs[(lane & 15) * S::LD];
+#pragma unroll
+    for (int n = 0; n < NT_O; ++n) {
+      uint32_t b0, b1;
+      ldmatrix_x2_trans(vrow + n * 8, b0, b1);
+      mma_bf16(acc[n], pa, b0, b1);
+    }
+    __syncwarp();  // every lane is done with slot i & 1
+    if (i + 2 < mine) load(i + 2);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // The warps' partials into the split's: weights exp(m_w - max) a row.
+  const float lq[2] = {quad_sum(l[0]), quad_sum(l[1])};
+  if (t == 0) {
+    wm[warp * kDecRows + g] = m[0];
+    wm[warp * kDecRows + g + 8] = m[1];
+    wl[warp * kDecRows + g] = lq[0];
+    wl[warp * kDecRows + g + 8] = lq[1];
+  }
+  __syncthreads();  // the rings are free; every warp's m and l are visible
+  float* accs = reinterpret_cast<float*>(dsm);  // [warp][row][ACC_LD], over the rings
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = g + 8 * r;
+    float top = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) top = fmaxf(top, wm[w * kDecRows + row]);
+    const float wt = m[r] == -INFINITY ? 0.f : expf(m[r] - top);
+    float* dst = accs + (warp * kDecRows + row) * S::ACC_LD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NT_O; ++n)
+      *reinterpret_cast<float2*>(dst + n * 8) =
+          make_float2(acc[n][2 * r] * wt, acc[n][2 * r + 1] * wt);
+  }
+  __syncthreads();
+  for (int e = tid; e < rows * V4; e += kDecThreads) {
+    const int r = e / V4, c = (e % V4) * 4;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float4 x = *reinterpret_cast<const float4*>(
+          accs + (w * kDecRows + r) * S::ACC_LD + c);
+      sum.x += x.x; sum.y += x.y; sum.z += x.z; sum.w += x.w;
+    }
+    *reinterpret_cast<float4*>(part + r * HD + c) = sum;
+  }
+  if (tid < rows) {
+    float top = -INFINITY, sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) top = fmaxf(top, wm[w * kDecRows + tid]);
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float mw = wm[w * kDecRows + tid];
+      sum += mw == -INFINITY ? 0.f : expf(mw - top) * wl[w * kDecRows + tid];
+    }
+    rm[tid] = top;
+    rl[tid] = sum;
+  }
+
+  // Every split's partial, from the cluster's shared memory: CTA `split`
+  // merges elements split, split + n_splits, ... (4 columns each).
+  cluster.sync();  // the splits' partials are visible across the cluster
+  for (int e = split * kDecThreads + tid; e < rows * V4; e += n_splits * kDecThreads) {
+    const int r = e / V4, c = (e % V4) * 4;
+    float top = -INFINITY;
+    for (int sp = 0; sp < n_splits; ++sp)
+      top = fmaxf(top, *cluster.map_shared_rank(rm + r, sp));
+    float den = 0.f;
+    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int sp = 0; sp < n_splits; ++sp) {
+      const float ms = *cluster.map_shared_rank(rm + r, sp);
+      const float wt = ms == -INFINITY ? 0.f : expf(ms - top);
+      const float4 x = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(part + r * HD + c, sp));
+      den += wt * *cluster.map_shared_rank(rl + r, sp);
+      num.x += wt * x.x; num.y += wt * x.y; num.z += wt * x.z; num.w += wt * x.w;
+    }
+    den = fmaxf(den, 1e-30f);
+    const long long row = (long long)b * H + h0 + r;
+    const float inv = 1.f / den;
+    __nv_bfloat162 lo = __floats2bfloat162_rn(num.x * inv, num.y * inv);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(num.z * inv, num.w * inv);
+    uint2 packed;
+    packed.x = *reinterpret_cast<uint32_t*>(&lo);
+    packed.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(o + row * HD + c) = packed;
+    if (lse != nullptr && c == 0) lse[row] = top + logf(den);
+  }
+  cluster.sync();  // no CTA leaves while a peer still reads its partial
+}
+
+template <int HD>
+cudaError_t launch_decode(const void* q, const void* k, const void* v, void* o,
+                          float* lse, int Skv, int H, int KV, int n_keys,
+                          float scale, dim3 grid, int smem, cudaStream_t stream) {
+  if (smem < DecSmem<HD>::BYTES) return cudaErrorInvalidValue;
+  auto kern = flash_fwd_decode_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && grid.x > 8)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kDecThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = grid.x;  // the splits of one (KV head, row tile, b)
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, static_cast<const __nv_bfloat16*>(q),
+                           static_cast<const __nv_bfloat16*>(k),
+                           static_cast<const __nv_bfloat16*>(v),
+                           static_cast<__nv_bfloat16*>(o), lse, Skv, H, KV,
+                           n_keys, scale);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -1976,6 +2324,25 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
         case 128: return (int)launch_fma<128>(q, k, v, o, lse, Sq, Skv, H, KV, causal, q_offset, scale, grid, smem, s);
         default: return (int)bad;
       }
+    case kDecode: {
+      // One cluster of grid_x CTAs (a power of two, at most 16, one per
+      // split of at least one 16-key chunk) per (KV head x row tile, b).
+      const int rt = (H / KV + kDecRows - 1) / kDecRows;
+      const int n_keys = causal && q_offset < Skv ? q_offset + 1 : Skv;
+      const int chunks = (n_keys + kDecChunk - 1) / kDecChunk;
+      if (dtype != kBF16 || Sq != 1 || block_q != kDecRows ||
+          block_kv != kDecChunk || stages != kDecStages || grid_x < 1 ||
+          grid_x > kDecMaxSplits || (grid_x & (grid_x - 1)) || grid_x > chunks ||
+          grid_y != KV * rt || grid_z != B)
+        return (int)bad;
+      if (hd == 64)
+        return (int)launch_decode<64>(q, k, v, o, lse, Skv, H, KV, n_keys, scale,
+                                      grid, smem, s);
+      if (hd == 128)
+        return (int)launch_decode<128>(q, k, v, o, lse, Skv, H, KV, n_keys, scale,
+                                       grid, smem, s);
+      return (int)bad;
+    }
     default:
       return (int)bad;
   }

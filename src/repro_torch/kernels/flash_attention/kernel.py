@@ -6,12 +6,17 @@ flash_attention/kernel.py``); the JAX package has no backward kernel, and
 ``flash_attention_bwd_cuda`` computes what ``jax.grad`` of its reference
 computes.  On the H100 it is bound by
 tensor FLOPs (4 * B * H * Sq * Skv * hd, about half under the causal mask,
-over 989 TFLOP/s bf16).  Three variants, chosen by ``plan`` from the dtype
-and head dim: ``wgmma`` (bf16, hd 64 / 128: TMA loads into an mbarrier ring,
-warpgroup ``wgmma`` products, a producer and two consumer warpgroups),
-``mma_sync`` (bf16, hd 16 / 32: warp-level ``mma.sync``) and ``fma`` (f32,
-plain FMA, so nothing is rounded to bf16).  All skip the KV tiles the causal
-mask removes — see the source.  ``plan`` holds all of the launch's host-side
+over 989 TFLOP/s bf16), and at one query row by the bytes of K and V.  Four
+variants, chosen by ``plan`` from the dtype, the head dim and Sq: ``wgmma``
+(bf16, hd 64 / 128, Sq >= 2: TMA loads into an mbarrier ring, warpgroup
+``wgmma`` products, a producer and two consumer warpgroups), ``decode``
+(bf16, hd 64 / 128, Sq = 1: decode's cross-attention; one CTA per (key
+split, KV head, b) with the GQA group's heads as its rows on ``mma.sync``,
+K and V read once, the splits of a group one thread-block cluster that
+merges their partials through distributed shared memory), ``mma_sync``
+(bf16, hd 16 / 32: warp-level ``mma.sync``) and ``fma`` (f32, plain FMA,
+so nothing is rounded to bf16).  All skip the KV tiles the causal mask
+removes — see the source.  ``plan`` holds all of the launch's host-side
 arithmetic, and the C launcher takes its values as they are.
 ``flash_attention_cuda.launches`` counts launches, and
 ``flash_attention_cuda.variant_launches`` counts them by variant.  With
@@ -41,8 +46,13 @@ import torch
 from .. import _build
 
 HEAD_DIMS = (16, 32, 64, 128)
-VARIANTS = {"wgmma": 0, "mma_sync": 1, "fma": 2}  # csrc/flash_attention.cu Variant
+VARIANTS = {"wgmma": 0, "mma_sync": 1, "fma": 2,
+            "decode": 3}         # csrc/flash_attention.cu Variant
 SMEM_LIMIT = 232448              # dynamic shared memory a block may use (H100)
+DECODE_ROWS = 16                 # decode: q heads a row tile (mma.sync's M)
+DECODE_CHUNK = 16                # decode: a split's keys come in chunks of 16
+DECODE_SPLITS = 16               # decode: splits (CTAs of a cluster) at most
+DECODE_FILL = 2                  # decode: CTAs an SM the grid aims at, at most
 
 
 @dataclass(frozen=True)
@@ -60,14 +70,32 @@ class FlashPlan:
 
 
 def plan(dtype: torch.dtype, hd: int, B: int, Sq: int, H: int,
-         sms: int = 132) -> FlashPlan:
-    """The launch plan for q (B, Sq, H, hd) of ``dtype`` on a card with
-    ``sms`` SMs; the sizes mirror the structs of csrc/flash_attention.cu
-    (``WgSmem``, ``MmaSmem``, ``Smem``), whose launcher refuses a plan
-    smaller than its kernel needs."""
+         sms: int = 132, *, Skv: Optional[int] = None,
+         KV: Optional[int] = None, causal: bool = False, q_offset: int = 0,
+         variant: Optional[str] = None) -> FlashPlan:
+    """The launch plan for q (B, Sq, H, hd) of ``dtype`` over k, v (B, Skv,
+    KV, hd) on a card with ``sms`` SMs; the sizes mirror the structs of
+    csrc/flash_attention.cu (``WgSmem``, ``DecSmem``, ``MmaSmem``,
+    ``Smem``), whose launcher refuses a plan smaller than its kernel needs.
+    The variant follows from the dtype, hd and Sq; ``variant="wgmma"`` asks
+    for the ``wgmma`` one at Sq = 1 too (to time it beside ``decode``).
+    ``decode`` needs Skv and KV (its splits), and ``causal`` / ``q_offset``
+    (the keys the mask keeps)."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash attention: head dim {hd} not in {HEAD_DIMS}")
-    if dtype == torch.bfloat16 and hd >= 64:
+    tensor_core = dtype == torch.bfloat16 and hd >= 64
+    if variant is None and tensor_core:
+        variant = "decode" if Sq == 1 else "wgmma"
+    elif variant is not None and not (tensor_core
+                                      and variant in ("wgmma", "decode")):
+        raise ValueError(f"flash attention: no {variant} variant for {dtype}"
+                         f" at hd {hd}")
+    if variant == "decode":
+        if Sq != 1 or Skv is None or KV is None:
+            raise ValueError("flash attention: the decode variant takes Sq = "
+                             f"1 (got {Sq}) and needs Skv and KV")
+        return decode_plan(hd, B, H, Skv, KV, causal, q_offset, sms)
+    if variant == "wgmma":
         # Two Q tiles, then `stages` K tiles and `stages` V tiles of 128
         # keys; the barriers (q_full, q_empty per Q tile; k_full, v_full,
         # empty per slot); 1024 bytes to align the tiles to the 128-byte
@@ -88,6 +116,54 @@ def plan(dtype: torch.dtype, hd: int, B: int, Sq: int, H: int,
         floats = hd * 68 + 64 * (hd + 1) + 64 * hd + 64 * 68
         return FlashPlan("fma", 64, 64, 1, 256, grid, 4 * floats)
     raise TypeError(f"flash attention: no kernel for {dtype}")
+
+
+def decode_keys(Skv: int, causal: bool, q_offset: int) -> int:
+    """Keys the one query row at ``q_offset`` sees: all Skv, or under the
+    causal mask those up to its own position."""
+    return min(Skv, q_offset + 1) if causal else Skv
+
+
+def decode_plan(hd: int, B: int, H: int, Skv: int, KV: int, causal: bool,
+                q_offset: int, sms: int = 132) -> FlashPlan:
+    """The ``decode`` variant's plan: one CTA of 4 warps per (key split, KV
+    head x row tile, b), ``grid = (splits, KV * row tiles, b)``; a row tile
+    is up to ``DECODE_ROWS`` heads of one GQA group, and the splits of one
+    (KV head, row tile, b) are one cluster.  The splits: the largest power
+    of two up to ``DECODE_SPLITS`` that keeps the grid within
+    ``DECODE_FILL`` CTAs an SM (so that every cluster is resident at once)
+    and no split empty, cut at 16-key chunks as evenly as they go
+    (``decode_splits``).  ``block_kv`` is the chunk.  Shared memory
+    (``DecSmem``): each warp's two ring slots of 16 K and 16 V rows (padded
+    by 8 bf16), which the merge reuses for the warps' f32 partial o and the
+    split's, then the warps' and the split's m and l."""
+    if KV <= 0 or H % KV:
+        raise ValueError(f"flash attention: H {H} not a multiple of KV {KV}")
+    tiles = -(-(H // KV) // DECODE_ROWS)
+    pairs = B * KV * tiles
+    chunks = -(-decode_keys(Skv, causal, q_offset) // DECODE_CHUNK)
+    splits = DECODE_SPLITS
+    while splits > 1 and (pairs * splits > DECODE_FILL * sms
+                          or splits > chunks):
+        splits //= 2
+    warps, stages = 4, 2
+    ring = warps * stages * 2 * DECODE_CHUNK * (hd + 8) * 2
+    accs = warps * DECODE_ROWS * (hd + 8) * 4 + DECODE_ROWS * hd * 4
+    smem = max(ring, accs) + 2 * warps * DECODE_ROWS * 4 + 2 * DECODE_ROWS * 4
+    return FlashPlan("decode", DECODE_ROWS, DECODE_CHUNK, stages, 32 * warps,
+                     (splits, KV * tiles, B), smem)
+
+
+def decode_splits(p: FlashPlan, Skv: int, causal: bool,
+                  q_offset: int) -> list:
+    """The [begin, end) keys of each split of a ``decode`` plan, as the
+    kernel cuts them (``dec_split_begin``): split i of n starts at chunk
+    i * chunks // n."""
+    n_keys = decode_keys(Skv, causal, q_offset)
+    chunks, n = -(-n_keys // p.block_kv), p.grid[0]
+    return [(i * chunks // n * p.block_kv,
+             min((i + 1) * chunks // n * p.block_kv, n_keys))
+            for i in range(n)]
 
 
 BWD_BLOCK_KV = 64                # keys per CTA of the mma_sync and fma backwards
@@ -195,9 +271,11 @@ def kv_tiles(q0: int, block_q: int, block_kv: int, Sq: int, Skv: int,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, q_offset: int = 0,
                          softmax_scale: Optional[float] = None,
-                         return_lse: bool = False):
+                         return_lse: bool = False,
+                         variant: Optional[str] = None):
     """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd). Returns (B, Sq, H, hd), and
-    with ``return_lse`` also the rows' log-sum-exp (B, H, Sq) f32."""
+    with ``return_lse`` also the rows' log-sum-exp (B, H, Sq) f32.
+    ``variant``: ``plan``'s (None: from the shape)."""
     _build.plain("flash_attention_cuda", q, k, v)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_cuda: q, k, v must be on one CUDA "
@@ -216,7 +294,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda: head dim {hd} not in "
                          f"{HEAD_DIMS}")
-    p = plan(q.dtype, hd, B, Sq, H, _build.sm_count(q.device.index))
+    p = plan(q.dtype, hd, B, Sq, H, _build.sm_count(q.device.index),
+             Skv=Skv, KV=KV, causal=causal, q_offset=int(q_offset),
+             variant=variant)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_cuda: q, k, v must be contiguous")
     if int(q_offset) < 0:
@@ -312,4 +392,5 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 flash_attention_bwd_cuda.launches = 0
-flash_attention_bwd_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)
+flash_attention_bwd_cuda.variant_launches = dict.fromkeys(
+    ("wgmma", "mma_sync", "fma"), 0)       # the backward has no decode variant
